@@ -6,7 +6,8 @@
 Needs one CUDA device and ``nvcc``; imports only ``repro_torch``, torch,
 numpy and scipy. Phases (any failure exits non-zero and prints no result):
 
-  1. build     — compile the bsr_spgemm kernel from the repo's sources
+  1. build     — compile the three kernels from the repo's sources, one
+                 nvcc each, all started together; report bsr_spgemm's
   2. kernel    — the kernel against its plain PyTorch version on the card:
                  3 semirings x bs in {16, 32, 64, 128}, runs of 1-8
                  products, a seg_start offset and an empty schedule;
@@ -21,6 +22,38 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
   4. semirings — banded_clustered(65536, 64, 16.0) with integer weights,
                  bool_or_and and min_plus at nparts=8, bs=64, chunk=2,
                  bitwise against the port's host ``local_spgemm.spgemm``
+  5. build_lm  — load the flash_attention and moe_gemm libraries; ptxas's
+                 registers, spills and shared memory
+  6. flash_attention_vs_plain — the kernel against ``mha_ref`` on the card:
+                 causal, window in {0, 64}, softcap in {0, 50}, S in {77,
+                 128, 1000}, D in {64, 128, 256}, Hq = 8 with Hkv in {8, 2},
+                 float32 within atol 2e-5 + rtol 1e-4, bfloat16 within
+                 atol 2e-2 + rtol 1e-2 (one bf16 ulp of the output)
+  7. moe_gemm_vs_plain — the kernel against ``moe_gemm_ref`` on the card:
+                 E in {1, 64}, cap in {8, 96, 688}, (d, f) in {(2048, 1408),
+                 (1408, 2048), (640, 72), (200, 72)}; integer-valued float32
+                 bitwise, float32 within atol 1e-4 + rtol 1e-4, bfloat16
+                 within atol 2e-2 + rtol 1e-2
+  8. lm_serve  — qwen2-moe-a2.7b at its full published size (24 layers, 64
+                 padded experts, bf16 weights from a seeded generator)
+                 through ``ServeEngine.generate``: four prompts of 2048,
+                 1536, 1024 and 512 tokens, 32 new tokens, greedy,
+                 sync_every=8. The launch counts must be exactly 24
+                 flash_attention launches (one prefill) and 72 moe_gemm
+                 launches per forward; a second generate must repeat the
+                 tokens; no logit may be NaN or inf. The inputs of one
+                 layer's attention call and of its grouped GEMMs, in prefill
+                 and in a decode step, are captured by wrapping the model's
+                 op references, and each kernel is held against its plain
+                 version on them and timed beside the plain version, the
+                 library call and the bound. A torch.profiler window over a
+                 prefill-only and a 5-token generate splits device time by
+                 kernel. A 512-token bf16 prefill through the plain versions
+                 is compared with the kernels' logits (reported), and the
+                 model at full width cut to 2 layers in float32 must give
+                 the same prefill and decode logits through the kernels as
+                 through the plain versions, within 1e-3 of the largest
+                 logit
 
 Every main-path call must run on the kernel: ``fallbacks == 0``,
 ``last_call["engine"] == "cuda"`` and the kernel's launch count grows.
@@ -28,6 +61,7 @@ Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 card's name and power limit, and last ``{"ok": true, "device": ...}``.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -39,11 +73,12 @@ import numpy as np
 import torch
 
 # published rates of the H100 variants (NVIDIA data sheets, dense, at the
-# full power limit): fp32 on the CUDA cores (FMA = 2 FLOP), HBM bandwidth
+# full power limit): fp32 on the CUDA cores (FMA = 2 FLOP), HBM bandwidth,
+# bf16 on the tensor cores
 PEAKS = {
-    "PCIe": (51.2e12, 2.0e12),
-    "NVL": (60.0e12, 3.9e12),
-    "SXM": (66.9e12, 3.35e12),
+    "PCIe": (51.2e12, 2.0e12, 756e12),
+    "NVL": (60.0e12, 3.9e12, 835e12),
+    "SXM": (66.9e12, 3.35e12, 989.4e12),
 }
 SEMIRINGS = ("plus_times", "bool_or_and", "min_plus")
 
@@ -84,14 +119,25 @@ def bitwise(x, y):
         x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))
 
 
-def phase_build():
-    from repro_torch.kernels.bsr_spgemm import kernel
+def ptxas_lines(log):
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln or "entry function" in ln]
 
-    info = kernel.build()
-    regs = [ln.strip() for ln in info["log"].splitlines()
-            if "registers" in ln or "spill" in ln]
+
+def phase_build():
+    """All three kernels built in parallel; bsr_spgemm's library loaded."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.bsr_spgemm import kernel
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.moe_gemm import kernel as mg
+
+    infos = cuda_lib.compile_sources([kernel.SOURCE, fa.SOURCE, mg.SOURCE])
+    kernel.build()
+    info = infos[kernel.SOURCE]
     emit({"phase": "build", "seconds": info["seconds"],
-          "built": info["built"], "library": info["path"], "ptxas": regs})
+          "built": info["built"], "library": info["path"],
+          "ptxas": ptxas_lines(info["log"])})
+    return infos
 
 
 def random_schedule(rng, na, nb, nruns):
@@ -310,7 +356,7 @@ def measure_kernel(dev, plan, args):
     ms = cuda_ms(kern, 5)
     plain_ms = cuda_ms(plain, 2)
     name = torch.cuda.get_device_name(0)
-    variant, (flops_peak, hbm) = peaks(name)
+    variant, (flops_peak, hbm, _) = peaks(name)
     flops = 2 * real * bs ** 3
     nbytes = sum(t.numel() * t.element_size() for t in ins) + rs.numel() * 4 \
         + nc * bs * bs * 4
@@ -358,6 +404,517 @@ def phase_semirings(dev, sess, n=65536):
               **{k: entry.plan.stats[k] for k in REQUIRED_STATS}})
 
 
+def timing_entry(ms, plain_ms, library_ms, flop, moved, dtype, err):
+    """A kernel's timing beside its bound: max(flop / peak, bytes / HBM),
+    with the bf16 tensor-core peak for bf16 work and the fp32 peak else."""
+    variant, (fp32, hbm, bf16) = peaks(torch.cuda.get_device_name(0))
+    peak = bf16 if dtype == torch.bfloat16 else fp32
+    t_ops, t_bytes = flop / peak * 1e3, moved / hbm * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flop": flop, "bytes": moved, "max_abs_err": err,
+            "tflops": flop / ms / 1e9, "peak_variant": variant,
+            "peak_flops": peak, "hbm_bytes_per_s": hbm}
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def phase_build_lm(infos):
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.moe_gemm import kernel as mg
+
+    for mod in (fa, mg):
+        mod.build()
+        info = infos[mod.SOURCE]
+        emit({"phase": "build_lm", "kernel": mod.SOURCE.stem,
+              "seconds": info["seconds"], "built": info["built"],
+              "library": info["path"], "ptxas": ptxas_lines(info["log"])})
+
+
+def within(got, want, atol, rtol):
+    err = float((got.float() - want.float()).abs().max())
+    ok = bool(torch.all((got.float() - want.float()).abs()
+                        <= atol + rtol * want.float().abs()))
+    return ok, err
+
+
+TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
+MOE_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
+
+
+def phase_flash_grid(dev):
+    """The attention kernel against its plain version on the card."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    cases, errs = 0, {"float32": 0.0, "bfloat16": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (64, 128, 256):
+            for s in (77, 128, 1000):
+                for hkv in (8, 2):
+                    q = torch.randn(2, s, 8, d, generator=g, device=dev)
+                    k = torch.randn(2, s, hkv, d, generator=g, device=dev)
+                    v = torch.randn(2, s, hkv, d, generator=g, device=dev)
+                    q, k, v = (t.to(dtype) for t in (q, k, v))
+                    for window in (0, 64):
+                        for cap in (0.0, 50.0):
+                            kw = dict(scale=d ** -0.5, causal=True,
+                                      window=window, softcap=cap)
+                            got = flash_attention(q, k, v, **kw)
+                            want = mha_ref(q, k, v, **kw)
+                            torch.cuda.synchronize()
+                            ok, err = within(got, want, *TOL[dtype])
+                            check(ok, f"flash_attention != plain version: "
+                                      f"{dtype} D={d} S={s} Hkv={hkv} "
+                                      f"window={window} softcap={cap} "
+                                      f"(max abs err {err})")
+                            key = str(dtype).split(".")[-1]
+                            errs[key] = max(errs[key], err)
+                            cases += 1
+    emit({"phase": "flash_attention_vs_plain", "cases": cases,
+          "max_abs_err": errs, "tolerance": {"float32": TOL[torch.float32],
+                                             "bfloat16": TOL[torch.bfloat16]}})
+    return max(errs.values())
+
+
+def phase_moe_grid(dev):
+    """The grouped GEMM kernel against its plain version on the card."""
+    from repro_torch.kernels.moe_gemm.kernel import moe_gemm
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    cases, errs = 0, {"float32": 0.0, "bfloat16": 0.0}
+    for e in (1, 64):
+        for cap in (8, 96, 688):
+            for d, f in ((2048, 1408), (1408, 2048), (640, 72), (200, 72)):
+                x = torch.randn(e, cap, d, generator=g, device=dev)
+                w = torch.randn(e, d, f, generator=g, device=dev) * d ** -0.5
+                xi = torch.randint(-4, 5, (e, cap, d), generator=g,
+                                   device=dev).float()
+                wi = torch.randint(-4, 5, (e, d, f), generator=g,
+                                   device=dev).float()
+                got, want = moe_gemm(xi, wi), moe_gemm_ref(xi, wi)
+                torch.cuda.synchronize()
+                check(bitwise(got, want), f"moe_gemm != plain version on "
+                      f"integers: E={e} cap={cap} d={d} f={f}")
+                cases += 1
+                for dtype in (torch.float32, torch.bfloat16):
+                    xd, wd = x.to(dtype), w.to(dtype)
+                    got, want = moe_gemm(xd, wd), moe_gemm_ref(xd, wd)
+                    torch.cuda.synchronize()
+                    ok, err = within(got, want, *MOE_TOL[dtype])
+                    check(ok, f"moe_gemm != plain version: {dtype} E={e} "
+                              f"cap={cap} d={d} f={f} (max abs err {err})")
+                    key = str(dtype).split(".")[-1]
+                    errs[key] = max(errs[key], err)
+                    cases += 1
+    emit({"phase": "moe_gemm_vs_plain", "cases": cases,
+          "max_abs_err": errs,
+          "tolerance": {"float32": MOE_TOL[torch.float32],
+                        "bfloat16": MOE_TOL[torch.bfloat16],
+                        "integer_float32": "bitwise"}})
+    return max(errs.values())
+
+
+class Capture:
+    """Wraps the model's op references (``models.attention.
+    multihead_attention``, ``models.moe.grouped_gemm``) and the engine's
+    ``prefill_step`` / ``decode_step``: records the inputs of the first
+    layer's attention call and of its three grouped GEMMs in prefill and in
+    the first decode step, CUDA events around every step, and whether any
+    logit was not finite. Adds no kernel launch."""
+
+    def __init__(self):
+        import repro_torch.models.attention as attn_mod
+        import repro_torch.models.moe as moe_mod
+        import repro_torch.serve.engine as engine_mod
+
+        self.mods = (attn_mod, moe_mod, engine_mod)
+        self.orig = (attn_mod.multihead_attention, moe_mod.grouped_gemm,
+                     engine_mod.prefill_step, engine_mod.decode_step)
+        self.attn, self.gemm = {}, {}
+        self.events = {"prefill": [], "decode": []}
+        self.phase = None
+        self.bad = None
+        self.capturing = True
+
+    def __enter__(self):
+        attn_mod, moe_mod, engine_mod = self.mods
+        mha, gemm, prefill, decode = self.orig
+
+        def attn(q, k, v, *args):
+            if self.capturing and self.phase not in self.attn:
+                self.attn[self.phase] = (q.clone(), k.clone(), v.clone(),
+                                         args)
+            return mha(q, k, v, *args)
+
+        def grouped(x, w):
+            calls = self.gemm.setdefault(self.phase, [])
+            if self.capturing and len(calls) < 3:
+                calls.append((x.clone(), w))
+            return gemm(x, w)
+
+        def step(fn, phase):
+            def run(params, cfg, batch, caches):
+                self.phase = phase
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                logits, caches = fn(params, cfg, batch, caches)
+                t1.record()
+                self.events[phase].append((t0, t1))
+                bad = ~torch.isfinite(logits).all()
+                self.bad = bad if self.bad is None else self.bad | bad
+                if phase == "decode":
+                    self.capturing = False
+                return logits, caches
+            return run
+
+        attn_mod.multihead_attention = attn
+        moe_mod.grouped_gemm = grouped
+        engine_mod.prefill_step = step(prefill, "prefill")
+        engine_mod.decode_step = step(decode, "decode")
+        return self
+
+    def __exit__(self, *exc):
+        attn_mod, moe_mod, engine_mod = self.mods
+        (attn_mod.multihead_attention, moe_mod.grouped_gemm,
+         engine_mod.prefill_step, engine_mod.decode_step) = self.orig
+        return False
+
+    def step_ms(self, phase):
+        return [t0.elapsed_time(t1) for t0, t1 in self.events[phase]]
+
+
+def time_flash(dev, captured):
+    """Kernel, plain version and SDPA on the captured prefill attention."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+
+    q, k, v, (scale, causal, window, softcap) = captured
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+    got, want = flash_attention(q, k, v, **kw), mha_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ok, err = within(got, want, *TOL[q.dtype])
+    check(ok, f"prefill attention kernel != plain version ({err})")
+    del got, want
+    ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), 10)
+    plain_ms = cuda_ms(lambda: mha_ref(q, k, v, **kw), 3)
+    library_ms = None
+    if window == 0 and softcap == 0.0 and q.shape[2] == k.shape[2]:
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, scale=scale), 10)
+    b, s, hq, d = q.shape
+    rows = torch.arange(s, device=dev)
+    lo = (rows - window + 1).clamp(min=0) if window > 0 else 0 * rows
+    pairs = b * int((rows - lo + 1).sum())         # unmasked (row, key)
+    flop = 4 * d * hq * pairs                      # q.k and p.v
+    entry = timing_entry(ms, plain_ms, library_ms, flop,
+                         nbytes(q, k, v) + nbytes(q), q.dtype, err)
+    return {"shape": {"q": list(q.shape), "k": list(k.shape),
+                      "dtype": str(q.dtype), "window": window,
+                      "softcap": softcap}, **entry}
+
+
+def time_moe(x, w):
+    """Kernel, plain version and ``torch.bmm`` on one captured GEMM."""
+    from repro_torch.kernels.moe_gemm.kernel import block_rows, moe_gemm
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+
+    got, want = moe_gemm(x, w), moe_gemm_ref(x, w)
+    torch.cuda.synchronize()
+    ok, err = within(got, want, *MOE_TOL[x.dtype])
+    check(ok, f"grouped GEMM kernel != plain version at {tuple(x.shape)} x "
+              f"{tuple(w.shape)} ({err})")
+    routed = (x != 0).any(dim=-1)                   # (E, cap) filled slots
+    rows, experts = int(routed.sum()), int(routed.any(dim=-1).sum())
+    del got, want
+    reps = 20 if x.shape[1] <= 16 else 5
+    ms = cuda_ms(lambda: moe_gemm(x, w), reps)
+    plain_ms = cuda_ms(lambda: moe_gemm_ref(x, w), 3)
+    library_ms = cuda_ms(lambda: torch.bmm(x, w), reps)
+    e, cap, d = x.shape
+    f = w.shape[2]
+    el = x.element_size()
+    # what this run's data needs: the products of filled slots and the
+    # weights of experts with a filled slot (x read and y written whole)
+    entry = timing_entry(ms, plain_ms, library_ms, 2 * rows * d * f,
+                         nbytes(x) + experts * d * f * el + e * cap * f * el,
+                         x.dtype, err)
+    dense = timing_entry(ms, plain_ms, library_ms, 2 * e * cap * d * f,
+                         nbytes(x, w) + e * cap * f * el, x.dtype, err)
+    return {"shape": {"x": list(x.shape), "w": list(w.shape),
+                      "dtype": str(x.dtype), "block_rows": block_rows(cap),
+                      "filled_slots": rows, "experts_with_tokens": experts},
+            **entry, "dense_bound_ms": dense["bound_ms"],
+            "dense_bound_by": dense["bound_by"], "dense_flop": dense["flop"]}
+
+
+@contextlib.contextmanager
+def plain_ops():
+    """Point the model's op references at the plain versions (the
+    comparison's other side; the package itself has no such switch)."""
+    import repro_torch.models.attention as attn_mod
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+
+    orig = attn_mod.multihead_attention, moe_mod.grouped_gemm
+    attn_mod.multihead_attention = (
+        lambda q, k, v, scale, causal, window, softcap: mha_ref(
+            q, k, v, scale=scale, causal=causal, window=window,
+            softcap=softcap))
+    moe_mod.grouped_gemm = moe_gemm_ref
+    try:
+        yield
+    finally:
+        attn_mod.multihead_attention, moe_mod.grouped_gemm = orig
+
+
+def plain_prefill_check(params, cfg, dev, prompts):
+    """Prefill of the prompts' last n tokens (n the shortest prompt's
+    length) through the kernels and through the plain versions (the model's
+    op references pointed at them); the two sets of last-position logits
+    are compared."""
+    from repro_torch.models import init_caches, prefill_step
+
+    n = min(len(p) for p in prompts)
+    toks = torch.from_numpy(np.stack([p[-n:] for p in prompts])
+                            .astype(np.int64)).to(dev)
+    b = toks.shape[0]
+    logits_k, _ = prefill_step(params, cfg, {"tokens": toks},
+                               init_caches(cfg, b, n, device=dev))
+    with plain_ops():
+        logits_p, _ = prefill_step(params, cfg, {"tokens": toks},
+                                   init_caches(cfg, b, n, device=dev))
+    diff = float((logits_k - logits_p).abs().max())
+    scale = float(logits_p.abs().max())
+    same_top1 = int((logits_k.argmax(-1) == logits_p.argmax(-1)).sum())
+    return {"tokens": list(toks.shape), "max_abs_logit_diff": diff,
+            "max_abs_logit": scale, "rel": diff / scale,
+            "top1_agree": same_top1, "rows": b}
+
+
+def profile_generate(engine, prompts):
+    """Device time by kernel over a generate of 1 token (prefill only) and
+    of 5 tokens (prefill + 4 decode steps), from ``torch.profiler``; the
+    decode steps' share is the difference."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernels(max_new):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.generate(prompts, max_new_tokens=max_new, sync_every=0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out = {}
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                out[ev.key] = (ev.count, ev.self_device_time_total / 1e3)
+        return out, wall * 1e3
+
+    def kind(name):
+        low = name.lower()
+        if "flash_fwd" in name:
+            return "flash_attention"
+        if "moe_gemm_kernel" in name:
+            return "moe_gemm"
+        if any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet")):
+            return "library_gemm"
+        if "memcpy" in low or "memset" in low:
+            return "memcpy"
+        return "other"
+
+    pre, pre_wall = kernels(1)
+    full, full_wall = kernels(5)
+    res = {}
+    for label, table, wall in (("prefill", pre, pre_wall),
+                               ("prefill_plus_4_decode", full, full_wall)):
+        by_kind = {}
+        for name, (n, ms) in table.items():
+            k = by_kind.setdefault(kind(name), [0, 0.0])
+            k[0] += n
+            k[1] += ms
+        busy = sum(ms for _, ms in table.values())
+        top = sorted(table.items(), key=lambda kv: -kv[1][1])[:12]
+        res[label] = {"wall_ms": wall, "device_busy_ms": busy,
+                      "idle_share": 1 - busy / wall if wall else None,
+                      "by_kind": {k: {"launches": v[0], "ms": v[1]}
+                                  for k, v in by_kind.items()},
+                      "top": [{"kernel": n[:90], "launches": c, "ms": ms}
+                              for n, (c, ms) in top]}
+    return res
+
+
+def f32_plain_check(dev, arch, layers=2, n=256):
+    """The model at full width, cut to ``layers`` layers, in float32: a
+    prefill of 4 x n tokens and one decode step through the kernels and
+    through the plain versions; the logits must agree within 1e-3 of their
+    largest magnitude (float32 kernels agree with the plain versions to
+    ~1e-6 per op)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import (decode_step, init_caches, init_params,
+                                    prefill_step)
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                              dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                         device=dev, dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (4, n + 1), generator=g, device=dev)
+
+    def run():
+        caches = init_caches(cfg, 4, n + 1, device=dev)
+        lp, caches = prefill_step(params, cfg, {"tokens": toks[:, :n]},
+                                  caches)
+        ld, _ = decode_step(params, cfg, {"tokens": toks[:, n:]}, caches)
+        return lp, ld
+
+    kern = run()
+    with plain_ops():
+        plain = run()
+    out = {"dtype": "float32", "layers": layers, "tokens": [4, n]}
+    for name, a, b in (("prefill", kern[0], plain[0]),
+                       ("decode", kern[1], plain[1])):
+        diff = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        check(bool(torch.isfinite(a).all()), f"{name} logits not finite")
+        check(diff <= 1e-3 * scale, f"float32 {name} logits: kernels vs "
+              f"plain versions differ by {diff} (max |logit| {scale})")
+        out[name] = {"max_abs_logit_diff": diff, "max_abs_logit": scale,
+                     "top1_agree": int((a.argmax(-1) == b.argmax(-1)).sum())}
+    return out
+
+
+def phase_lm_serve(dev, arch="qwen2-moe-a2.7b", lens=(2048, 1536, 1024, 512),
+                   max_new=32):
+    """qwen2-moe-a2.7b at full size through ServeEngine.generate."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.moe_gemm import kernel as mg
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in
+                   [params["embed"], params["final_norm"]["scale"]]
+                   + [w for lp in params["layers"] for w in leaves(lp)])
+    engine = ServeEngine(cfg, params, max_len=4096, batch_slots=4,
+                         device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+               for n in lens]
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.launches = 0
+    mg.moe_gemm.launches = 0
+    with Capture() as cap:
+        t0 = time.perf_counter()
+        res = engine.generate(prompts, max_new_tokens=max_new, greedy=True,
+                              sync_every=8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "moe_gemm": mg.moe_gemm.launches}
+    peak = torch.cuda.max_memory_allocated()
+    n_moe = sum(1 for k in cfg.pattern if k in "AM") * cfg.n_periods
+    n_attn = sum(1 for k in cfg.pattern if k in "aAl") * cfg.n_periods
+    forwards = 1 + len(cap.events["decode"])
+    check(res.tokens.shape == (4, max_new), f"tokens {res.tokens.shape}")
+    check(forwards == max_new, f"{forwards} forwards for {max_new} tokens")
+    check(launches["flash_attention"] == n_attn,
+          f"flash_attention launched {launches['flash_attention']} times, "
+          f"expected {n_attn} (one prefill)")
+    check(launches["moe_gemm"] == 3 * n_moe * forwards,
+          f"moe_gemm launched {launches['moe_gemm']} times, expected "
+          f"{3 * n_moe * forwards}")
+    check(not bool(cap.bad), "a logit was NaN or inf")
+    check(((0 <= res.tokens) & (res.tokens < cfg.vocab)).all(),
+          "token out of range")
+    prefill_ms = cap.step_ms("prefill")[0]
+    decode_ms = cap.step_ms("decode")
+
+    before = dict(launches)
+    res2 = engine.generate(prompts, max_new_tokens=max_new, greedy=True,
+                           sync_every=8)
+    check(np.array_equal(res.tokens, res2.tokens),
+          "a second generate gave other tokens")
+    repeat_launches = {"flash_attention": fa.flash_attention.launches
+                       - before["flash_attention"],
+                       "moe_gemm": mg.moe_gemm.launches - before["moe_gemm"]}
+    check(repeat_launches == launches, f"repeat launches {repeat_launches}")
+
+    emit({"phase": "lm_serve", "arch": arch, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "experts_padded":
+          cfg.moe.n_experts_padded, "params": n_params,
+          "param_bytes": 2 * n_params, "init_s": init_s,
+          "prompt_lens": list(lens), "max_new_tokens": max_new,
+          "generated_tokens": int(res.lengths.sum()),
+          "generate_wall_s": wall,
+          "tokens_per_s": int(res.lengths.sum()) / wall,
+          "prefill_ms": prefill_ms,
+          "decode_step_ms_mean": float(np.mean(decode_ms)),
+          "decode_step_ms_min": float(np.min(decode_ms)),
+          "decode_step_ms_max": float(np.max(decode_ms)),
+          "peak_memory_allocated": peak, "launches": launches,
+          "repeat_identical": True, "first_tokens": res.tokens[:, :8]
+          .tolist()})
+
+    flash = time_flash(dev, cap.attn["prefill"])
+    gemms = []
+    for phase in ("prefill", "decode"):
+        calls = cap.gemm[phase]
+        for name, (x, w) in (("up", calls[0]), ("down", calls[2])):
+            gemms.append({"phase": phase, "projection": name,
+                          **time_moe(x, w)})
+    emit({"phase": "lm_kernel_timing", "flash_attention": flash,
+          "moe_gemm": gemms})
+    cap = None
+    emit({"phase": "lm_profile", **profile_generate(engine, prompts)})
+    emit({"phase": "lm_plain_prefill", "dtype": "bfloat16",
+          "layers": cfg.n_layers,
+          **plain_prefill_check(params, cfg, dev, prompts)})
+    del engine, params
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_plain_check", **f32_plain_check(dev, arch)})
+    return launches, flash, gemms
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+
+def kernel_row(name, replaces, launches, t, extra=None):
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            **(extra or {})}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -375,11 +932,17 @@ def main():
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     try:
-        phase_build()
+        infos = phase_build()
         grid_err = phase_kernel(dev)
         sess, plan, args, launches = phase_main_path(dev)
         timing = measure_kernel(dev, plan, args)
         phase_semirings(dev, sess)
+        del sess, plan, args      # the SpGEMM session's cached entries
+        torch.cuda.empty_cache()
+        phase_build_lm(infos)
+        flash_grid_err = phase_flash_grid(dev)
+        moe_grid_err = phase_moe_grid(dev)
+        lm_launches, flash, gemms = phase_lm_serve(dev)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -388,15 +951,26 @@ def main():
         traceback.print_exc()
         return 1
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
-    emit({"kernels": [{
-        "name": "bsr_spgemm", "route": "cuda",
-        "source": "src/repro_torch/kernels/bsr_spgemm/csrc/bsr_spgemm.cu",
-        "replaces": "src/repro/kernels/bsr_spgemm/kernel.py:92",
-        "launches": launches,
-        "max_abs_err": max(grid_err, timing["err"]),
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None}]})
+    timing["library_ms"] = None
+    timing["max_abs_err"] = max(grid_err, timing["err"])
+    flash["max_abs_err"] = max(flash_grid_err, flash["max_abs_err"])
+    prefill_up = gemms[0]
+    emit({"kernels": [
+        kernel_row("bsr_spgemm", "src/repro/kernels/bsr_spgemm/kernel.py:92",
+                   launches, timing),
+        kernel_row("flash_attention",
+                   "src/repro/kernels/flash_attention/kernel.py:108",
+                   lm_launches["flash_attention"], flash,
+                   {"shape": flash["shape"]}),
+        kernel_row("moe_gemm", "src/repro/kernels/moe_gemm/kernel.py:52",
+                   lm_launches["moe_gemm"],
+                   {**prefill_up, "max_abs_err": max(
+                       [moe_grid_err] + [g["max_abs_err"] for g in gemms])},
+                   {"shape": prefill_up["shape"], "shapes": [
+                       {k: g[k] for k in ("phase", "projection", "shape",
+                                          "ms", "plain_ms", "library_ms",
+                                          "bound_ms", "bound_by")}
+                       for g in gemms]})]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -20,11 +20,6 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 from typing import Optional
 
@@ -32,30 +27,17 @@ import numpy as np
 import torch
 
 from ...core.semiring import PLUS_TIMES, Semiring
+from ..cuda_lib import check_tensor, compile_source
 from .ref import bsr_spgemm_ref
 
 __all__ = ["bsr_spgemm", "run_starts_from_flags", "check_launch_args",
-           "build", "KERNEL_BS", "SOURCE", "BUILD_DIR"]
+           "build", "KERNEL_BS", "SOURCE"]
 
 KERNEL_BS = (16, 32, 64, 128)
 SOURCE = Path(__file__).resolve().parent / "csrc" / "bsr_spgemm.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _SEMIRING_CODE = {"plus_times": 0, "bool_or_and": 1, "min_plus": 2}
 
 _lib: Optional[ctypes.CDLL] = None
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                       "/usr/local/cuda/bin): the bsr_spgemm kernel is built "
-                       "from source at first use and needs the CUDA toolkit")
 
 
 def build() -> dict:
@@ -67,32 +49,15 @@ def build() -> dict:
     raises ``RuntimeError`` with nvcc's output.
     """
     global _lib
-    t0 = time.perf_counter()
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"bsr_spgemm-{tag}.so"
-    log = so.with_suffix(".log")
-    built = False
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {SOURCE}:\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
-        built = True
+    info = compile_source(SOURCE)
     if _lib is None:
-        lib = ctypes.CDLL(str(so))
+        lib = ctypes.CDLL(info["path"])
         fn = lib.bsr_spgemm_launch
         fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
                        + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
-    return {"path": str(so), "seconds": time.perf_counter() - t0,
-            "built": built, "log": log.read_text() if log.exists() else ""}
+    return info
 
 
 def run_starts_from_flags(flags: np.ndarray, seg_start: int,
@@ -112,21 +77,6 @@ def run_starts_from_flags(flags: np.ndarray, seg_start: int,
     return (np.concatenate([starts, [nprod]]) + seg_start).astype(np.int32)
 
 
-def _check(name: str, t: torch.Tensor, dtype, ndim: int, device,
-           align: int) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name} must be {ndim}-D, has shape "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % align:
-        raise ValueError(f"{name} must be {align}-byte aligned")
-
-
 def check_launch_args(a_tiles, b_tiles, a_slot, b_slot, c_slot, run_starts,
                       out, *, nprod: int, nc: int, bs: int,
                       semiring: Semiring, seg_start: int) -> None:
@@ -142,7 +92,7 @@ def check_launch_args(a_tiles, b_tiles, a_slot, b_slot, c_slot, run_starts,
     dev = a_tiles.device
     for name, t in (("a_tiles", a_tiles), ("b_tiles", b_tiles),
                     ("out", out)):
-        _check(name, t, torch.float32, 3, dev, 16)
+        check_tensor(name, t, torch.float32, 3, dev, 16)
         if tuple(t.shape[1:]) != (bs, bs):
             raise ValueError(f"{name} has tiles of shape "
                              f"{tuple(t.shape[1:])}, expected {(bs, bs)}")
@@ -150,7 +100,7 @@ def check_launch_args(a_tiles, b_tiles, a_slot, b_slot, c_slot, run_starts,
         raise ValueError(f"out holds {out.shape[0]} tiles, expected {nc}")
     for name, t in (("a_slot", a_slot), ("b_slot", b_slot),
                     ("c_slot", c_slot), ("run_starts", run_starts)):
-        _check(name, t, torch.int32, 1, dev, 4)
+        check_tensor(name, t, torch.int32, 1, dev, 4)
     for name, t in (("a_slot", a_slot), ("b_slot", b_slot),
                     ("c_slot", c_slot)):
         if t.shape[0] < seg_start + nprod:

@@ -10,6 +10,8 @@
   a caller happens to load modules.
 * ``chip_smoke.py`` refuses to run without a CUDA device: a non-zero exit
   and no result line.
+* The serving CLI runs end to end on the CPU
+  (``python -m repro_torch.launch.serve ... --device cpu``).
 """
 
 import ast
@@ -60,9 +62,15 @@ def test_no_jax_or_reference_imports(path):
 
 def test_scan_sees_the_whole_port():
     mods = _modules()
-    assert "repro_torch.kernels.bsr_spgemm.kernel" in mods
-    assert "repro_torch.core.session" in mods
-    assert len(mods) >= 20
+    for name in ("kernels.bsr_spgemm.kernel", "core.session",
+                 "kernels.cuda_lib", "kernels.flash_attention.kernel",
+                 "kernels.flash_attention.ops", "kernels.moe_gemm.kernel",
+                 "kernels.moe_gemm.ops", "configs.registry",
+                 "configs.qwen2_moe", "models.layers", "models.attention",
+                 "models.moe", "models.blocks", "models.transformer",
+                 "models.convert", "serve.engine", "launch.serve"):
+        assert f"repro_torch.{name}" in mods, name
+    assert len(mods) >= 50
 
 
 @pytest.mark.parametrize("name", _modules())
@@ -86,8 +94,29 @@ def test_every_module_imports_first():
 
 def test_import_builds_nothing():
     from repro_torch.kernels.bsr_spgemm import kernel
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.moe_gemm import kernel as mg
     importlib.import_module("repro_torch")
-    assert kernel._lib is None
+    for name in _modules():
+        importlib.import_module(name)
+    assert kernel._lib is None and fa._lib is None and mg._lib is None
+
+
+def test_serve_cli_runs_on_the_cpu():
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "qwen2-moe-a2.7b", "--smoke", "--device", "cpu", "--max-new", "5"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("generated 20 tokens for 4 requests")
+    assert lines[0].endswith("on cpu")
+    rows = [ln for ln in lines if ln.startswith("req")]
+    assert len(rows) == 4
+    for row in rows:
+        toks = ast.literal_eval(row.split("-> ")[1])
+        assert len(toks) == 5 and all(0 <= t < 128 for t in toks)
 
 
 def test_chip_smoke_refuses_without_a_gpu(tmp_path):
