@@ -6,7 +6,7 @@
 Needs one CUDA device and ``nvcc``; imports only ``repro_torch``, torch,
 numpy and scipy. Phases (any failure exits non-zero and prints no result):
 
-  1. build     — compile the three kernels from the repo's sources, one
+  1. build     — compile the kernels' four sources from the repo, one
                  nvcc each, all started together; report bsr_spgemm's
   2. kernel    — the kernel against its plain PyTorch version on the card:
                  3 semirings x bs in {16, 32, 64, 128}, runs of 1-8
@@ -22,38 +22,49 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
   4. semirings — banded_clustered(65536, 64, 16.0) with integer weights,
                  bool_or_and and min_plus at nparts=8, bs=64, chunk=2,
                  bitwise against the port's host ``local_spgemm.spgemm``
-  5. build_lm  — load the flash_attention and moe_gemm libraries; ptxas's
-                 registers, spills and shared memory
+  5. build_lm  — load the flash_attention and moe_gemm libraries (the
+                 fp32 CUDA-core source and the bf16 tensor-core one); ptxas's
+                 registers, spills and shared memory per kernel
   6. flash_attention_vs_plain — the kernel against ``mha_ref`` on the card:
                  causal, window in {0, 64}, softcap in {0, 50}, S in {77,
                  128, 1000}, D in {64, 128, 256}, Hq = 8 with Hkv in {8, 2},
                  float32 within atol 2e-5 + rtol 1e-4, bfloat16 within
                  atol 2e-2 + rtol 1e-2 (one bf16 ulp of the output)
-  7. moe_gemm_vs_plain — the kernel against ``moe_gemm_ref`` on the card:
-                 E in {1, 64}, cap in {8, 96, 688}, (d, f) in {(2048, 1408),
-                 (1408, 2048), (640, 72), (200, 72)}; integer-valued float32
-                 bitwise, float32 within atol 1e-4 + rtol 1e-4, bfloat16
-                 within atol 2e-2 + rtol 1e-2
+  7. moe_gemm_vs_plain — every route of the kernel against
+                 ``moe_gemm_ref`` on the card: E in {1, 64}, cap in {8, 16,
+                 96, 688} (bf16: the decode route up to 16, the prefill
+                 route above; float32: the CUDA-core route), (d, f) in
+                 {(2048, 1408), (1408, 2048), (640, 72), (200, 72)}; rows
+                 None, all cap, all 0, random, and the 128-row tile edges
+                 63-65 and 127-129; integer-valued float32 bitwise, float32
+                 within atol 1e-4 + rtol 1e-4, bfloat16 within atol 2e-2 +
+                 rtol 1e-2; every bf16 launch repeated, bitwise
   8. lm_serve  — qwen2-moe-a2.7b at its full published size (24 layers, 64
                  padded experts, bf16 weights from a seeded generator)
                  through ``ServeEngine.generate``: four prompts of 2048,
                  1536, 1024 and 512 tokens, 32 new tokens, greedy,
                  sync_every=8. The launch counts must be exactly 24
                  flash_attention launches (one prefill) and 72 moe_gemm
-                 launches per forward; a second generate must repeat the
-                 tokens; no logit may be NaN or inf. The inputs of one
+                 launches per forward (the prefill's on the prefill route,
+                 the decode steps' on the decode route); a second generate
+                 must repeat the tokens; no logit may be NaN or inf. The
+                 inputs (``rows`` included) of one
                  layer's attention call and of its grouped GEMMs, in prefill
                  and in a decode step, are captured by wrapping the model's
                  op references, and each kernel is held against its plain
                  version on them and timed beside the plain version, the
-                 library call and the bound. A torch.profiler window over a
+                 library call, the bound and, for the grouped GEMMs, the
+                 earlier fp32 CUDA-core kernel on the same bf16 inputs
+                 (``previous_ms``; grouped GEMMs as device time from
+                 torch.profiler). A torch.profiler window over a
                  prefill-only and a 5-token generate splits device time by
                  kernel. A 512-token bf16 prefill through the plain versions
                  is compared with the kernels' logits (reported), and the
                  model at full width cut to 2 layers in float32 must give
                  the same prefill and decode logits through the kernels as
                  through the plain versions, within 1e-3 of the largest
-                 logit
+                 logit; that float32 run is the fp32 route's path (its
+                 launches counted, its first grouped GEMM timed)
 
 Every main-path call must run on the kernel: ``fallbacks == 0``,
 ``last_call["engine"] == "cuda"`` and the kernel's launch count grows.
@@ -114,6 +125,25 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def device_ms(fn, reps):
+    """Mean device milliseconds per call of ``fn`` over ``reps`` calls after
+    one warm-up: the summed durations of the kernels it launched, from
+    ``torch.profiler``. Unlike CUDA events around back-to-back launches, a
+    host that enqueues more slowly than a short kernel runs does not
+    inflate it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / reps
+
+
 def bitwise(x, y):
     return x.shape == y.shape and torch.equal(
         x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))
@@ -125,13 +155,15 @@ def ptxas_lines(log):
 
 
 def phase_build():
-    """All three kernels built in parallel; bsr_spgemm's library loaded."""
+    """Every kernel source built in parallel; bsr_spgemm's library
+    loaded."""
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.bsr_spgemm import kernel
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.moe_gemm import kernel as mg
 
-    infos = cuda_lib.compile_sources([kernel.SOURCE, fa.SOURCE, mg.SOURCE])
+    infos = cuda_lib.compile_sources([kernel.SOURCE, fa.SOURCE,
+                                      *mg.SOURCES])
     kernel.build()
     info = infos[kernel.SOURCE]
     emit({"phase": "build", "seconds": info["seconds"],
@@ -426,12 +458,20 @@ def phase_build_lm(infos):
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.moe_gemm import kernel as mg
 
-    for mod in (fa, mg):
+    for mod, sources in ((fa, (fa.SOURCE,)), (mg, mg.SOURCES)):
         mod.build()
-        info = infos[mod.SOURCE]
-        emit({"phase": "build_lm", "kernel": mod.SOURCE.stem,
-              "seconds": info["seconds"], "built": info["built"],
-              "library": info["path"], "ptxas": ptxas_lines(info["log"])})
+        for src in sources:
+            info = infos[src]
+            extra = {}
+            if src == mg.TC_SOURCE:   # dynamic shared memory, per launch
+                extra["dynamic_smem_bytes"] = {
+                    "prefill": mg.tc_smem_bytes("prefill", 2048),
+                    **{f"decode_d{d}": mg.tc_smem_bytes("decode", d)
+                       for d in (2048, 1408)}}
+            emit({"phase": "build_lm", "kernel": src.stem,
+                  "seconds": info["seconds"], "built": info["built"],
+                  "library": info["path"], "ptxas": ptxas_lines(info["log"]),
+                  **extra})
 
 
 def within(got, want, atol, rtol):
@@ -481,15 +521,58 @@ def phase_flash_grid(dev):
     return max(errs.values())
 
 
+TILE_EDGES = (63, 64, 65, 127, 128, 129)
+
+
+def moe_rows_cases(g, e, cap, dev):
+    """``rows`` for one (E, cap): all cap, all 0, random in [0, cap + 8]
+    (values past cap are clamped), and the 128-row tile edges (each alone at
+    E = 1, cycled over the experts at E = 64)."""
+    cases = [("all_cap", torch.full((e,), cap)),
+             ("all_zero", torch.zeros(e)),
+             ("random", torch.randint(0, cap + 9, (e,), generator=g,
+                                      device=dev))]
+    if e == 1:
+        cases += [(f"edge_{v}", torch.full((1,), v)) for v in TILE_EDGES]
+    else:
+        cases.append(("edges", torch.tensor(TILE_EDGES).repeat(
+            -(-e // len(TILE_EDGES)))[:e]))
+    return [(name, r.to(device=dev, dtype=torch.int32)) for name, r in cases]
+
+
 def phase_moe_grid(dev):
-    """The grouped GEMM kernel against its plain version on the card."""
-    from repro_torch.kernels.moe_gemm.kernel import moe_gemm
+    """Every route of the grouped GEMM against its plain version."""
+    from repro_torch.kernels.moe_gemm.kernel import moe_gemm, route
     from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 
     g = torch.Generator(device=dev).manual_seed(1)
     cases, errs = 0, {"float32": 0.0, "bfloat16": 0.0}
+    by_route = {}
+
+    def held(x, w, rows, what, exact=False, repeat=False):
+        nonlocal cases
+        got, want = moe_gemm(x, w, rows), moe_gemm_ref(x, w, rows)
+        torch.cuda.synchronize()
+        name = route(x.dtype, x.shape[1])
+        label = (f"{name} route {x.dtype} E={x.shape[0]} cap={x.shape[1]} "
+                 f"d={x.shape[2]} f={w.shape[2]} rows={what}")
+        if exact:
+            check(bitwise(got, want), f"moe_gemm != plain version on "
+                  f"integers: {label}")
+        else:
+            ok, err = within(got, want, *MOE_TOL[x.dtype])
+            check(ok, f"moe_gemm != plain version: {label} (max abs err "
+                      f"{err})")
+            key = str(x.dtype).split(".")[-1]
+            errs[key] = max(errs[key], err)
+        if repeat:
+            check(bitwise(moe_gemm(x, w, rows), got),
+                  f"a repeated launch differs: {label}")
+        by_route[name] = by_route.get(name, 0) + 1
+        cases += 1
+
     for e in (1, 64):
-        for cap in (8, 96, 688):
+        for cap in (8, 16, 96, 688):
             for d, f in ((2048, 1408), (1408, 2048), (640, 72), (200, 72)):
                 x = torch.randn(e, cap, d, generator=g, device=dev)
                 w = torch.randn(e, d, f, generator=g, device=dev) * d ** -0.5
@@ -497,35 +580,31 @@ def phase_moe_grid(dev):
                                    device=dev).float()
                 wi = torch.randint(-4, 5, (e, d, f), generator=g,
                                    device=dev).float()
-                got, want = moe_gemm(xi, wi), moe_gemm_ref(xi, wi)
-                torch.cuda.synchronize()
-                check(bitwise(got, want), f"moe_gemm != plain version on "
-                      f"integers: E={e} cap={cap} d={d} f={f}")
-                cases += 1
-                for dtype in (torch.float32, torch.bfloat16):
-                    xd, wd = x.to(dtype), w.to(dtype)
-                    got, want = moe_gemm(xd, wd), moe_gemm_ref(xd, wd)
-                    torch.cuda.synchronize()
-                    ok, err = within(got, want, *MOE_TOL[dtype])
-                    check(ok, f"moe_gemm != plain version: {dtype} E={e} "
-                              f"cap={cap} d={d} f={f} (max abs err {err})")
-                    key = str(dtype).split(".")[-1]
-                    errs[key] = max(errs[key], err)
-                    cases += 1
+                rand = torch.randint(0, cap + 9, (e,), generator=g,
+                                     device=dev).int()
+                for rows, what in ((None, "None"), (rand, "random")):
+                    held(xi, wi, rows, what, exact=True)
+                    held(x, w, rows, what)
+                xb, wb = x.bfloat16(), w.bfloat16()
+                held(xb, wb, None, "None", repeat=True)
+                for what, rows in moe_rows_cases(g, e, cap, dev):
+                    held(xb, wb, rows, what, repeat=True)
     emit({"phase": "moe_gemm_vs_plain", "cases": cases,
-          "max_abs_err": errs,
+          "cases_by_route": by_route, "max_abs_err": errs,
           "tolerance": {"float32": MOE_TOL[torch.float32],
                         "bfloat16": MOE_TOL[torch.bfloat16],
-                        "integer_float32": "bitwise"}})
-    return max(errs.values())
+                        "integer_float32": "bitwise",
+                        "repeat_bf16": "bitwise"}})
+    return errs
 
 
 class Capture:
     """Wraps the model's op references (``models.attention.
     multihead_attention``, ``models.moe.grouped_gemm``) and the engine's
     ``prefill_step`` / ``decode_step``: records the inputs of the first
-    layer's attention call and of its three grouped GEMMs in prefill and in
-    the first decode step, CUDA events around every step, and whether any
+    layer's attention call and of its three grouped GEMMs (``rows``
+    included) in prefill and in the first decode step (under phase None
+    outside the engine), CUDA events around every step, and whether any
     logit was not finite. Adds no kernel launch."""
 
     def __init__(self):
@@ -552,11 +631,12 @@ class Capture:
                                          args)
             return mha(q, k, v, *args)
 
-        def grouped(x, w):
+        def grouped(x, w, rows=None):
             calls = self.gemm.setdefault(self.phase, [])
             if self.capturing and len(calls) < 3:
-                calls.append((x.clone(), w))
-            return gemm(x, w)
+                calls.append((x.clone(), w,
+                              None if rows is None else rows.clone()))
+            return gemm(x, w, rows)
 
         def step(fn, phase):
             def run(params, cfg, batch, caches):
@@ -623,37 +703,68 @@ def time_flash(dev, captured):
                       "softcap": softcap}, **entry}
 
 
-def time_moe(x, w):
-    """Kernel, plain version and ``torch.bmm`` on one captured GEMM."""
-    from repro_torch.kernels.moe_gemm.kernel import block_rows, moe_gemm
+def host_call_us(fn, n=50):
+    """Host microseconds per call of ``fn`` over ``n`` calls (the enqueue;
+    the device runs behind)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def time_moe(x, w, rows):
+    """The route's kernel, the plain version, ``torch.bmm`` and the earlier
+    fp32 CUDA-core kernel (every slot of every expert, as before ``rows``)
+    on one captured GEMM, each as device time per call; the kernel also as
+    CUDA events around back-to-back launches (``events_ms``, which the
+    host's enqueue rate bounds from below); the host time of one wrapper
+    call (argument checks, output allocation, tensor maps, launch) and of
+    the C launch function alone (tensor maps and launch)."""
+    from repro_torch.kernels.moe_gemm.kernel import (_launch,
+                                                     _launch_cuda_core,
+                                                     moe_gemm, route)
     from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 
-    got, want = moe_gemm(x, w), moe_gemm_ref(x, w)
+    got, want = moe_gemm(x, w, rows), moe_gemm_ref(x, w, rows)
     torch.cuda.synchronize()
     ok, err = within(got, want, *MOE_TOL[x.dtype])
     check(ok, f"grouped GEMM kernel != plain version at {tuple(x.shape)} x "
               f"{tuple(w.shape)} ({err})")
-    routed = (x != 0).any(dim=-1)                   # (E, cap) filled slots
-    rows, experts = int(routed.sum()), int(routed.any(dim=-1).sum())
-    del got, want
-    reps = 20 if x.shape[1] <= 16 else 5
-    ms = cuda_ms(lambda: moe_gemm(x, w), reps)
-    plain_ms = cuda_ms(lambda: moe_gemm_ref(x, w), 3)
-    library_ms = cuda_ms(lambda: torch.bmm(x, w), reps)
+    check(bitwise(moe_gemm(x, w, rows), got), "a repeated launch differs at "
+          f"{tuple(x.shape)} x {tuple(w.shape)}")
     e, cap, d = x.shape
     f = w.shape[2]
+    live = rows.clamp(0, cap)
+    slots, experts = int(live.sum()), int((live > 0).sum())
+    del got, want
+    reps = 20 if cap <= 16 else 10
+    ms = device_ms(lambda: moe_gemm(x, w, rows), reps)
+    previous_ms = device_ms(lambda: _launch_cuda_core(x, w), reps // 2)
+    plain_ms = device_ms(lambda: moe_gemm_ref(x, w, rows), 3)
+    library_ms = device_ms(lambda: torch.bmm(x, w), reps)
+    events_ms = cuda_ms(lambda: moe_gemm(x, w, rows), reps)
+    host_us = host_call_us(lambda: moe_gemm(x, w, rows))
+    out = torch.empty_like(moe_gemm(x, w, rows))
+    launch_us = host_call_us(
+        lambda: _launch(route(x.dtype, cap), x, w, rows, out))
     el = x.element_size()
-    # what this run's data needs: the products of filled slots and the
-    # weights of experts with a filled slot (x read and y written whole)
-    entry = timing_entry(ms, plain_ms, library_ms, 2 * rows * d * f,
-                         nbytes(x) + experts * d * f * el + e * cap * f * el,
-                         x.dtype, err)
+    # what this run's data needs: the products of live rows, those x rows,
+    # the weights of experts with a live row, y written whole
+    entry = timing_entry(ms, plain_ms, library_ms, 2 * slots * d * f,
+                         slots * d * el + experts * d * f * el
+                         + e * cap * f * el, x.dtype, err)
     dense = timing_entry(ms, plain_ms, library_ms, 2 * e * cap * d * f,
                          nbytes(x, w) + e * cap * f * el, x.dtype, err)
     return {"shape": {"x": list(x.shape), "w": list(w.shape),
-                      "dtype": str(x.dtype), "block_rows": block_rows(cap),
-                      "filled_slots": rows, "experts_with_tokens": experts},
-            **entry, "dense_bound_ms": dense["bound_ms"],
+                      "dtype": str(x.dtype), "route": route(x.dtype, cap),
+                      "live_rows": slots, "experts_with_rows": experts},
+            **entry, "previous_ms": previous_ms, "events_ms": events_ms,
+            "host_us_per_call": host_us,
+            "launch_us_per_call": launch_us,
+            "dense_bound_ms": dense["bound_ms"],
             "dense_bound_by": dense["bound_by"], "dense_flop": dense["flop"]}
 
 
@@ -705,7 +816,9 @@ def plain_prefill_check(params, cfg, dev, prompts):
 def profile_generate(engine, prompts):
     """Device time by kernel over a generate of 1 token (prefill only) and
     of 5 tokens (prefill + 4 decode steps), from ``torch.profiler``; the
-    decode steps' share is the difference."""
+    decode steps' share is the difference. Also the host side of those 4
+    decode steps: self CPU time by op (aten ops and the CUDA runtime calls),
+    profiler overhead included."""
     from torch.profiler import ProfilerActivity, profile
 
     def kernels(max_new):
@@ -716,17 +829,19 @@ def profile_generate(engine, prompts):
             engine.generate(prompts, max_new_tokens=max_new, sync_every=0)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        out = {}
+        out, host = {}, {}
         for ev in prof.key_averages():
             if ev.device_type == torch.autograd.DeviceType.CUDA:
                 out[ev.key] = (ev.count, ev.self_device_time_total / 1e3)
-        return out, wall * 1e3
+            else:
+                host[ev.key] = (ev.count, ev.self_cpu_time_total / 1e3)
+        return out, host, wall * 1e3
 
     def kind(name):
         low = name.lower()
         if "flash_fwd" in name:
             return "flash_attention"
-        if "moe_gemm_kernel" in name:
+        if "moe_gemm" in name:
             return "moe_gemm"
         if any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet")):
             return "library_gemm"
@@ -734,8 +849,8 @@ def profile_generate(engine, prompts):
             return "memcpy"
         return "other"
 
-    pre, pre_wall = kernels(1)
-    full, full_wall = kernels(5)
+    pre, pre_host, pre_wall = kernels(1)
+    full, full_host, full_wall = kernels(5)
     res = {}
     for label, table, wall in (("prefill", pre, pre_wall),
                                ("prefill_plus_4_decode", full, full_wall)):
@@ -752,6 +867,16 @@ def profile_generate(engine, prompts):
                                   for k, v in by_kind.items()},
                       "top": [{"kernel": n[:90], "launches": c, "ms": ms}
                               for n, (c, ms) in top]}
+    decode_host = {k: (c - pre_host.get(k, (0, 0.0))[0],
+                       ms - pre_host.get(k, (0, 0.0))[1])
+                   for k, (c, ms) in full_host.items()}
+    top = sorted(decode_host.items(), key=lambda kv: -kv[1][1])[:15]
+    res["host"] = {
+        "prefill_self_cpu_ms": sum(ms for _, ms in pre_host.values()),
+        "prefill_plus_4_decode_self_cpu_ms": sum(
+            ms for _, ms in full_host.values()),
+        "decode_4_steps_top": [{"op": n[:60], "calls": c, "ms": ms}
+                               for n, (c, ms) in top]}
     return res
 
 
@@ -760,10 +885,12 @@ def f32_plain_check(dev, arch, layers=2, n=256):
     prefill of 4 x n tokens and one decode step through the kernels and
     through the plain versions; the logits must agree within 1e-3 of their
     largest magnitude (float32 kernels agree with the plain versions to
-    ~1e-6 per op)."""
+    ~1e-6 per op). The kernels' run is the fp32 route's path: its launch
+    counts, from 0 just before it, and its first grouped GEMM, timed."""
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_gemm import kernel as mg
     from repro_torch.models import (decode_step, init_caches, init_params,
                                     prefill_step)
 
@@ -781,10 +908,18 @@ def f32_plain_check(dev, arch, layers=2, n=256):
         ld, _ = decode_step(params, cfg, {"tokens": toks[:, n:]}, caches)
         return lp, ld
 
-    kern = run()
+    mg.reset_launches()
+    with Capture() as cap:
+        kern = run()
+    routes = dict(mg.moe_gemm.route_launches)
+    n_moe = sum(1 for k in cfg.pattern if k in "AM") * cfg.n_periods
+    check(routes == {"prefill": 0, "decode": 0, "fp32": 3 * n_moe * 2},
+          f"float32 route launches {routes}, expected {3 * n_moe * 2} on "
+          f"fp32")
     with plain_ops():
         plain = run()
-    out = {"dtype": "float32", "layers": layers, "tokens": [4, n]}
+    out = {"dtype": "float32", "layers": layers, "tokens": [4, n],
+           "route_launches": routes}
     for name, a, b in (("prefill", kern[0], plain[0]),
                        ("decode", kern[1], plain[1])):
         diff = float((a - b).abs().max())
@@ -794,6 +929,9 @@ def f32_plain_check(dev, arch, layers=2, n=256):
               f"plain versions differ by {diff} (max |logit| {scale})")
         out[name] = {"max_abs_logit_diff": diff, "max_abs_logit": scale,
                      "top1_agree": int((a.argmax(-1) == b.argmax(-1)).sum())}
+    x, w, rows = cap.gemm[None][0]
+    out["moe_gemm_fp32"] = {"phase": "prefill", "projection": "up",
+                            **time_moe(x, w, rows)}
     return out
 
 
@@ -823,7 +961,7 @@ def phase_lm_serve(dev, arch="qwen2-moe-a2.7b", lens=(2048, 1536, 1024, 512),
 
     torch.cuda.reset_peak_memory_stats()
     fa.flash_attention.launches = 0
-    mg.moe_gemm.launches = 0
+    mg.reset_launches()
     with Capture() as cap:
         t0 = time.perf_counter()
         res = engine.generate(prompts, max_new_tokens=max_new, greedy=True,
@@ -832,6 +970,7 @@ def phase_lm_serve(dev, arch="qwen2-moe-a2.7b", lens=(2048, 1536, 1024, 512),
         wall = time.perf_counter() - t0
     launches = {"flash_attention": fa.flash_attention.launches,
                 "moe_gemm": mg.moe_gemm.launches}
+    routes = dict(mg.moe_gemm.route_launches)
     peak = torch.cuda.max_memory_allocated()
     n_moe = sum(1 for k in cfg.pattern if k in "AM") * cfg.n_periods
     n_attn = sum(1 for k in cfg.pattern if k in "aAl") * cfg.n_periods
@@ -844,6 +983,10 @@ def phase_lm_serve(dev, arch="qwen2-moe-a2.7b", lens=(2048, 1536, 1024, 512),
     check(launches["moe_gemm"] == 3 * n_moe * forwards,
           f"moe_gemm launched {launches['moe_gemm']} times, expected "
           f"{3 * n_moe * forwards}")
+    want_routes = {"prefill": 3 * n_moe, "decode": 3 * n_moe * (forwards - 1),
+                   "fp32": 0}
+    check(routes == want_routes, f"moe_gemm routes {routes}, expected "
+          f"{want_routes}")
     check(not bool(cap.bad), "a logit was NaN or inf")
     check(((0 <= res.tokens) & (res.tokens < cfg.vocab)).all(),
           "token out of range")
@@ -873,6 +1016,7 @@ def phase_lm_serve(dev, arch="qwen2-moe-a2.7b", lens=(2048, 1536, 1024, 512),
           "decode_step_ms_min": float(np.min(decode_ms)),
           "decode_step_ms_max": float(np.max(decode_ms)),
           "peak_memory_allocated": peak, "launches": launches,
+          "moe_gemm_route_launches": routes,
           "repeat_identical": True, "first_tokens": res.tokens[:, :8]
           .tolist()})
 
@@ -880,9 +1024,9 @@ def phase_lm_serve(dev, arch="qwen2-moe-a2.7b", lens=(2048, 1536, 1024, 512),
     gemms = []
     for phase in ("prefill", "decode"):
         calls = cap.gemm[phase]
-        for name, (x, w) in (("up", calls[0]), ("down", calls[2])):
+        for name, (x, w, rows) in (("up", calls[0]), ("down", calls[2])):
             gemms.append({"phase": phase, "projection": name,
-                          **time_moe(x, w)})
+                          **time_moe(x, w, rows)})
     emit({"phase": "lm_kernel_timing", "flash_attention": flash,
           "moe_gemm": gemms})
     cap = None
@@ -892,8 +1036,10 @@ def phase_lm_serve(dev, arch="qwen2-moe-a2.7b", lens=(2048, 1536, 1024, 512),
           **plain_prefill_check(params, cfg, dev, prompts)})
     del engine, params
     torch.cuda.empty_cache()
-    emit({"phase": "lm_plain_check", **f32_plain_check(dev, arch)})
-    return launches, flash, gemms
+    f32 = f32_plain_check(dev, arch)
+    emit({"phase": "lm_plain_check", **f32})
+    routes["fp32"] = f32["route_launches"]["fp32"]
+    return routes, launches, flash, gemms, f32["moe_gemm_fp32"]
 
 
 def leaves(tree):
@@ -903,11 +1049,9 @@ def leaves(tree):
     else:
         yield tree
 
-
-
-def kernel_row(name, replaces, launches, t, extra=None):
-    return {"name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
+def kernel_row(name, replaces, launches, t, extra=None, source=None):
+    source = source or f"src/repro_torch/kernels/{name}/csrc/{name}.cu"
+    return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -942,7 +1086,7 @@ def main():
         phase_build_lm(infos)
         flash_grid_err = phase_flash_grid(dev)
         moe_grid_err = phase_moe_grid(dev)
-        lm_launches, flash, gemms = phase_lm_serve(dev)
+        routes, lm_launches, flash, gemms, fp32 = phase_lm_serve(dev)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -954,7 +1098,22 @@ def main():
     timing["library_ms"] = None
     timing["max_abs_err"] = max(grid_err, timing["err"])
     flash["max_abs_err"] = max(flash_grid_err, flash["max_abs_err"])
-    prefill_up = gemms[0]
+    moe_src = "src/repro_torch/kernels/moe_gemm/csrc/"
+    moe_pallas = "src/repro/kernels/moe_gemm/kernel.py:52"
+    moe_keys = ("phase", "projection", "shape", "ms", "previous_ms",
+                "events_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "host_us_per_call", "launch_us_per_call")
+
+    def moe_row(route, timings, err, source):
+        head = timings[0]
+        return kernel_row(
+            f"moe_gemm_{route}", moe_pallas, routes[route],
+            {**head, "max_abs_err": max([err] + [t["max_abs_err"]
+                                                 for t in timings])},
+            {"shape": head["shape"], "previous_ms": head["previous_ms"],
+             "shapes": [{k: t[k] for k in moe_keys} for t in timings]},
+            source=moe_src + source)
+
     emit({"kernels": [
         kernel_row("bsr_spgemm", "src/repro/kernels/bsr_spgemm/kernel.py:92",
                    launches, timing),
@@ -962,15 +1121,11 @@ def main():
                    "src/repro/kernels/flash_attention/kernel.py:108",
                    lm_launches["flash_attention"], flash,
                    {"shape": flash["shape"]}),
-        kernel_row("moe_gemm", "src/repro/kernels/moe_gemm/kernel.py:52",
-                   lm_launches["moe_gemm"],
-                   {**prefill_up, "max_abs_err": max(
-                       [moe_grid_err] + [g["max_abs_err"] for g in gemms])},
-                   {"shape": prefill_up["shape"], "shapes": [
-                       {k: g[k] for k in ("phase", "projection", "shape",
-                                          "ms", "plain_ms", "library_ms",
-                                          "bound_ms", "bound_by")}
-                       for g in gemms]})]})
+        moe_row("prefill", gemms[:2], moe_grid_err["bfloat16"],
+                "moe_gemm_tc.cu"),
+        moe_row("decode", gemms[2:], moe_grid_err["bfloat16"],
+                "moe_gemm_tc.cu"),
+        moe_row("fp32", [fp32], moe_grid_err["float32"], "moe_gemm.cu")]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

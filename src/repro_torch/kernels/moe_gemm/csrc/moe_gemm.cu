@@ -1,11 +1,18 @@
-// Grouped expert GEMM for Hopper (sm_90a).
+// Grouped expert GEMM for Hopper (sm_90a), fp32 FMAs on the CUDA cores: the
+// float32 route of the wrapper (bf16 runs on moe_gemm_tc.cu's tensor-core
+// kernels).
 //
 // Replaces src/repro/kernels/moe_gemm/kernel.py::moe_gemm_pallas (body
-// _kernel). For every expert e of a capacity-bucketed MoE layer,
+// _kernel). For every expert e of a capacity-bucketed MoE layer, with
+// live = clamp(rows[e], 0, cap) (cap when rows is null),
 //
-//     y[e] = x[e] @ w[e]      x (E, cap, d), w (E, d, f), y (E, cap, f)
+//     y[e][r] = x[e][r] @ w[e] for r < live, 0 for r >= live
+//     x (E, cap, d), w (E, d, f), y (E, cap, f)
 //
-// with fp32 accumulation and the output in x's type. The contraction runs
+// with fp32 accumulation and the output in x's type. A CTA whose first row
+// is past `live` stores its zeros and returns; x rows past `live` are never
+// read. Float32 stays on this kernel so integer-valued inputs come out
+// bitwise equal to the plain version. The contraction runs
 // over all of d: the Pallas kernel's d // 512 steps drop the last d % 512
 // columns whenever the padded d is not a multiple of 512; this kernel does
 // not copy that.
@@ -19,17 +26,19 @@
 // past f, the k tail past d read as zeros and are never stored), so nothing
 // is padded or copied.
 //
-// Two regimes on one path, picked by BM (the wrapper's block_rows):
-//   * prefill, cap in the hundreds (qwen2-moe: 688) — BM = 128, bound by
-//     operations (~254 GFLOP per launch against ~0.7 GB); fp32 FMAs on the
-//     CUDA cores with 8 x 8 register blocking per thread.
-//   * decode, cap = 8 — BM = 16, bound by the weight read (369 MB per launch
-//     at qwen2-moe's sizes for 3 GFLOP); small tiles keep 704-1024 CTAs
-//     streaming w with 16-byte loads and no wasted rows beyond 16.
-// mma/wgmma and TMA pipelines are later work.
+// Two regimes on one path, picked by BM (the wrapper's block_rows): BM =
+// 128 for cap in the hundreds, bound by operations (fp32 FMAs on the CUDA
+// cores with 8 x 8 register blocking per thread); BM = 16 for a decode
+// step's cap of 8, bound by the weight read, small tiles keeping many CTAs
+// streaming w with 16-byte loads. This kernel is the wrapper's float32
+// route; bf16 runs on the tensor-core kernels, and this kernel's bf16
+// instantiation stays only as their yardstick. At the float32 shapes the
+// serving check gives it (qwen2-moe-a2.7b, 4 x 256 tokens: x (64, 88,
+// 2048), w (64, 2048, 1408), 3,460 live rows) a launch needs 20 GFLOP:
+// bound by operations, 0.30 ms at an H100 SXM's fp32 CUDA-core peak.
 //
 // Requirements (checked by the wrapper): d and f multiples of 8, tensors
-// contiguous and 16-byte aligned.
+// contiguous and 16-byte aligned, rows int32 (E,) or null.
 //
 // Plain C interface for ctypes: every pointer and the stream are void*.
 
@@ -84,7 +93,8 @@ __device__ __forceinline__ void store4(__nv_bfloat16* dst, const float* v) {
 template <typename T, int BM>
 __global__ void __launch_bounds__(kThreads)
 moe_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                T* __restrict__ y, int cap, int d, int f) {
+                const int* __restrict__ rows, T* __restrict__ y, int cap,
+                int d, int f) {
   constexpr int VEC = Vec16<T>::n;
   constexpr int TM = BM / 16;                  // rows per thread
   constexpr int RV = TM < 4 ? TM : 4;          // contiguous rows per group
@@ -107,6 +117,15 @@ moe_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int e = blockIdx.z;
   const T* xe = x + (size_t)e * cap * d;
   const T* we = w + (size_t)e * d * f;
+  T* ye = y + (size_t)e * cap * f;
+  const int live = rows ? min(max(rows[e], 0), cap) : cap;
+  if (m0 >= live) {                       // nothing live: zeros, no loads
+    const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const int vecs = min(BN, f - n0) / 4;
+    for (int i = tid; i < min(BM, cap - m0) * vecs; i += kThreads)
+      store4(ye + (size_t)(m0 + i / vecs) * f + n0 + (i % vecs) * 4, zero);
+    return;
+  }
 
   uint4 ra[A_PER], rb[B_PER];
   // global -> registers for the panel at k0 (zeros outside the matrix)
@@ -116,7 +135,7 @@ moe_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int idx = tid + t * kThreads;
       const int m = idx % BM, kc = idx / BM;
       ra[t] = make_uint4(0, 0, 0, 0);
-      if (idx < A_VECS && m0 + m < cap && k0 + kc * VEC < d)
+      if (idx < A_VECS && m0 + m < live && k0 + kc * VEC < d)
         ra[t] = *reinterpret_cast<const uint4*>(
             xe + (size_t)(m0 + m) * d + k0 + kc * VEC);
     }
@@ -194,7 +213,7 @@ moe_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
     }
   }
 
-  T* ye = y + (size_t)e * cap * f;
+  const float zero[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
   for (int g = 0; g < NG; ++g) {
 #pragma unroll
@@ -204,44 +223,47 @@ moe_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int n = n0 + h * 64 + tx * 4;
-        if (n < f) store4(ye + (size_t)m * f + n, &acc[g * RV + i][h * 4]);
+        if (n < f)
+          store4(ye + (size_t)m * f + n,
+                 m < live ? &acc[g * RV + i][h * 4] : zero);
       }
     }
   }
 }
 
 template <typename T, int BM>
-int launch(const void* x, const void* w, void* y, int E, int cap, int d,
-           int f, cudaStream_t stream) {
+int launch(const void* x, const void* w, const int* rows, void* y, int E,
+           int cap, int d, int f, cudaStream_t stream) {
   const dim3 grid((f + BN - 1) / BN, (cap + BM - 1) / BM, E);
   moe_gemm_kernel<T, BM><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-      cap, d, f);
+      static_cast<const T*>(x), static_cast<const T*>(w), rows,
+      static_cast<T*>(y), cap, d, f);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_bm(int bm, const void* x, const void* w, void* y, int E, int cap,
-              int d, int f, cudaStream_t stream) {
+int launch_bm(int bm, const void* x, const void* w, const int* rows, void* y,
+              int E, int cap, int d, int f, cudaStream_t stream) {
   switch (bm) {
-    case 16: return launch<T, 16>(x, w, y, E, cap, d, f, stream);
-    case 64: return launch<T, 64>(x, w, y, E, cap, d, f, stream);
-    case 128: return launch<T, 128>(x, w, y, E, cap, d, f, stream);
+    case 16: return launch<T, 16>(x, w, rows, y, E, cap, d, f, stream);
+    case 64: return launch<T, 64>(x, w, rows, y, E, cap, d, f, stream);
+    case 128: return launch<T, 128>(x, w, rows, y, E, cap, d, f, stream);
     default: return -1;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; bm: rows per CTA (16, 64 or 128).
-// Returns the cudaError_t of the launch (0 on success), or -1 for a dtype
-// or bm without an instantiation.
+// dtype: 0 = float32, 1 = bfloat16; bm: rows per CTA (16, 64 or 128);
+// rows: int32 (E,) or null (every row live). Returns the cudaError_t of the
+// launch (0 on success), or -1 for a dtype or bm without an instantiation.
 extern "C" int moe_gemm_launch(int dtype, int bm, const void* x,
-                               const void* w, void* y, int E, int cap, int d,
-                               int f, void* stream) {
+                               const void* w, const void* rows, void* y,
+                               int E, int cap, int d, int f, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_bm<float>(bm, x, w, y, E, cap, d, f, st);
+  const int* r = static_cast<const int*>(rows);
+  if (dtype == 0) return launch_bm<float>(bm, x, w, r, y, E, cap, d, f, st);
   if (dtype == 1)
-    return launch_bm<__nv_bfloat16>(bm, x, w, y, E, cap, d, f, st);
+    return launch_bm<__nv_bfloat16>(bm, x, w, r, y, E, cap, d, f, st);
   return -1;
 }

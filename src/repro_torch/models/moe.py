@@ -4,7 +4,14 @@ The single-device path of ``repro.models.moe``. The router's token→expert
 assignment is a sparse boolean matrix R (tokens × experts, top-k nonzeros
 per row). Dispatch computes Xᵉ = RᵀX into capacity buckets, the expert FFN
 runs as a grouped GEMM over the buckets (the hand-written ``moe_gemm``
-kernel on a card), and combine computes Y = R·(gates ⊙ FFNᵉ(Xᵉ)).
+kernels on a card), and combine computes Y = R·(gates ⊙ FFNᵉ(Xᵉ)).
+
+Each expert's fill, ``rows[e] = min(count_e, cap)``, comes from the run
+starts on the device and goes to every grouped GEMM: bucket rows at and past
+it are zero, stay zero through the gated activation (silu(0)·0 = 0,
+relu(0)² = 0) and are never read by the combine (a dropped assignment reads
+slot cap-1 of a full expert with gate 0), so the kernels skip them and the
+outputs are what they would be without ``rows``.
 
 The reference's semantics are kept exactly: ``_capacity``'s integer math,
 padded experts masked to -1e30 before the softmax, a stable sort of the
@@ -56,21 +63,22 @@ def _capacity(moe: MoEConfig, n_tokens: int) -> int:
     return max(8, -(-c // 8) * 8)  # multiple of 8 lanes
 
 
-def _expert_ffn(cfg: ModelConfig, bkts, eg, eu, ed):
-    up = grouped_gemm(bkts, eu)
+def _expert_ffn(cfg: ModelConfig, bkts, rows, eg, eu, ed):
+    up = grouped_gemm(bkts, eu, rows)
     if eg is not None:
-        h = gate_act(grouped_gemm(bkts, eg), cfg.mlp) * up
+        h = gate_act(grouped_gemm(bkts, eg, rows), cfg.mlp) * up
     else:
         r = torch.relu(up)
         h = r * r
-    return grouped_gemm(h, ed)
+    return grouped_gemm(h, ed, rows)
 
 
 def _route_and_combine(cfg: ModelConfig, router, shared, xf,
                        run_experts: Callable):
     """Routing + capacity bucketing + combine on a flat (T, d) slab.
 
-    ``run_experts``: (E, C, d) buckets -> (E, C, d) outputs.
+    ``run_experts``: ((E, C, d) buckets, (E,) int32 live rows per expert)
+    -> (E, C, d) outputs.
     """
     moe = cfg.moe
     t, d = xf.shape
@@ -93,14 +101,16 @@ def _route_and_combine(cfg: ModelConfig, router, shared, xf,
     flat_g = gates.reshape(-1)
     se, order = torch.sort(flat_e, stable=True)
     st_, sg = flat_t[order], flat_g[order]
-    run_start = torch.searchsorted(se, torch.arange(e, device=dev))  # (E,)
+    bounds = torch.searchsorted(se, torch.arange(e + 1, device=dev))
+    run_start = bounds[:-1]                                  # (E,)
+    rows = (bounds[1:] - run_start).clamp(max=cap).int()     # live rows
     rank = torch.arange(t * k, device=dev) - run_start[se]
     keep = rank < cap                                        # capacity drop
     slot = se * cap + rank.clamp(0, cap - 1)                 # (T*k,)
 
     buckets = torch.zeros((e * cap, d), dtype=xf.dtype, device=dev)
     buckets.index_add_(0, slot, torch.where(keep[:, None], xf[st_], 0.0))
-    out = run_experts(buckets.reshape(e, cap, d)).reshape(e * cap, d)
+    out = run_experts(buckets.reshape(e, cap, d), rows).reshape(e * cap, d)
 
     # ---- combine: Y = R (gates ⊙ expert outputs) ---------------------------
     contrib = out[slot] * (sg * keep)[:, None].to(xf.dtype)  # sorted order
@@ -131,8 +141,8 @@ def moe_apply(params, cfg: ModelConfig, x) -> Tuple[torch.Tensor,
     eg = params.get("experts_gate")
     shared = params.get("shared") if cfg.moe.n_shared else None
 
-    def run(bkts):
-        return _expert_ffn(cfg, bkts, eg, params["experts_up"],
+    def run(bkts, rows):
+        return _expert_ffn(cfg, bkts, rows, eg, params["experts_up"],
                            params["experts_down"])
 
     y, aux, metrics = _route_and_combine(

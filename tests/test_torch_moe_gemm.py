@@ -8,9 +8,10 @@
   within atol 2e-4, rtol 1e-4 (the reference's own kernel tolerance).
 * ``moe_apply``: outputs within 1e-5, the aux loss within 1e-6, and the three
   ``moe/*`` metrics equal, with and without tokens dropped at capacity.
-* The wrapper's argument checks: what the MoE layer hands the kernel on a
-  card passes them (run on CPU tensors), and what the kernel does not take
-  raises. The CUDA kernel itself runs only on a card (``chip_smoke.py``).
+* The wrapper's argument checks: what the MoE layer hands the kernels on a
+  card passes them, ``rows`` included (run on CPU tensors), and what the
+  kernels do not take raises. The CUDA kernels themselves run only on a
+  card (``chip_smoke.py``); ``rows`` is covered in ``test_torch_moe_rows.py``.
 """
 
 import dataclasses
@@ -120,11 +121,13 @@ def test_moe_hands_the_kernel_arguments_it_accepts(monkeypatch):
     inner = tkernel.moe_gemm
     calls = []
 
-    def checked(x, w):
+    def checked(x, w, rows=None):
         out = torch.empty(x.shape[0], x.shape[1], w.shape[2], dtype=x.dtype)
-        tkernel.check_launch_args(x, w, out)
-        calls.append((tuple(x.shape), tuple(w.shape)))
-        return inner(x, w)
+        tkernel.check_launch_args(x, w, out, rows)
+        assert rows is not None
+        assert int(rows.min()) >= 0 and int(rows.max()) <= x.shape[1]
+        calls.append((tuple(x.shape), tuple(w.shape), rows.tolist()))
+        return inner(x, w, rows)
 
     monkeypatch.setattr(tkernel, "moe_gemm", checked)
     cfg, _, tp, x = _moe_case(1.25)
@@ -133,6 +136,11 @@ def test_moe_hands_the_kernel_arguments_it_accepts(monkeypatch):
     assert len(calls) == 6
     caps = {c[0][1] for c in calls}
     assert caps == {_capacity(cfg.moe, 48), _capacity(cfg.moe, 2)}
+    # the three GEMMs of one layer get the same rows: top-k slots in all
+    for i in (0, 3):
+        assert calls[i][2] == calls[i + 1][2] == calls[i + 2][2]
+    assert sum(calls[0][2]) == 48 * cfg.moe.top_k
+    assert sum(calls[3][2]) == 2 * cfg.moe.top_k
 
 
 def test_block_rows_follow_capacity():
@@ -141,11 +149,20 @@ def test_block_rows_follow_capacity():
 
 
 @pytest.mark.parametrize("case", ["dtype", "d_multiple", "experts",
-                                  "contiguous", "out_shape"])
+                                  "contiguous", "out_shape", "rows_int64",
+                                  "rows_length", "rows_device"])
 def test_check_launch_args_rejects(case):
     x, w = torch.zeros(2, 8, 64), torch.zeros(2, 64, 32)
     out = torch.empty(2, 8, 32)
-    if case == "dtype":
+    rows = torch.full((2,), 8, dtype=torch.int32)
+    tkernel.check_launch_args(x, w, out, rows)
+    if case == "rows_int64":
+        rows = rows.long()
+    elif case == "rows_length":
+        rows = torch.full((3,), 8, dtype=torch.int32)
+    elif case == "rows_device":
+        rows = torch.full((2,), 8, dtype=torch.int32, device="meta")
+    elif case == "dtype":
         w = w.half()
     elif case == "d_multiple":
         x, w = torch.zeros(2, 8, 60), torch.zeros(2, 60, 32)
@@ -156,4 +173,4 @@ def test_check_launch_args_rejects(case):
     else:
         out = torch.empty(2, 8, 40)
     with pytest.raises(ValueError):
-        tkernel.check_launch_args(x, w, out)
+        tkernel.check_launch_args(x, w, out, rows)
