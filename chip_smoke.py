@@ -6,7 +6,7 @@
 Needs one CUDA device and ``nvcc``; imports only ``repro_torch``, torch,
 numpy and scipy. Phases (any failure exits non-zero and prints no result):
 
-  1. build     — compile the kernels' four sources from the repo, one
+  1. build     — compile the kernels' five sources from the repo, one
                  nvcc each, all started together; report bsr_spgemm's
   2. kernel    — the kernel against its plain PyTorch version on the card:
                  3 semirings x bs in {16, 32, 64, 128}, runs of 1-8
@@ -22,14 +22,19 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
   4. semirings — banded_clustered(65536, 64, 16.0) with integer weights,
                  bool_or_and and min_plus at nparts=8, bs=64, chunk=2,
                  bitwise against the port's host ``local_spgemm.spgemm``
-  5. build_lm  — load the flash_attention and moe_gemm libraries (the
-                 fp32 CUDA-core source and the bf16 tensor-core one); ptxas's
-                 registers, spills and shared memory per kernel
-  6. flash_attention_vs_plain — the kernel against ``mha_ref`` on the card:
-                 causal, window in {0, 64}, softcap in {0, 50}, S in {77,
-                 128, 1000}, D in {64, 128, 256}, Hq = 8 with Hkv in {8, 2},
-                 float32 within atol 2e-5 + rtol 1e-4, bfloat16 within
-                 atol 2e-2 + rtol 1e-2 (one bf16 ulp of the output)
+  5. build_lm  — load the flash_attention and moe_gemm libraries (for
+                 each, the fp32 CUDA-core source and the bf16 tensor-core
+                 one); ptxas's registers, spills and shared memory per
+                 kernel, and the tensor-core kernels' dynamic shared memory
+                 (flash_attention per padded head dim 64 / 128 / 192 / 256)
+  6. flash_attention_vs_plain — both routes against ``mha_ref`` on the
+                 card, causal, window in {0, 64}, softcap in {0, 50}, Hq = 8
+                 with Hkv in {8, 2}: bfloat16 on the tensor-core route at D
+                 in {16, 64, 96, 128, 160, 256} and S in {77, 128, 129,
+                 1000, 2048}, within atol 2e-2 + rtol 1e-2 (one bf16 ulp of
+                 the output), each launch repeated, bitwise; float32 on the
+                 CUDA-core route at D in {64, 128, 256} and S in {77, 128,
+                 1000}, within atol 2e-5 + rtol 1e-4
   7. moe_gemm_vs_plain — every route of the kernel against
                  ``moe_gemm_ref`` on the card: E in {1, 64}, cap in {8, 16,
                  96, 688} (bf16: the decode route up to 16, the prefill
@@ -44,7 +49,8 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  through ``ServeEngine.generate``: four prompts of 2048,
                  1536, 1024 and 512 tokens, 32 new tokens, greedy,
                  sync_every=8. The launch counts must be exactly 24
-                 flash_attention launches (one prefill) and 72 moe_gemm
+                 flash_attention launches (one prefill, all on the bf16
+                 tensor-core route) and 72 moe_gemm
                  launches per forward (the prefill's on the prefill route,
                  the decode steps' on the decode route); a second generate
                  must repeat the tokens; no logit may be NaN or inf. The
@@ -53,17 +59,18 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  and in a decode step, are captured by wrapping the model's
                  op references, and each kernel is held against its plain
                  version on them and timed beside the plain version, the
-                 library call, the bound and, for the grouped GEMMs, the
-                 earlier fp32 CUDA-core kernel on the same bf16 inputs
-                 (``previous_ms``; grouped GEMMs as device time from
-                 torch.profiler). A torch.profiler window over a
+                 library call (SDPA, ``bmm``), the bound and the earlier
+                 CUDA-core kernel on the same bf16 inputs (``previous_ms``;
+                 grouped GEMMs as device time from torch.profiler); the
+                 attention inputs cast to float32 time the fp32 route
+                 beside SDPA in float32. A torch.profiler window over a
                  prefill-only and a 5-token generate splits device time by
                  kernel. A 512-token bf16 prefill through the plain versions
                  is compared with the kernels' logits (reported), and the
                  model at full width cut to 2 layers in float32 must give
                  the same prefill and decode logits through the kernels as
                  through the plain versions, within 1e-3 of the largest
-                 logit; that float32 run is the fp32 route's path (its
+                 logit; that float32 run is the fp32 routes' path (their
                  launches counted, its first grouped GEMM timed)
 
 Every main-path call must run on the kernel: ``fallbacks == 0``,
@@ -162,7 +169,7 @@ def phase_build():
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.moe_gemm import kernel as mg
 
-    infos = cuda_lib.compile_sources([kernel.SOURCE, fa.SOURCE,
+    infos = cuda_lib.compile_sources([kernel.SOURCE, *fa.SOURCES,
                                       *mg.SOURCES])
     kernel.build()
     info = infos[kernel.SOURCE]
@@ -458,12 +465,16 @@ def phase_build_lm(infos):
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.moe_gemm import kernel as mg
 
-    for mod, sources in ((fa, (fa.SOURCE,)), (mg, mg.SOURCES)):
+    for mod, sources in ((fa, fa.SOURCES), (mg, mg.SOURCES)):
         mod.build()
         for src in sources:
             info = infos[src]
             extra = {}
-            if src == mg.TC_SOURCE:   # dynamic shared memory, per launch
+            if src == fa.TC_SOURCE:   # dynamic shared memory, per launch
+                extra["dynamic_smem_bytes"] = {
+                    f"d_pad{d}": fa.tc_smem_bytes(d)
+                    for d in (64, 128, 192, 256)}
+            if src == mg.TC_SOURCE:
                 extra["dynamic_smem_bytes"] = {
                     "prefill": mg.tc_smem_bytes("prefill", 2048),
                     **{f"decode_d{d}": mg.tc_smem_bytes("decode", d)
@@ -485,16 +496,25 @@ TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
 MOE_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
 
 
+FLASH_GRID = {torch.bfloat16: ((16, 64, 96, 128, 160, 256),
+                                (77, 128, 129, 1000, 2048)),
+              torch.float32: ((64, 128, 256), (77, 128, 1000))}
+
+
 def phase_flash_grid(dev):
-    """The attention kernel against its plain version on the card."""
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    """Both attention routes against their plain version on the card."""
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention,
+                                                            route)
     from repro_torch.kernels.flash_attention.ref import mha_ref
 
     g = torch.Generator(device=dev).manual_seed(0)
-    cases, errs = 0, {"float32": 0.0, "bfloat16": 0.0}
-    for dtype in (torch.bfloat16, torch.float32):
-        for d in (64, 128, 256):
-            for s in (77, 128, 1000):
+    cases = {"float32": 0, "bfloat16": 0}
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    by_route = {}
+    for dtype, (dims, lens) in FLASH_GRID.items():
+        key = str(dtype).split(".")[-1]
+        for d in dims:
+            for s in lens:
                 for hkv in (8, 2):
                     q = torch.randn(2, s, 8, d, generator=g, device=dev)
                     k = torch.randn(2, s, hkv, d, generator=g, device=dev)
@@ -504,21 +524,30 @@ def phase_flash_grid(dev):
                         for cap in (0.0, 50.0):
                             kw = dict(scale=d ** -0.5, causal=True,
                                       window=window, softcap=cap)
+                            label = (f"{dtype} D={d} S={s} Hkv={hkv} "
+                                     f"window={window} softcap={cap}")
                             got = flash_attention(q, k, v, **kw)
                             want = mha_ref(q, k, v, **kw)
                             torch.cuda.synchronize()
                             ok, err = within(got, want, *TOL[dtype])
                             check(ok, f"flash_attention != plain version: "
-                                      f"{dtype} D={d} S={s} Hkv={hkv} "
-                                      f"window={window} softcap={cap} "
-                                      f"(max abs err {err})")
-                            key = str(dtype).split(".")[-1]
+                                      f"{label} (max abs err {err})")
+                            if dtype == torch.bfloat16:
+                                check(bitwise(flash_attention(q, k, v, **kw),
+                                              got),
+                                      f"a repeated launch differs: {label}")
+                            name = route(dtype, d)
+                            by_route[name] = by_route.get(name, 0) + 1
                             errs[key] = max(errs[key], err)
-                            cases += 1
+                            cases[key] += 1
     emit({"phase": "flash_attention_vs_plain", "cases": cases,
-          "max_abs_err": errs, "tolerance": {"float32": TOL[torch.float32],
-                                             "bfloat16": TOL[torch.bfloat16]}})
-    return max(errs.values())
+          "cases_by_route": by_route, "max_abs_err": errs,
+          "tolerance": {"float32": TOL[torch.float32],
+                        "bfloat16": TOL[torch.bfloat16],
+                        "repeat_bf16": "bitwise"},
+          "grid": {str(k).split(".")[-1]: {"D": v[0], "S": v[1]}
+                   for k, v in FLASH_GRID.items()}})
+    return errs
 
 
 TILE_EDGES = (63, 64, 65, 127, 128, 129)
@@ -671,10 +700,16 @@ class Capture:
 
 
 def time_flash(dev, captured):
-    """Kernel, plain version and SDPA on the captured prefill attention."""
+    """The route's kernel, the plain version and SDPA on the captured
+    prefill attention, as CUDA events around back-to-back launches; for
+    bf16 also the earlier CUDA-core kernel on the same inputs
+    (``previous_ms``) and the host time of one wrapper call (argument
+    checks, output allocation, three tensor-map encodes, launch) and of the
+    C launch function alone."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.kernel import (
+        _launch, _launch_cuda_core, flash_attention, route)
     from repro_torch.kernels.flash_attention.ref import mha_ref
 
     q, k, v, (scale, causal, window, softcap) = captured
@@ -682,8 +717,10 @@ def time_flash(dev, captured):
     got, want = flash_attention(q, k, v, **kw), mha_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     ok, err = within(got, want, *TOL[q.dtype])
-    check(ok, f"prefill attention kernel != plain version ({err})")
+    check(ok, f"prefill attention kernel != plain version in {q.dtype} "
+              f"({err})")
     del got, want
+    name = route(q.dtype, q.shape[3])
     ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), 10)
     plain_ms = cuda_ms(lambda: mha_ref(q, k, v, **kw), 3)
     library_ms = None
@@ -691,6 +728,17 @@ def time_flash(dev, captured):
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, is_causal=True, scale=scale), 10)
+        del qh, kh, vh
+    extra = {}
+    if name == "tc":
+        extra["previous_ms"] = cuda_ms(
+            lambda: _launch_cuda_core(q, k, v, **kw), 3)
+        extra["host_us_per_call"] = host_call_us(
+            lambda: flash_attention(q, k, v, **kw))
+        out = torch.empty_like(q)
+        extra["launch_us_per_call"] = host_call_us(
+            lambda: _launch(name, q, k, v, out, scale, causal, window,
+                            softcap))
     b, s, hq, d = q.shape
     rows = torch.arange(s, device=dev)
     lo = (rows - window + 1).clamp(min=0) if window > 0 else 0 * rows
@@ -699,8 +747,8 @@ def time_flash(dev, captured):
     entry = timing_entry(ms, plain_ms, library_ms, flop,
                          nbytes(q, k, v) + nbytes(q), q.dtype, err)
     return {"shape": {"q": list(q.shape), "k": list(k.shape),
-                      "dtype": str(q.dtype), "window": window,
-                      "softcap": softcap}, **entry}
+                      "dtype": str(q.dtype), "route": name, "window": window,
+                      "softcap": softcap}, **entry, **extra}
 
 
 def host_call_us(fn, n=50):
@@ -890,6 +938,7 @@ def f32_plain_check(dev, arch, layers=2, n=256):
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.moe_gemm import kernel as mg
     from repro_torch.models import (decode_step, init_caches, init_params,
                                     prefill_step)
@@ -909,17 +958,24 @@ def f32_plain_check(dev, arch, layers=2, n=256):
         return lp, ld
 
     mg.reset_launches()
+    fa.reset_launches()
     with Capture() as cap:
         kern = run()
     routes = dict(mg.moe_gemm.route_launches)
+    attn_routes = dict(fa.flash_attention.route_launches)
     n_moe = sum(1 for k in cfg.pattern if k in "AM") * cfg.n_periods
+    n_attn = sum(1 for k in cfg.pattern if k in "aAl") * cfg.n_periods
     check(routes == {"prefill": 0, "decode": 0, "fp32": 3 * n_moe * 2},
           f"float32 route launches {routes}, expected {3 * n_moe * 2} on "
           f"fp32")
+    check(attn_routes == {"tc": 0, "fp32": n_attn},
+          f"float32 attention route launches {attn_routes}, expected "
+          f"{n_attn} on fp32 (one prefill)")
     with plain_ops():
         plain = run()
     out = {"dtype": "float32", "layers": layers, "tokens": [4, n],
-           "route_launches": routes}
+           "route_launches": routes,
+           "flash_attention_route_launches": attn_routes}
     for name, a, b in (("prefill", kern[0], plain[0]),
                        ("decode", kern[1], plain[1])):
         diff = float((a - b).abs().max())
@@ -960,7 +1016,7 @@ def phase_lm_serve(dev, arch="qwen2-moe-a2.7b", lens=(2048, 1536, 1024, 512),
                for n in lens]
 
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention.launches = 0
+    fa.reset_launches()
     mg.reset_launches()
     with Capture() as cap:
         t0 = time.perf_counter()
@@ -971,6 +1027,7 @@ def phase_lm_serve(dev, arch="qwen2-moe-a2.7b", lens=(2048, 1536, 1024, 512),
     launches = {"flash_attention": fa.flash_attention.launches,
                 "moe_gemm": mg.moe_gemm.launches}
     routes = dict(mg.moe_gemm.route_launches)
+    attn_routes = dict(fa.flash_attention.route_launches)
     peak = torch.cuda.max_memory_allocated()
     n_moe = sum(1 for k in cfg.pattern if k in "AM") * cfg.n_periods
     n_attn = sum(1 for k in cfg.pattern if k in "aAl") * cfg.n_periods
@@ -980,6 +1037,8 @@ def phase_lm_serve(dev, arch="qwen2-moe-a2.7b", lens=(2048, 1536, 1024, 512),
     check(launches["flash_attention"] == n_attn,
           f"flash_attention launched {launches['flash_attention']} times, "
           f"expected {n_attn} (one prefill)")
+    check(attn_routes == {"tc": n_attn, "fp32": 0},
+          f"flash_attention routes {attn_routes}, expected {n_attn} on tc")
     check(launches["moe_gemm"] == 3 * n_moe * forwards,
           f"moe_gemm launched {launches['moe_gemm']} times, expected "
           f"{3 * n_moe * forwards}")
@@ -1017,10 +1076,14 @@ def phase_lm_serve(dev, arch="qwen2-moe-a2.7b", lens=(2048, 1536, 1024, 512),
           "decode_step_ms_max": float(np.max(decode_ms)),
           "peak_memory_allocated": peak, "launches": launches,
           "moe_gemm_route_launches": routes,
+          "flash_attention_route_launches": attn_routes,
           "repeat_identical": True, "first_tokens": res.tokens[:, :8]
           .tolist()})
 
-    flash = time_flash(dev, cap.attn["prefill"])
+    q, k, v, args = cap.attn["prefill"]
+    flash = time_flash(dev, (q, k, v, args))
+    flash_fp32 = time_flash(dev, (q.float(), k.float(), v.float(), args))
+    del q, k, v
     gemms = []
     for phase in ("prefill", "decode"):
         calls = cap.gemm[phase]
@@ -1028,7 +1091,7 @@ def phase_lm_serve(dev, arch="qwen2-moe-a2.7b", lens=(2048, 1536, 1024, 512),
             gemms.append({"phase": phase, "projection": name,
                           **time_moe(x, w, rows)})
     emit({"phase": "lm_kernel_timing", "flash_attention": flash,
-          "moe_gemm": gemms})
+          "flash_attention_fp32": flash_fp32, "moe_gemm": gemms})
     cap = None
     emit({"phase": "lm_profile", **profile_generate(engine, prompts)})
     emit({"phase": "lm_plain_prefill", "dtype": "bfloat16",
@@ -1039,7 +1102,9 @@ def phase_lm_serve(dev, arch="qwen2-moe-a2.7b", lens=(2048, 1536, 1024, 512),
     f32 = f32_plain_check(dev, arch)
     emit({"phase": "lm_plain_check", **f32})
     routes["fp32"] = f32["route_launches"]["fp32"]
-    return routes, launches, flash, gemms, f32["moe_gemm_fp32"]
+    attn_routes["fp32"] = f32["flash_attention_route_launches"]["fp32"]
+    return (routes, attn_routes, flash, flash_fp32, gemms,
+            f32["moe_gemm_fp32"])
 
 
 def leaves(tree):
@@ -1086,7 +1151,8 @@ def main():
         phase_build_lm(infos)
         flash_grid_err = phase_flash_grid(dev)
         moe_grid_err = phase_moe_grid(dev)
-        routes, lm_launches, flash, gemms, fp32 = phase_lm_serve(dev)
+        (routes, attn_routes, flash, flash_fp32, gemms,
+         fp32) = phase_lm_serve(dev)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -1097,7 +1163,12 @@ def main():
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     timing["library_ms"] = None
     timing["max_abs_err"] = max(grid_err, timing["err"])
-    flash["max_abs_err"] = max(flash_grid_err, flash["max_abs_err"])
+    flash["max_abs_err"] = max(flash_grid_err["bfloat16"],
+                               flash["max_abs_err"])
+    flash_fp32["max_abs_err"] = max(flash_grid_err["float32"],
+                                    flash_fp32["max_abs_err"])
+    fa_src = "src/repro_torch/kernels/flash_attention/csrc/"
+    fa_pallas = "src/repro/kernels/flash_attention/kernel.py:108"
     moe_src = "src/repro_torch/kernels/moe_gemm/csrc/"
     moe_pallas = "src/repro/kernels/moe_gemm/kernel.py:52"
     moe_keys = ("phase", "projection", "shape", "ms", "previous_ms",
@@ -1117,10 +1188,15 @@ def main():
     emit({"kernels": [
         kernel_row("bsr_spgemm", "src/repro/kernels/bsr_spgemm/kernel.py:92",
                    launches, timing),
-        kernel_row("flash_attention",
-                   "src/repro/kernels/flash_attention/kernel.py:108",
-                   lm_launches["flash_attention"], flash,
-                   {"shape": flash["shape"]}),
+        kernel_row("flash_attention_bf16", fa_pallas, attn_routes["tc"],
+                   flash, {"shape": flash["shape"],
+                           "previous_ms": flash["previous_ms"],
+                           "host_us_per_call": flash["host_us_per_call"],
+                           "launch_us_per_call": flash["launch_us_per_call"]},
+                   source=fa_src + "flash_attention_tc.cu"),
+        kernel_row("flash_attention_fp32", fa_pallas, attn_routes["fp32"],
+                   flash_fp32, {"shape": flash_fp32["shape"]},
+                   source=fa_src + "flash_attention.cu"),
         moe_row("prefill", gemms[:2], moe_grid_err["bfloat16"],
                 "moe_gemm_tc.cu"),
         moe_row("decode", gemms[2:], moe_grid_err["bfloat16"],

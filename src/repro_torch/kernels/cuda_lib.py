@@ -3,9 +3,10 @@
 Each kernel's source (``<kernel>/csrc/<kernel>.cu``) has a plain C
 interface. At first use ``nvcc`` compiles it for ``sm_90a`` into a shared
 library under the repo's ``build/`` directory, named by a hash of the
-source and the flags, so an edited source or flag set builds anew and an
-unchanged one is reused. The caller loads the library with ``ctypes``.
-Nothing here runs at import.
+source, the headers it includes by quoted path and the flags, so an
+edited source, header or flag set builds anew and an unchanged one is
+reused. The caller loads the library with ``ctypes``. Nothing here runs at
+import.
 
 :func:`compile_sources` starts one ``nvcc`` per source, all at once, and
 waits for every one: the kernels of a run build in parallel.
@@ -15,20 +16,22 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import torch
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "library_path", "compile_sources",
-           "compile_source", "check_tensor"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "local_headers", "library_path",
+           "compile_sources", "compile_source", "check_tensor"]
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def _nvcc() -> str:
@@ -42,12 +45,31 @@ def _nvcc() -> str:
                        "source at first use and need the CUDA toolkit")
 
 
+def local_headers(source: Path) -> List[Path]:
+    """The headers ``source`` includes by quoted path (``#include "..."``),
+    each resolved against the directory of the file that includes it, and
+    the headers those include in turn, in the order first met."""
+    found: List[Path] = []
+    todo = [Path(source)]
+    while todo:
+        current = todo.pop()
+        for name in _INCLUDE.findall(current.read_text()):
+            header = (current.parent / name).resolve()
+            if header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
+
+
 def library_path(source: Path) -> Path:
     """Where the library built from ``source`` lives: ``build/<stem>-<hash
-    of source and flags>.so``, with nvcc's report beside it as ``.log``."""
-    tag = hashlib.sha256(source.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}-{tag}.so"
+    of source, its local headers and flags>.so``, with nvcc's report beside
+    it as ``.log``."""
+    digest = hashlib.sha256(source.read_bytes())
+    for header in local_headers(source):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def compile_sources(sources: Sequence[Path]) -> Dict[Path, dict]:

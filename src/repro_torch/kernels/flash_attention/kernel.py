@@ -1,79 +1,124 @@
-"""Hopper CUDA kernel: causal online-softmax attention forward.
+"""Hopper CUDA kernels: causal online-softmax attention forward.
 
 Replaces ``src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas``.
-The source is ``csrc/flash_attention.cu``: one CTA per (64-row query block,
-head, batch) that loops over 64-key blocks only inside the causal frontier
-and the sliding window, with Q and each K/V tile in shared memory and m, l
-and the output accumulator in fp32 registers. It reads the model layout
-(B, S, H, D) directly: a query head reads kv head ``h // rep`` (GQA), keys
-past S are masked instead of padded. At qwen2-moe's prefill it is bound by
-operations, done as fp32 FMAs on the CUDA cores (see the source's header).
+Two routes, chosen by :func:`route` from the dtype and the head dim:
 
-Build and binding: ``..cuda_lib`` compiles the source for ``sm_90a`` at
-first use and ``ctypes`` loads it. Nothing is compiled or loaded at import.
+* ``"tc"`` — bfloat16, any head dim D that is a multiple of 8 up to 256,
+  ``csrc/flash_attention_tc.cu``: one CTA per (128 query rows, head,
+  batch); a producer warpgroup loads Q once and keeps a TMA ring of K and
+  V blocks in flight; two consumer warpgroups run ``wgmma`` for QKᵀ (both
+  operands in shared memory) and for PV (P rounded to bf16 in registers),
+  with the online softmax in fp32 registers. The head dim is processed at
+  D rounded up to 64: TMA zero-fills the columns past D.
+* ``"fp32"`` — float32 at D in {64, 128, 256}, ``csrc/flash_attention.cu``:
+  fp32 FMAs on the CUDA cores, 64-row query blocks over 64-key blocks.
+  It stays full fp32 (no TF32), for the float32 checks' tolerances.
+
+Both read the model layout (B, S, H, D) in place: a query head reads kv
+head ``h // rep`` (GQA), keys past S are masked instead of padded, and only
+the key blocks between the window's first reachable block and the causal
+frontier are read.
+
+Build and binding: ``..cuda_lib`` compiles both sources for ``sm_90a`` at
+first use, one ``nvcc`` each, and ``ctypes`` loads them. The tensor-core
+library encodes its TMA tensor maps per launch with the CUDA driver API's
+``cuTensorMapEncodeTiled``, reached through ``cudaGetDriverEntryPoint``.
+Nothing is compiled or loaded at import.
 
 :func:`flash_attention` is the wrapper. A tensor on the CPU goes to the
 plain version (``ref.mha_ref``) because it lies on the CPU; a CUDA tensor
-launches the kernel on the current stream or raises — there is no fallback
-from the kernel to the plain version. ``flash_attention.launches`` counts
-kernel launches.
+launches its route's kernel on the current stream or raises — there is no
+fallback to another route or to the plain version.
+``flash_attention.launches`` counts kernel launches,
+``flash_attention.route_launches`` the same per route.
 """
 
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
-from ..cuda_lib import check_tensor, compile_source
+from ..cuda_lib import check_tensor, compile_sources
 from .ref import mha_ref
 
-__all__ = ["flash_attention", "check_launch_args", "build", "KERNEL_D",
-           "SOURCE"]
+__all__ = ["flash_attention", "check_launch_args", "route", "build",
+           "reset_launches", "tc_smem_bytes", "ROUTES", "FP32_D", "TC_MAX_D",
+           "SOURCE", "TC_SOURCE", "SOURCES"]
 
-KERNEL_D = (64, 128, 256)
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+TC_SOURCE = SOURCE.with_name("flash_attention_tc.cu")
+SOURCES = (SOURCE, TC_SOURCE)
+ROUTES = ("tc", "fp32")
+FP32_D = (64, 128, 256)
+TC_MAX_D = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_lib: Optional[ctypes.CDLL] = None
+_lib: Optional[Dict[str, ctypes.CDLL]] = None
 
 
 def build() -> dict:
-    """Compile (if not yet built) and load the kernel library; returns
-    ``{"path", "seconds", "built", "log"}`` as ``cuda_lib.compile_source``
-    does. A failing build raises ``RuntimeError`` with nvcc's output."""
+    """Compile (if not yet built) and load both kernel libraries; returns
+    ``{source: {"path", "seconds", "built", "log"}}`` as
+    ``cuda_lib.compile_sources`` does. A failing build raises
+    ``RuntimeError`` with nvcc's output."""
     global _lib
-    info = compile_source(SOURCE)
+    infos = compile_sources(SOURCES)
     if _lib is None:
-        lib = ctypes.CDLL(info["path"])
-        fn = lib.flash_attention_launch
-        fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
-                                               ctypes.c_int, ctypes.c_float,
-                                               ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return info
+        fp32 = ctypes.CDLL(infos[SOURCE]["path"])
+        fp32.flash_attention_launch.argtypes = (
+            [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
+            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_float,
+                                    ctypes.c_void_p])
+        fp32.flash_attention_launch.restype = ctypes.c_int
+        tc = ctypes.CDLL(infos[TC_SOURCE]["path"])
+        tc.flash_attention_tc_launch.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+               ctypes.c_void_p])
+        tc.flash_attention_tc_launch.restype = ctypes.c_int
+        tc.flash_attention_tc_smem_bytes.argtypes = [ctypes.c_int]
+        tc.flash_attention_tc_smem_bytes.restype = ctypes.c_int
+        _lib = {"fp32": fp32, "tc": tc}
+    return infos
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel a card runs for attention in ``dtype`` at head dim ``d``:
+    ``"tc"`` for bfloat16 with d a multiple of 8 up to :data:`TC_MAX_D`,
+    ``"fp32"`` for float32 with d in :data:`FP32_D`. Raises ``ValueError``
+    for anything else."""
+    if dtype == torch.bfloat16:
+        if 0 < d <= TC_MAX_D and d % 8 == 0:
+            return "tc"
+        raise ValueError(f"the bfloat16 kernel takes head dims that are "
+                         f"multiples of 8 up to {TC_MAX_D}, got {d}")
+    if dtype == torch.float32:
+        if d in FP32_D:
+            return "fp32"
+        raise ValueError(f"the float32 kernel takes head dim in {FP32_D}, "
+                         f"got {d}")
+    raise ValueError(f"the CUDA kernels take float32 or bfloat16, got "
+                     f"{dtype}")
 
 
 def check_launch_args(q, k, v, out) -> None:
-    """Raise ``ValueError`` on anything the kernel does not take: a dtype
-    other than float32/bfloat16 or differing between the tensors, a head
-    dim outside :data:`KERNEL_D`, k/v of another shape than (B, S, Hkv, D)
-    with Hkv dividing Hq, out of another shape than q, tensors on another
-    device, non-contiguous or not 16-byte aligned (rows are read as 16-byte
-    vectors)."""
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"the CUDA kernel takes float32 or bfloat16, got "
-                         f"{q.dtype}")
+    """Raise ``ValueError`` on anything the kernels do not take: a dtype
+    or head dim that :func:`route` refuses, dtypes differing between the
+    tensors, k/v of another shape than (B, S, Hkv, D) with Hkv dividing Hq,
+    out of another shape than q, tensors on another device, non-contiguous
+    or not 16-byte aligned (the fp32 kernel reads rows as 16-byte vectors;
+    TMA needs 16-byte aligned bases)."""
+    if q.dim() != 4:
+        raise ValueError(f"q must be 4-D (B, S, H, D), has shape "
+                         f"{tuple(q.shape)}")
+    route(q.dtype, q.shape[3])
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         check_tensor(name, t, q.dtype, 4, q.device, 16)
     b, s, hq, d = q.shape
-    if d not in KERNEL_D:
-        raise ValueError(f"the CUDA kernel takes head dim in {KERNEL_D}, "
-                         f"got {d}")
     if k.shape != v.shape:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
     if k.shape[0] != b or k.shape[1] != s or k.shape[3] != d:
@@ -84,6 +129,49 @@ def check_launch_args(q, k, v, out) -> None:
         raise ValueError(f"{hkv} kv heads do not divide {hq} query heads")
     if out.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} != q {tuple(q.shape)}")
+
+
+def _launch(name: str, q, k, v, out, scale, causal, window, softcap) -> None:
+    """One launch of route ``name``'s kernel (``"fp32"`` runs the CUDA-core
+    kernel in q's dtype); raises on a refused launch."""
+    b, s, hq, d = q.shape
+    if _lib is None:
+        build()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
+            hq, k.shape[2], float(scale), int(causal), int(window),
+            float(softcap), stream)
+    if name == "tc":
+        err = _lib["tc"].flash_attention_tc_launch(d, *args)
+    else:
+        err = _lib["fp32"].flash_attention_launch(_DTYPE_CODE[q.dtype], d,
+                                                  *args)
+    if err != 0:
+        raise RuntimeError(f"flash_attention {name} launch failed: error "
+                           f"{err}")
+
+
+def tc_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one ``"tc"`` launch at head dim ``d``
+    (ptxas reports only static shared memory)."""
+    if _lib is None:
+        build()
+    return _lib["tc"].flash_attention_tc_smem_bytes(d)
+
+
+def _launch_cuda_core(q, k, v, *, scale: float, causal: bool = True,
+                      window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+    """The CUDA-core kernel on bf16 or float32 CUDA tensors (D in
+    :data:`FP32_D`), counted nowhere: the ``"tc"`` route's predecessor for
+    bf16, kept so a timing can set the two side by side on one card."""
+    out = torch.empty_like(q)
+    check_launch_args(q, k, v, out)
+    if q.shape[3] not in FP32_D:
+        raise ValueError(f"the CUDA-core kernel takes head dim in {FP32_D}, "
+                         f"got {q.shape[3]}")
+    if q.numel():
+        _launch("fp32", q, k, v, out, scale, causal, window, softcap)
+    return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -99,21 +187,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        softcap=softcap)
     out = torch.empty_like(q)
     check_launch_args(q, k, v, out)
-    b, s, hq, d = q.shape
     if q.numel() == 0:
         return out
-    if _lib is None:
-        build()
-    err = _lib.flash_attention_launch(
-        _DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, s, hq, k.shape[2], float(scale), int(causal),
-        int(window), float(softcap),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: cudaError_t "
-                           f"{err}")
+    name = route(q.dtype, q.shape[3])
+    _launch(name, q, k, v, out, scale, causal, window, softcap)
     flash_attention.launches += 1
+    flash_attention.route_launches[name] += 1
     return out
 
 
-flash_attention.launches = 0
+def reset_launches() -> None:
+    """Set ``flash_attention.launches`` and every route's count to 0."""
+    flash_attention.launches = 0
+    flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+reset_launches()

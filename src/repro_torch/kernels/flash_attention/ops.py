@@ -2,11 +2,12 @@
 
 Takes the model layout ``q (B, S, Hq, D)``, ``k, v (B, S, Hkv, D)`` and
 hands it to the kernel wrapper, which dispatches on the device: a CUDA
-tensor launches the hand-written kernel, a CPU tensor runs the plain
-version. The reference's GQA fold, kv-head repeat and pad of S to 128 are
-not done here: the kernel reads kv head ``h // rep`` in place and masks
-keys past S, which for causal attention gives what the padded Pallas path
-gives (a padded key is never at or before a real query). The backward pass
+tensor launches the hand-written kernel of its route (bf16 on the tensor
+cores, float32 on the CUDA cores), a CPU tensor runs the plain version.
+The reference's GQA fold, kv-head repeat and pad of S to 128 are not done
+here: the kernels read kv head ``h // rep`` in place and mask keys past S,
+which for causal attention gives what the padded Pallas path gives (a
+padded key is never at or before a real query). The backward pass
 (``repro``'s custom VJP through ``chunked.py``) comes with the training
 slice.
 """
