@@ -6,22 +6,40 @@
 Needs one CUDA device and ``nvcc``; imports only ``repro_torch``, torch,
 numpy and scipy. Phases (any failure exits non-zero and prints no result):
 
-  1. build     — compile the kernels' five sources from the repo, one
-                 nvcc each, all started together; report bsr_spgemm's
-  2. kernel    — the kernel against its plain PyTorch version on the card:
-                 3 semirings x bs in {16, 32, 64, 128}, runs of 1-8
-                 products, a seg_start offset and an empty schedule;
-                 integer-valued tiles bitwise, float plus-times within
-                 rtol=1e-5, atol=1e-4 (summation order), bool / min-plus
-                 bitwise
+  1. build     — compile the kernels' six sources from the repo, one
+                 nvcc each, all started together; report both bsr_spgemm
+                 sources' ptxas lines and the tensor-core route's dynamic
+                 shared memory
+  2. kernel    — both bsr_spgemm routes against the plain PyTorch version
+                 on the card: 3 semirings x bs in {16, 32, 64, 128} through
+                 the wrapper (plus_times and bool_or_and at bs 64/128 on
+                 the ``tc`` route, the rest on ``simt``; the ``simt``
+                 kernel also at bs 64/128 directly), runs of 1-8 products,
+                 a seg_start offset and an empty schedule; on ``tc`` also
+                 odd integers in 2049-4093 (not TF32-exact; one nonzero per
+                 row and column, runs of one product), windows whose runs
+                 leave gaps and whose nc runs past the last visited slot
+                 (the output starts as NaN: every slot must be written),
+                 and a window made only of pad products; integer-valued
+                 tiles bitwise, float plus-times within rtol=1e-5,
+                 atol=1e-4 (summation order, the TF32 split), bool /
+                 min-plus bitwise, every ``tc`` launch repeated bitwise
   3. main path — laplacian_2d(1024) (1,048,576 rows) A·A through
                  ``SpGEMMSession(device="cuda").matmul(algorithm="1d",
                  nparts=8, bs=128)`` with chunk=None and chunk=2, held
                  bitwise against scipy; a repeat must be a cache hit with
-                 no new executable builds, values x2 must repack to C x4
+                 no new executable builds, values x2 must repack to C x4;
+                 every launch on the ``tc`` route. Then part 0's launch
+                 timed on both routes: integer payloads, the same schedule
+                 with every value x (1 + 2^-12) (not TF32-exact: up to four
+                 passes), the ``simt`` kernel with its fill as
+                 ``previous_ms``, and fp32 ``torch.bmm`` of the gathered
+                 products as a yardstick that is not the same function
   4. semirings — banded_clustered(65536, 64, 16.0) with integer weights,
-                 bool_or_and and min_plus at nparts=8, bs=64, chunk=2,
-                 bitwise against the port's host ``local_spgemm.spgemm``
+                 bool_or_and (``tc``) and min_plus (``simt``) at nparts=8,
+                 bs=64, chunk=2, bitwise against the port's host
+                 ``local_spgemm.spgemm``; each route's largest launch of
+                 the call timed beside the plain version
   5. build_lm  — load the flash_attention and moe_gemm libraries (for
                  each, the fp32 CUDA-core source and the bf16 tensor-core
                  one); ptxas's registers, spills and shared memory per
@@ -75,6 +93,8 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
 
 Every main-path call must run on the kernel: ``fallbacks == 0``,
 ``last_call["engine"] == "cuda"`` and the kernel's launch count grows.
+Bounds: max(bytes / HBM, operations / peak), the peak of the work's type:
+fp32 FMA on the CUDA cores, TF32 or bf16 on the tensor cores.
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 card's name and power limit, and last ``{"ok": true, "device": ...}``.
 """
@@ -92,11 +112,11 @@ import torch
 
 # published rates of the H100 variants (NVIDIA data sheets, dense, at the
 # full power limit): fp32 on the CUDA cores (FMA = 2 FLOP), HBM bandwidth,
-# bf16 on the tensor cores
+# bf16 and TF32 on the tensor cores
 PEAKS = {
-    "PCIe": (51.2e12, 2.0e12, 756e12),
-    "NVL": (60.0e12, 3.9e12, 835e12),
-    "SXM": (66.9e12, 3.35e12, 989.4e12),
+    "PCIe": (51.2e12, 2.0e12, 756e12, 378e12),
+    "NVL": (60.0e12, 3.9e12, 835e12, 417.5e12),
+    "SXM": (66.9e12, 3.35e12, 989.4e12, 494.7e12),
 }
 SEMIRINGS = ("plus_times", "bool_or_and", "min_plus")
 
@@ -156,50 +176,130 @@ def bitwise(x, y):
         x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))
 
 
+def bitwise_or_nan(x, y):
+    """Bitwise equal, a NaN matching any NaN (its sign and payload are not
+    part of the result)."""
+    nan = torch.isnan(y)
+    return (x.shape == y.shape and torch.equal(torch.isnan(x), nan)
+            and bitwise(x[~nan], y[~nan]))
+
+
 def ptxas_lines(log):
     return [ln.strip() for ln in log.splitlines()
             if "registers" in ln or "spill" in ln or "entry function" in ln]
 
 
 def phase_build():
-    """Every kernel source built in parallel; bsr_spgemm's library
+    """Every kernel source built in parallel; both bsr_spgemm libraries
     loaded."""
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.bsr_spgemm import kernel
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.moe_gemm import kernel as mg
 
-    infos = cuda_lib.compile_sources([kernel.SOURCE, *fa.SOURCES,
+    infos = cuda_lib.compile_sources([*kernel.SOURCES, *fa.SOURCES,
                                       *mg.SOURCES])
     kernel.build()
-    info = infos[kernel.SOURCE]
-    emit({"phase": "build", "seconds": info["seconds"],
-          "built": info["built"], "library": info["path"],
-          "ptxas": ptxas_lines(info["log"])})
+    for src in kernel.SOURCES:
+        info = infos[src]
+        extra = ({"dynamic_smem_bytes": {f"bs{bs}": kernel.tc_smem_bytes(bs)
+                                         for bs in kernel.TC_BS}}
+                 if src == kernel.TC_SOURCE else {})
+        emit({"phase": "build", "kernel": src.stem,
+              "seconds": info["seconds"], "built": info["built"],
+              "library": info["path"], "ptxas": ptxas_lines(info["log"]),
+              **extra})
     return infos
 
 
-def random_schedule(rng, na, nb, nruns):
-    """A schedule sorted by output slot: ``nruns`` runs of 1-8 products."""
+def random_schedule(rng, na, nb, nruns, lens=None, nc=None):
+    """A schedule sorted by output slot: ``nruns`` runs of 1-8 products
+    (or of ``lens``), on slots 0..nruns-1 or, given ``nc``, on a sorted
+    random subset of [0, nc - 1) that leaves gaps."""
     from repro_torch.core.blocksparse import flags_from_c_slot
 
-    lens = rng.integers(1, 9, size=nruns)
-    c_slot = np.repeat(np.arange(nruns), lens).astype(np.int32)
+    if lens is None:
+        lens = rng.integers(1, 9, size=nruns)
+    slots = (np.arange(nruns) if nc is None else
+             np.sort(rng.choice(nc - 1, size=nruns, replace=False)))
+    c_slot = np.repeat(slots, lens).astype(np.int32)
     a_slot = rng.integers(0, na, size=len(c_slot)).astype(np.int32)
     b_slot = rng.integers(0, nb, size=len(c_slot)).astype(np.int32)
     starts = np.concatenate([[0], np.cumsum(lens)])
     return a_slot, b_slot, c_slot, flags_from_c_slot(c_slot), starts
 
 
+def plant(rng, tiles, values):
+    """Each tile with one element set to ``values[t % len(values)]``, at a
+    random place."""
+    tiles = tiles.copy()
+    for t in range(len(tiles)):
+        r, c = rng.integers(0, tiles.shape[1], size=2)
+        tiles[t, r, c] = values[t % len(values)]
+    return tiles
+
+
+def odd_tiles(rng, n, bs):
+    """One nonzero per row and column, odd integers in 2049..4093: not
+    TF32-exact (lo = +-1, so the lo.lo pass is needed), and each exact
+    product of two stays below 2**24."""
+    vals = np.zeros((n, bs, bs), np.float32)
+    for t in range(n):
+        vals[t, np.arange(bs), rng.permutation(bs)] = \
+            rng.integers(1024, 2047, size=bs) * 2 + 1
+    return vals
+
+
+class RouteCheck:
+    """Holds bsr_spgemm launches against the plain version, per route:
+    integer-valued and bool / min-plus results bitwise (a NaN matching any
+    NaN), float plus-times within rtol=1e-5, atol=1e-4; a ``tc`` launch
+    repeated must be bitwise equal."""
+
+    def __init__(self):
+        self.cases = {"tc": 0, "simt": 0}
+        self.max_err = {"tc": 0.0, "simt": 0.0}
+
+    def __call__(self, name, got, want, exact, label, repeat=None):
+        torch.cuda.synchronize()
+        if exact:
+            ok = bitwise_or_nan(got, want)
+        else:
+            ok = torch.allclose(got, want, rtol=1e-5, atol=1e-4)
+            self.max_err[name] = max(self.max_err[name],
+                                     float((got - want).abs().max()))
+        check(ok, f"bsr_spgemm {name} != plain version: {label}")
+        if repeat is not None:
+            check(bitwise(repeat(), got),
+                  f"a repeated bsr_spgemm {name} launch differs: {label}")
+        self.cases[name] += 1
+
+
 def phase_kernel(dev):
-    """The kernel against its plain version on the card."""
+    """Both bsr_spgemm routes against their plain version on the card."""
+    from repro_torch.core.blocksparse import flags_from_c_slot
     from repro_torch.core.semiring import by_name
-    from repro_torch.kernels.bsr_spgemm.kernel import (bsr_spgemm,
-                                                       run_starts_from_flags)
+    from repro_torch.kernels.bsr_spgemm import kernel
     from repro_torch.kernels.bsr_spgemm.ref import bsr_spgemm_ref
 
     rng = np.random.default_rng(0)
-    cases, max_err = 0, 0.0
+    held = RouteCheck()
+    put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def run(name, tiles, slots, rs, nprod, nc, bs, sr, seg_start=0,
+            fill=None):
+        """One launch of route ``name`` (through the wrapper when it is
+        the route the wrapper picks) into an output prefilled with
+        ``fill``."""
+        out = torch.full((nc, bs, bs), float("nan") if fill is None
+                         else fill, device=dev)
+        if name == kernel.route(sr, bs):
+            return kernel.bsr_spgemm(*tiles, *slots, rs, nprod=nprod, nc=nc,
+                                     bs=bs, semiring=sr, seg_start=seg_start,
+                                     out=out)
+        kernel._launch(name, *tiles, *slots, rs, out, bs=bs, semiring=sr)
+        return out
+
     for srname in SEMIRINGS:
         sr = by_name(srname)
         for bs in (16, 32, 64, 128):
@@ -211,8 +311,10 @@ def phase_kernel(dev):
             windows = [(0, len(c_slot)),
                        (int(starts[5]), int(starts[nruns - 5] - starts[5])),
                        (int(starts[3]), 0)]
-            put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
             slots = [put(a_slot), put(b_slot), put(c_slot)]
+            routes = [kernel.route(sr, bs)]
+            if routes[0] == "tc":
+                routes.append("simt")    # the previous kernel, same inputs
             for kind in ("int", "float"):
                 tiles = []
                 for n in (na, nb):
@@ -223,26 +325,125 @@ def phase_kernel(dev):
                     vals[rng.random((n, bs, bs)) < 0.5] = sr.zero
                     tiles.append(put(vals))
                 for seg_start, nprod in windows:
-                    rs = put(run_starts_from_flags(flags, seg_start, nprod))
-                    got = bsr_spgemm(*tiles, *slots, rs, nprod=nprod,
-                                     nc=nruns, bs=bs, semiring=sr,
-                                     seg_start=seg_start)
+                    rs = put(kernel.run_starts_from_flags(flags, seg_start,
+                                                          nprod))
                     want = bsr_spgemm_ref(*tiles, *slots, nc=nruns,
                                           semiring=sr, seg_start=seg_start,
                                           seg_len=nprod)
-                    torch.cuda.synchronize()
-                    if kind == "float" and srname == "plus_times":
-                        ok = torch.allclose(got, want, rtol=1e-5, atol=1e-4)
-                        err = float((got - want).abs().max())
-                        max_err = max(max_err, err)
-                    else:
-                        ok = bitwise(got, want)
-                    check(ok, f"kernel != plain version: {srname} bs={bs} "
-                              f"{kind} window=({seg_start}, {nprod})")
-                    cases += 1
-    emit({"phase": "kernel_vs_plain", "cases": cases,
-          "max_abs_err_float_plus_times": max_err})
-    return max_err
+                    for name in routes if nprod else routes[:1]:
+                        def launch(name=name):
+                            if not nprod:
+                                return kernel.bsr_spgemm(
+                                    *tiles, *slots, rs, nprod=0, nc=nruns,
+                                    bs=bs, semiring=sr, seg_start=seg_start)
+                            return run(name, tiles, slots, rs, nprod, nruns,
+                                       bs, sr, seg_start)
+                        held(name, launch(), want,
+                             kind == "int" or srname != "plus_times",
+                             f"{srname} bs={bs} {kind} "
+                             f"window=({seg_start}, {nprod})",
+                             repeat=launch if name == "tc" else None)
+
+    # the tc route's own cases, at bs 64 and 128
+    for bs in kernel.TC_BS:
+        na = nb = 16
+        # odd integers past 2048, runs of one product: exact only with the
+        # lo.lo term
+        a_slot, b_slot, c_slot, flags, _ = random_schedule(
+            rng, na, nb, 24, lens=np.ones(24, np.int64))
+        tiles = [put(odd_tiles(rng, na, bs)), put(odd_tiles(rng, nb, bs))]
+        slots = [put(a_slot), put(b_slot), put(c_slot)]
+        rs = put(kernel.run_starts_from_flags(flags, 0, len(c_slot)))
+        want = bsr_spgemm_ref(*tiles, *slots, nc=24)
+        check(float(want.max()) > 2049.0 ** 2, "odd-integer case too small")
+        launch = lambda: run("tc", tiles, slots, rs, len(c_slot), 24, bs,
+                             by_name("plus_times"))
+        held("tc", launch(), want, True, f"odd integers bs={bs}",
+             repeat=launch)
+        # infinities and NaNs among odd integers past 2048 and among
+        # integers, with |x| >= 2**127 in A (FLT_MAX's hi rounds to
+        # infinity) against B in -1..1: the kernel sums such panels unsplit
+        # on the CUDA cores. No product overflows (a fused multiply-add and
+        # a rounded product disagree there), and runs of one product leave
+        # each output element at most one huge finite term, so no sum
+        # depends on its order
+        inf = np.float32(np.inf)
+        for kind in ("int", "odd"):
+            if kind == "odd":
+                a, b = odd_tiles(rng, na, bs), odd_tiles(rng, nb, bs)
+                a = plant(rng, a, [inf, -inf, np.nan])
+            else:
+                a, b = (rng.integers(lo, hi, size=(n, bs, bs)).astype(
+                    np.float32) for lo, hi, n in ((-3, 4, na), (-1, 2, nb)))
+                a = plant(rng, a, [inf, -inf, np.nan,
+                                   np.finfo(np.float32).max,
+                                   np.float32(-1.5 * 2.0 ** 127)])
+            tiles = [put(a), put(plant(rng, b, [np.nan, inf, -inf]))]
+            want = bsr_spgemm_ref(*tiles, *slots, nc=24)
+            for test in (torch.isnan, torch.isposinf, torch.isneginf,
+                         torch.isfinite):
+                check(bool(test(want).any()), f"non-finite case lacks "
+                      f"{test.__name__}")
+            launch = lambda: run("tc", tiles, slots, rs, len(c_slot), 24, bs,
+                                 by_name("plus_times"))
+            held("tc", launch(), want, True,
+                 f"inf / NaN / huge among {kind} integers bs={bs}",
+                 repeat=launch)
+        for srname in ("plus_times", "bool_or_and"):
+            sr = by_name(srname)
+            # runs on a sorted subset of the slots, nc past the last one
+            nruns, nc = 30, 3 * 30 + 7
+            a_slot, b_slot, c_slot, flags, starts = random_schedule(
+                rng, na, nb, nruns, nc=nc - 6)
+            tiles = []
+            for n in (na, nb):
+                vals = rng.integers(-3, 4, size=(n, bs, bs)).astype(
+                    np.float32)
+                vals[rng.random((n, bs, bs)) < 0.5] = 0.0
+                tiles.append(put(vals))
+            slots = [put(a_slot), put(b_slot), put(c_slot)]
+            for seg_start, nprod in ((0, len(c_slot)),
+                                     (int(starts[4]),
+                                      int(starts[20] - starts[4]))):
+                rs = put(kernel.run_starts_from_flags(flags, seg_start,
+                                                      nprod))
+                want = bsr_spgemm_ref(*tiles, *slots, nc=nc, semiring=sr,
+                                      seg_start=seg_start, seg_len=nprod)
+                launch = lambda: run("tc", tiles, slots, rs, nprod, nc, bs,
+                                     sr, seg_start)
+                held("tc", launch(), want, True,
+                     f"gapped {srname} bs={bs} window=({seg_start}, "
+                     f"{nprod}) nc={nc}", repeat=launch)
+            # pad products after the last run, into the garbage slot nc - 1,
+            # run starts the ring's way (the pad run dropped): the whole
+            # window, and a window made only of pads (no run: the kernel
+            # fills every slot)
+            npad = 5
+            pad_c = np.concatenate([c_slot, np.full(npad, nc - 1, np.int32)])
+            pad_slots = [put(np.concatenate([a_slot, a_slot[:npad]])),
+                         put(np.concatenate([b_slot, b_slot[:npad]])),
+                         put(pad_c)]
+            pad_flags = flags_from_c_slot(pad_c)
+            for seg_start, nprod in ((0, len(pad_c)), (len(c_slot), npad)):
+                starts_np = kernel.run_starts_from_flags(pad_flags, seg_start,
+                                                         nprod)
+                if pad_c[starts_np[-2]] == nc - 1:
+                    starts_np = starts_np[:-1]
+                rs = put(starts_np)
+                real = int(starts_np[-1] - seg_start)
+                want = bsr_spgemm_ref(*tiles, *pad_slots, nc=nc, semiring=sr,
+                                      seg_start=seg_start, seg_len=real)
+                launch = lambda: run("tc", tiles, pad_slots, rs, nprod, nc,
+                                     bs, sr, seg_start)
+                held("tc", launch(), want, True,
+                     f"pad products {srname} bs={bs} window=({seg_start}, "
+                     f"{nprod}), {real} real", repeat=launch)
+    emit({"phase": "kernel_vs_plain", "cases": held.cases,
+          "max_abs_err_float_plus_times": held.max_err,
+          "tolerance": {"integer_bool_min_plus": "bitwise, NaN as any NaN",
+                        "float_plus_times": {"rtol": 1e-5, "atol": 1e-4},
+                        "repeat_tc": "bitwise"}})
+    return held.max_err
 
 
 def session_call(sess, kernel, a, b, **kw):
@@ -318,7 +519,7 @@ def phase_main_path(dev, side=1024):
 
     sess = SpGEMMSession(device=dev)
     kw = dict(algorithm="1d", nparts=8, bs=128)
-    kernel.bsr_spgemm.launches = 0
+    kernel.reset_launches()
     runs = {}
     for chunk in (None, 2):
         torch.cuda.reset_peak_memory_stats()
@@ -339,6 +540,9 @@ def phase_main_path(dev, side=1024):
             cold=wall_cold, hit=wall_hit, repack=wall_repack),
             max_memory_allocated=torch.cuda.max_memory_allocated())
     launches = kernel.bsr_spgemm.launches
+    routes = dict(kernel.bsr_spgemm.route_launches)
+    check(routes["tc"] == launches and launches > 0,
+          f"main-path launches off the tc route: {routes}")
 
     entries = list(sess._cache.values())  # read-only: time the executables
     for chunk, entry in zip((None, 2), entries[:2]):
@@ -356,62 +560,198 @@ def phase_main_path(dev, side=1024):
               "tile_products": plan.stats["nprod_total"],
               **{k: plan.stats[k] for k in REQUIRED_STATS}})
     emit({"phase": "main_path_counts", "launches": launches,
-          "session_stats": sess.stats})
+          "route_launches": routes, "session_stats": sess.stats})
     return sess, entries[0].plan, entries[0].args, launches
 
 
+def tc_pass_panels(a_tiles, b_tiles, a_slot, b_slot, bs):
+    """Tensor-core passes the ``tc`` kernel runs over these products: per
+    product and 32-deep k-panel, hi.hi plus one pass for each operand
+    whose panel holds an element that is not TF32-exact, plus lo.lo when
+    both do."""
+    kp = bs // 32
+
+    def inexact(t, a_side):              # (tiles, kp) flags
+        low = (t.view(torch.int32) & 0x1FFF) != 0
+        if a_side:                       # an A panel is 32 columns
+            return low.view(t.shape[0], bs, kp, 32).any(3).any(1)
+        return low.view(t.shape[0], kp, 32 * bs).any(2)   # B: 32 rows
+
+    fa = inexact(a_tiles, True)[a_slot.long()]
+    fb = inexact(b_tiles, False)[b_slot.long()]
+    return int((1 + fa.int() + fb.int() + (fa & fb).int()).sum())
+
+
+def launch_bytes(a_slot, b_slot, rs, nc, bs):
+    """Bytes a launch must move: each A and B tile that the window's real
+    products (``rs[0]`` to ``rs[-1]``) read, once; their three slots and the
+    run starts; each of the ``nc`` output tiles, written once. Returns the
+    bytes and the counts of A and B tiles read."""
+    first, end = int(rs[0]), int(rs[-1])
+    read = [int(torch.unique(t[first:end]).numel()) for t in (a_slot, b_slot)]
+    return ((nc + sum(read)) * bs * bs * 4 + 3 * 4 * (end - first)
+            + nbytes(rs)), read
+
+
+def bounds(moved, fp32_flop, pass_panels, bs):
+    """Least times (ms) for the work: bytes over HBM, ``fp32_flop`` over
+    the CUDA-core fp32 peak, and ``pass_panels`` TF32 passes of a 32-deep
+    k-panel (2 bs^2 32 flop each) over the tensor-core peak."""
+    variant, (fp32, hbm, _, tf32) = peaks(torch.cuda.get_device_name(0))
+    return {"bytes_ms": moved / hbm * 1e3,
+            "fp32_ops_ms": fp32_flop / fp32 * 1e3,
+            "tf32_ops_ms": pass_panels * 2 * bs * bs * 32 / tf32 * 1e3,
+            "peak_variant": variant, "hbm_bytes_per_s": hbm,
+            "fp32_flops": fp32, "tf32_flops": tf32}
+
+
 def measure_kernel(dev, plan, args):
-    """One launch over part 0's whole schedule at the main path's shapes
-    (the unchunked plan), against the plain version on the same inputs."""
-    from repro_torch.core.spgemm_1d_device import recv_index
-    from repro_torch.kernels.bsr_spgemm.kernel import (bsr_spgemm,
-                                                       run_starts_from_flags)
+    """Part 0's launch of the unchunked plan, with the ring's own run
+    starts, on both routes, against the plain version on the same inputs:
+    integer payloads (one TF32 pass), the same schedule with every value x
+    (1 + 2^-12) (not TF32-exact), the ``simt`` kernel with its fill as
+    ``previous_ms``, and fp32 ``torch.bmm`` of the gathered products (a
+    yardstick: no segment sum, so not the same function)."""
+    from repro_torch.core.spgemm_1d_device import _run_starts, recv_index
+    from repro_torch.kernels.bsr_spgemm import kernel
     from repro_torch.kernels.bsr_spgemm.ref import bsr_spgemm_ref
 
     P, bs, nc = plan.nparts, plan.bs, plan.nc_max + 1
+    sr = plan.semiring
+    check(kernel.route(sr, bs) == "tc", "the main path is off the tc route")
     na = plan.a_tiles.shape[1]
     idx = np.concatenate([np.arange(na), recv_index(plan, range(P - 1))[0]])
     a_tiles, b_tiles, a_slot, b_slot, c_slot = args
     stack = a_tiles.reshape(P * na, bs, bs)[
         torch.from_numpy(idx.clip(min=0)).to(dev)]
-    stack[torch.from_numpy(idx < 0).to(dev)] = plan.semiring.zero
+    stack[torch.from_numpy(idx < 0).to(dev)] = sr.zero
     nprod = int(plan.a_slot.shape[1])
-    real = int((plan.c_slot[0] < plan.nc_max).sum())
-    rs = torch.from_numpy(run_starts_from_flags(plan.flags[0], 0, nprod)
-                          ).to(dev)
-    ins = (stack, b_tiles[0], a_slot[0], b_slot[0], c_slot[0])
+    starts = _run_starts(plan, 0, 0, nprod)
+    real = int(starts[-1] - starts[0])
+    rs = torch.from_numpy(starts).to(dev)
+    slots = (a_slot[0], b_slot[0], c_slot[0])
+    ints = (stack, b_tiles[0])
+    scaled = tuple(t * (1 + 2 ** -12) for t in ints)
+    out = torch.empty((nc, bs, bs), dtype=torch.float32, device=dev)
 
-    def kern():
-        return bsr_spgemm(*ins, rs, nprod=nprod, nc=nc, bs=bs,
-                          semiring=plan.semiring)
+    def launch(name, tiles):
+        kernel._launch(name, *tiles, *slots, rs, out, bs=bs, semiring=sr)
+        return out
+
+    def plain(tiles):
+        return bsr_spgemm_ref(*tiles, *slots, nc=nc, semiring=sr,
+                              seg_len=real)
+
+    want = plain(ints)
+    for name in ("tc", "simt"):
+        check(bitwise(launch(name, ints), want),
+              f"main-path launch on {name} != plain version")
+    del want
+    want = plain(scaled)
+    got = launch("tc", scaled)
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-4),
+          f"main-path launch x (1 + 2^-12) != plain version: {err}")
+    del want, got
+    ms = cuda_ms(lambda: launch("tc", ints), 5)
+    float_ms = cuda_ms(lambda: launch("tc", scaled), 5)
+    previous_ms = cuda_ms(lambda: launch("simt", ints), 5)
+    plain_ms = cuda_ms(lambda: plain(ints), 2)
+    ga = stack[slots[0][:real].long()]
+    gb = ints[1][slots[1][:real].long()]
+    gout = torch.empty_like(ga)
+    bmm_ms = cuda_ms(lambda: torch.bmm(ga, gb, out=gout), 3)
+    del ga, gb, gout
+    flop = 2 * real * bs ** 3
+    moved, read = launch_bytes(slots[0], slots[1], rs, nc, bs)
+    passes = tc_pass_panels(*ints, slots[0][:real], slots[1][:real], bs)
+    passes_f = tc_pass_panels(*scaled, slots[0][:real], slots[1][:real], bs)
+    del scaled
+    bd, bd_f = (bounds(moved, flop, n, bs) for n in (passes, passes_f))
+    emit({"phase": "kernel_timing", "part": 0, "route": "tc",
+          "tile_products": real, "padded_products": nprod,
+          "runs": len(starts) - 1, "output_tiles": nc, "flop": flop,
+          "bytes": moved, "tiles_read": read,
+          "tf32_pass_panels": {"integer": passes, "scaled": passes_f},
+          "ms": ms, "float_ms": float_ms, "previous_ms": previous_ms,
+          "plain_ms": plain_ms, "bmm_products_ms": bmm_ms,
+          "float_max_abs_err": err, "tflops_fp32_work": flop / ms / 1e9,
+          "bounds": bd, "float_tf32_ops_ms": bd_f["tf32_ops_ms"]})
+    return dict(ms=ms, plain_ms=plain_ms, err=err,
+                bound_ms=max(bd["bytes_ms"], bd["tf32_ops_ms"]),
+                bound_by=("operations" if bd["tf32_ops_ms"] >= bd["bytes_ms"]
+                          else "bytes"),
+                previous_ms=previous_ms, float_ms=float_ms,
+                float_bound_ms=max(bd["bytes_ms"], bd_f["tf32_ops_ms"]),
+                fp32_bound_ms=max(bd["bytes_ms"], bd["fp32_ops_ms"]),
+                bmm_products_ms=bmm_ms, tile_products=real)
+
+
+def largest_launch(kernel, fn):
+    """The arguments of the bsr_spgemm call with the most products in one
+    run of ``fn``; the calls of that run count on the spy, not on the
+    kernel's counters."""
+    inner, best = kernel.bsr_spgemm, {}
+
+    def spy(*args, **kw):
+        if kw["nprod"] > best.get("nprod", -1):
+            best.update(nprod=kw["nprod"], args=args, kw=kw)
+        return inner(*args, **kw)
+
+    spy.launches, spy.route_launches = 0, dict(inner.route_launches)
+    kernel.bsr_spgemm = spy
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        kernel.bsr_spgemm = inner
+    return best["args"], best["kw"]
+
+
+def time_semiring_launch(kernel, args, kw):
+    """A captured launch on its route against the plain version: bitwise,
+    then both timed, beside the bound of its work."""
+    from repro_torch.kernels.bsr_spgemm.ref import bsr_spgemm_ref
+
+    sr, bs, nc = kw["semiring"], kw["bs"], kw["nc"]
+    tiles, slots, rs = args[:2], args[2:5], args[5]
+    seg_start = kw.get("seg_start", 0)
+    first, end = int(rs[0]), int(rs[-1])
+    real = end - first
+    name = kernel.route(sr, bs)
+    out = torch.empty((nc, bs, bs), dtype=torch.float32, device=rs.device)
+
+    def launch():
+        kernel._launch(name, *tiles, *slots, rs, out, bs=bs, semiring=sr)
+        return out
 
     def plain():
-        return bsr_spgemm_ref(*ins, nc=nc, semiring=plan.semiring)
+        return bsr_spgemm_ref(*tiles, *slots, nc=nc, semiring=sr,
+                              seg_start=seg_start, seg_len=end - seg_start)
 
-    got, want = kern(), plain()
-    err = float((got - want).abs().max())
-    check(bitwise(got, want), "main-path kernel != plain version")
-    del got, want
-    ms = cuda_ms(kern, 5)
-    plain_ms = cuda_ms(plain, 2)
-    name = torch.cuda.get_device_name(0)
-    variant, (flops_peak, hbm, _) = peaks(name)
-    flops = 2 * real * bs ** 3
-    nbytes = sum(t.numel() * t.element_size() for t in ins) + rs.numel() * 4 \
-        + nc * bs * bs * 4
-    t_ops, t_bytes = flops / flops_peak * 1e3, nbytes / hbm * 1e3
-    emit({"phase": "kernel_timing", "part": 0, "tile_products": real,
-          "padded_products": nprod, "flop": flops, "bytes": nbytes,
-          "ms": ms, "plain_ms": plain_ms, "tflops": flops / ms / 1e9,
-          "peaks_used": {"variant": variant, "fp32_flops": flops_peak,
-                         "hbm_bytes_per_s": hbm}})
-    return dict(ms=ms, plain_ms=plain_ms, err=err,
-                bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+    check(bitwise(launch(), plain()),
+          f"{sr.name} launch on {name} != plain version")
+    ms, plain_ms = cuda_ms(launch, 5), cuda_ms(plain, 2)
+    moved, read = launch_bytes(slots[0], slots[1], rs, nc, bs)
+    if name == "tc":   # bool: booleanized operands, one TF32 pass a panel
+        bd = bounds(moved, 2 * real * bs ** 3, tc_pass_panels(
+            (tiles[0] != 0).float(), (tiles[1] != 0).float(),
+            slots[0][first:end], slots[1][first:end], bs), bs)
+        t_ops = bd["tf32_ops_ms"]
+    else:              # min-plus: an add and a min a term, each at the
+        # fp32 instruction rate, half the FMA FLOP rate
+        bd = bounds(moved, 4 * real * bs ** 3, 0, bs)
+        t_ops = bd["fp32_ops_ms"]
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": max(t_ops, bd["bytes_ms"]),
+            "bound_by": "operations" if t_ops >= bd["bytes_ms"] else "bytes",
+            "route": name, "tile_products": real, "output_tiles": nc,
+            "bytes": moved, "tiles_read": read, "bounds": bd}
 
 
 def phase_semirings(dev, sess, n=65536):
-    """bool_or_and and min_plus at scale, against the host oracle."""
+    """bool_or_and (``tc``) and min_plus (``simt``) at scale, against the
+    host oracle; each call's largest launch timed on its route."""
     from repro_torch.core import banded_clustered, by_name
     from repro_torch.core.device_common import REQUIRED_STATS
     from repro_torch.core.local_spgemm import spgemm
@@ -421,32 +761,42 @@ def phase_semirings(dev, sess, n=65536):
     a.data[:] = np.rint(2 * a.data)
     a.data[a.data == 0] = 1.0
     a = a.astype(np.float32)
-    for srname in ("bool_or_and", "min_plus"):
+    timings = {}
+    for srname, want_route in (("bool_or_and", "tc"), ("min_plus", "simt")):
         sr = by_name(srname)
-        before = kernel.bsr_spgemm.launches
+        kernel.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         c, wall = session_call(sess, kernel, a, a, algorithm="1d", nparts=8,
                                bs=64, chunk=2, semiring=sr)
-        launches = kernel.bsr_spgemm.launches - before
+        routes = dict(kernel.bsr_spgemm.route_launches)
+        check(routes[want_route] > 0
+              and sum(routes.values()) == routes[want_route],
+              f"{srname} at bs 64 ran off the {want_route} route: {routes}")
         mem = torch.cuda.max_memory_allocated()
         plan_and_build = sess.last_call["plan_seconds"]
         same_csc(c, spgemm(a, a, sr), srname)
         entry = next(reversed(sess._cache.values()))  # the cold call's
         ms = cuda_ms(lambda: entry.fn(*entry.args), 3)
+        t = time_semiring_launch(
+            kernel, *largest_launch(kernel, lambda: entry.fn(*entry.args)))
+        t["launches"] = routes[want_route]
+        timings[srname] = t
         emit({"phase": "semiring", "semiring": srname,
               "matrix": f"banded_clustered({n}, 64, 16.0, seed=0)",
               "nparts": 8, "bs": 64, "chunk": 2,
               "plan_seconds": entry.plan.stats["plan_seconds"],
               "plan_and_build_seconds": plan_and_build, "execute_ms": ms,
               "wall_s": wall, "max_memory_allocated": mem,
-              "launches": launches,
+              "launches": sum(routes.values()), "route_launches": routes,
+              "largest_launch": t,
               **{k: entry.plan.stats[k] for k in REQUIRED_STATS}})
+    return timings
 
 
 def timing_entry(ms, plain_ms, library_ms, flop, moved, dtype, err):
     """A kernel's timing beside its bound: max(flop / peak, bytes / HBM),
     with the bf16 tensor-core peak for bf16 work and the fp32 peak else."""
-    variant, (fp32, hbm, bf16) = peaks(torch.cuda.get_device_name(0))
+    variant, (fp32, hbm, bf16, _) = peaks(torch.cuda.get_device_name(0))
     peak = bf16 if dtype == torch.bfloat16 else fp32
     t_ops, t_bytes = flop / peak * 1e3, moved / hbm * 1e3
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -1145,7 +1495,7 @@ def main():
         grid_err = phase_kernel(dev)
         sess, plan, args, launches = phase_main_path(dev)
         timing = measure_kernel(dev, plan, args)
-        phase_semirings(dev, sess)
+        semirings = phase_semirings(dev, sess)
         del sess, plan, args      # the SpGEMM session's cached entries
         torch.cuda.empty_cache()
         phase_build_lm(infos)
@@ -1162,7 +1512,10 @@ def main():
         return 1
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     timing["library_ms"] = None
-    timing["max_abs_err"] = max(grid_err, timing["err"])
+    timing["max_abs_err"] = max(grid_err["tc"], timing["err"])
+    simt = dict(semirings["min_plus"], max_abs_err=grid_err["simt"])
+    bsr_src = "src/repro_torch/kernels/bsr_spgemm/csrc/"
+    bsr_pallas = "src/repro/kernels/bsr_spgemm/kernel.py:92"
     flash["max_abs_err"] = max(flash_grid_err["bfloat16"],
                                flash["max_abs_err"])
     flash_fp32["max_abs_err"] = max(flash_grid_err["float32"],
@@ -1186,8 +1539,21 @@ def main():
             source=moe_src + source)
 
     emit({"kernels": [
-        kernel_row("bsr_spgemm", "src/repro/kernels/bsr_spgemm/kernel.py:92",
-                   launches, timing),
+        kernel_row("bsr_spgemm_tc", bsr_pallas, launches, timing,
+                   {"kernel_route": "tc", "launches_on":
+                    "the main path (laplacian_2d(1024), bs 128)",
+                    "previous_ms": timing["previous_ms"],
+                    "float_ms": timing["float_ms"],
+                    "float_bound_ms": timing["float_bound_ms"],
+                    "fp32_bound_ms": timing["fp32_bound_ms"],
+                    "bmm_products_ms": timing["bmm_products_ms"],
+                    "bool_bs64": semirings["bool_or_and"]},
+                   source=bsr_src + "bsr_spgemm_tc.cu"),
+        kernel_row("bsr_spgemm_simt", bsr_pallas, simt["launches"], simt,
+                   {"kernel_route": "simt", "launches_on":
+                    "the min-plus path (banded_clustered, bs 64)",
+                    "main_path_ms": timing["previous_ms"]},
+                   source=bsr_src + "bsr_spgemm.cu"),
         kernel_row("flash_attention_bf16", fa_pallas, attn_routes["tc"],
                    flash, {"shape": flash["shape"],
                            "previous_ms": flash["previous_ms"],

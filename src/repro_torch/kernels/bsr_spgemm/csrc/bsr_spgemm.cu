@@ -1,4 +1,8 @@
-// Scheduled block-sparse semiring tile product for Hopper (sm_90a).
+// Scheduled block-sparse semiring tile product for Hopper (sm_90a), on the
+// CUDA cores: the "simt" route of bsr_spgemm. The wrapper (kernel.py::route)
+// sends min_plus at every bs, and every semiring at bs 16 and 32, here;
+// plus_times and bool_or_and at bs 64 and 128 run on the tensor cores
+// (bsr_spgemm_tc.cu). This kernel instantiates every semiring at every bs.
 //
 // Replaces src/repro/kernels/bsr_spgemm/kernel.py::bsr_spgemm_pallas.
 // For every product s of the schedule window,
@@ -25,7 +29,7 @@
 // same sequential-k fminf(acc, a + b) as the reference's rank-1 combine; no
 // tensor cores and no TF32, so integer-valued inputs stay exact). The design
 // answers that bound only with register blocking: each shared-memory value a
-// thread reads feeds TM fused operations. wgmma / TMA pipelines are later work.
+// thread reads feeds TM fused operations.
 //
 // Plain C interface for ctypes: every pointer and the stream are void*.
 

@@ -1,63 +1,110 @@
-"""Hopper CUDA kernel: scheduled block-sparse semiring product.
+"""Hopper CUDA kernels: scheduled block-sparse semiring product.
 
-Replaces ``src/repro/kernels/bsr_spgemm/kernel.py::bsr_spgemm_pallas``. The
-source is ``csrc/bsr_spgemm.cu`` (one CTA per run of products sharing an
-output tile, the accumulator in registers; see its header for the design).
-It is compute-bound on fp32 CUDA-core FMAs at bs=128.
+Replaces ``src/repro/kernels/bsr_spgemm/kernel.py::bsr_spgemm_pallas``. Two
+routes, chosen by :func:`route` from the semiring and bs alone:
 
-Build and binding: at first use ``nvcc`` compiles the source for
-``sm_90a`` into a shared library with a plain C interface under the repo's
-``build/`` directory, named by a hash of the source and the flags, and
-``ctypes`` loads it. Nothing is compiled or loaded at import.
+* ``"tc"`` — plus_times and bool_or_and at bs 64 and 128,
+  ``csrc/bsr_spgemm_tc.cu``: persistent CTAs walk the runs of products
+  that share an output tile; a producer keeps a TMA ring of 32-deep
+  k-panels full across run boundaries, and the consumer warpgroups stage
+  each panel (B transposed on the way), split an operand that is not
+  TF32-exact into TF32 hi and lo parts, and run ``wgmma`` (tf32 in, fp32
+  accumulate) on hi.hi plus whichever lo passes the panel needs.
+  Integer-valued tiles (exact up to 2048) run one pass and stay bitwise
+  equal to the plain version; general floats run up to four
+  (``ref.bsr_spgemm_tc_model`` is its arithmetic on the CPU). A k-panel
+  holding an infinity, a NaN or an ``|x| >= 2**127``, which the split
+  cannot carry, is summed unsplit on the CUDA cores in fp32, so those
+  propagate as in the plain version. The kernel also writes the identity
+  into every output slot no run writes.
+* ``"simt"`` — min_plus at every bs, and every semiring at bs 16 and 32,
+  ``csrc/bsr_spgemm.cu``: one CTA per run, fp32 on the CUDA cores. Min-plus
+  has no tensor-core form, and wgmma's 64-row tiles do not fit bs 16/32.
+  The wrapper fills the output with the identity before it launches.
+
+Build and binding: ``..cuda_lib`` compiles both sources for ``sm_90a`` at
+first use, one ``nvcc`` each, and ``ctypes`` loads them. The tensor-core
+library encodes its TMA tensor maps per launch with the CUDA driver API's
+``cuTensorMapEncodeTiled``, reached through ``cudaGetDriverEntryPoint``.
+Nothing is compiled or loaded at import.
 
 :func:`bsr_spgemm` is the wrapper. A tensor on the CPU goes to the plain
 version (``ref.bsr_spgemm_ref``) because it lies on the CPU; a CUDA tensor
-launches the kernel on the current stream or raises — there is no fallback
-from the kernel to the plain version. ``bsr_spgemm.launches`` counts
-kernel launches.
+launches its route's kernel on the current stream or raises — there is no
+fallback to another route or to the plain version.
+``bsr_spgemm.launches`` counts kernel launches,
+``bsr_spgemm.route_launches`` the same per route.
 """
 
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from ...core.semiring import PLUS_TIMES, Semiring
-from ..cuda_lib import check_tensor, compile_source
+from ..cuda_lib import check_tensor, compile_sources
 from .ref import bsr_spgemm_ref
 
 __all__ = ["bsr_spgemm", "run_starts_from_flags", "check_launch_args",
-           "build", "KERNEL_BS", "SOURCE"]
+           "build", "route", "reset_launches", "tc_smem_bytes", "KERNEL_BS",
+           "TC_BS", "TC_SEMIRINGS", "ROUTES", "SOURCE", "TC_SOURCE",
+           "SOURCES"]
 
 KERNEL_BS = (16, 32, 64, 128)
+TC_BS = (64, 128)
+TC_SEMIRINGS = ("plus_times", "bool_or_and")
+ROUTES = ("tc", "simt")
 SOURCE = Path(__file__).resolve().parent / "csrc" / "bsr_spgemm.cu"
+TC_SOURCE = SOURCE.with_name("bsr_spgemm_tc.cu")
+SOURCES = (SOURCE, TC_SOURCE)
 _SEMIRING_CODE = {"plus_times": 0, "bool_or_and": 1, "min_plus": 2}
 
-_lib: Optional[ctypes.CDLL] = None
+_lib: Optional[Dict[str, ctypes.CDLL]] = None
 
 
 def build() -> dict:
-    """Compile (if not yet built) and load the kernel library.
-
-    Returns ``{"path", "seconds", "built", "log"}``: the shared library,
-    the wall time of this call, whether ``nvcc`` ran, and ptxas's report
-    (registers, shared memory, spills per instantiation). A failing build
-    raises ``RuntimeError`` with nvcc's output.
-    """
+    """Compile (if not yet built) and load both kernel libraries; returns
+    ``{source: {"path", "seconds", "built", "log"}}`` as
+    ``cuda_lib.compile_sources`` does. A failing build raises
+    ``RuntimeError`` with nvcc's output."""
     global _lib
-    info = compile_source(SOURCE)
+    infos = compile_sources(SOURCES)
     if _lib is None:
-        lib = ctypes.CDLL(info["path"])
-        fn = lib.bsr_spgemm_launch
-        fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return info
+        simt = ctypes.CDLL(infos[SOURCE]["path"])
+        simt.bsr_spgemm_launch.argtypes = (
+            [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
+            + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+        simt.bsr_spgemm_launch.restype = ctypes.c_int
+        tc = ctypes.CDLL(infos[TC_SOURCE]["path"])
+        tc.bsr_spgemm_tc_launch.argtypes = (
+            [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+            + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+        tc.bsr_spgemm_tc_launch.restype = ctypes.c_int
+        tc.bsr_spgemm_tc_smem_bytes.argtypes = [ctypes.c_int]
+        tc.bsr_spgemm_tc_smem_bytes.restype = ctypes.c_int
+        _lib = {"simt": simt, "tc": tc}
+    return infos
+
+
+def route(semiring: Semiring, bs: int) -> str:
+    """The kernel a card runs for ``semiring`` at tile size ``bs``:
+    ``"tc"`` for plus_times and bool_or_and at bs in :data:`TC_BS`,
+    ``"simt"`` for every other (semiring, bs) the kernels take."""
+    return ("tc" if semiring.name in TC_SEMIRINGS and bs in TC_BS
+            else "simt")
+
+
+def tc_smem_bytes(bs: int) -> int:
+    """Dynamic shared memory of one ``"tc"`` launch at ``bs`` (ptxas
+    reports only static shared memory)."""
+    if _lib is None:
+        build()
+    return _lib["tc"].bsr_spgemm_tc_smem_bytes(bs)
 
 
 def run_starts_from_flags(flags: np.ndarray, seg_start: int,
@@ -80,10 +127,12 @@ def run_starts_from_flags(flags: np.ndarray, seg_start: int,
 def check_launch_args(a_tiles, b_tiles, a_slot, b_slot, c_slot, run_starts,
                       out, *, nprod: int, nc: int, bs: int,
                       semiring: Semiring, seg_start: int) -> None:
-    """Raise ``ValueError`` on anything the kernel does not take: bs
+    """Raise ``ValueError`` on anything the kernels do not take: bs
     outside :data:`KERNEL_BS`, an unknown semiring, tensors on another
     device, of another dtype or shape, non-contiguous, or misaligned (tile
-    stacks are read as float4, so 16 bytes; index arrays 4)."""
+    stacks are read as float4 and through TMA tensor maps, so 16 bytes;
+    index arrays 4), or a window with products but an empty tile stack or
+    output."""
     if bs not in KERNEL_BS:
         raise ValueError(f"the CUDA kernel takes bs in {KERNEL_BS}, got {bs}")
     if semiring.name not in _SEMIRING_CODE:
@@ -108,6 +157,42 @@ def check_launch_args(a_tiles, b_tiles, a_slot, b_slot, c_slot, run_starts,
                              f"needs {seg_start + nprod}")
     if run_starts.shape[0] < 1:
         raise ValueError("run_starts must hold at least the window end")
+    if nprod and min(a_tiles.shape[0], b_tiles.shape[0], nc) < 1:
+        raise ValueError("a window with products needs at least one A "
+                         "tile, one B tile and one output slot")
+
+
+def _launch(name: str, a_tiles, b_tiles, a_slot, b_slot, c_slot,
+            run_starts, out, *, bs: int, semiring: Semiring) -> bool:
+    """One launch of route ``name``'s kernel over the runs in
+    ``run_starts``, counted nowhere (timings call it directly); returns
+    whether a kernel was launched. The ``"tc"`` kernel writes every slot
+    of ``out`` itself, also for a window with no run (only pad products).
+    The ``"simt"`` route gets the identity fill of ``out`` first, and
+    launches nothing for such a window. Raises on a refused launch."""
+    nruns = run_starts.shape[0] - 1
+    if name == "simt":
+        out.fill_(semiring.zero)
+        if nruns == 0:
+            return False
+    if _lib is None:
+        build()
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    code = _SEMIRING_CODE[semiring.name]
+    if name == "tc":
+        err = _lib["tc"].bsr_spgemm_tc_launch(
+            code, bs, a_tiles.data_ptr(), a_tiles.shape[0],
+            b_tiles.data_ptr(), b_tiles.shape[0], a_slot.data_ptr(),
+            b_slot.data_ptr(), c_slot.data_ptr(), run_starts.data_ptr(),
+            nruns, out.data_ptr(), out.shape[0], stream)
+    else:
+        err = _lib["simt"].bsr_spgemm_launch(
+            code, bs, a_tiles.data_ptr(), b_tiles.data_ptr(),
+            a_slot.data_ptr(), b_slot.data_ptr(), c_slot.data_ptr(),
+            run_starts.data_ptr(), nruns, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"bsr_spgemm {name} launch failed: error {err}")
+    return True
 
 
 def bsr_spgemm(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
@@ -127,40 +212,41 @@ def bsr_spgemm(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
         on the same device (the plain version does not read it)
     out : optional ``(nc, bs, bs)`` float32 destination
 
-    The output is filled with ``semiring.zero`` first, so slots no product
-    visits hold the identity. ``nprod == 0`` returns a ``(max(nc, 1), bs,
-    bs)`` identity fill.
+    Slots no product visits hold ``semiring.zero`` (the ``"tc"`` kernel
+    writes them, the others are filled first). ``nprod == 0`` returns a
+    ``(max(nc, 1), bs, bs)`` identity fill.
     """
-    if out is None:
-        out = torch.full((max(nc, 1) if nprod == 0 else nc, bs, bs),
-                         semiring.zero, dtype=torch.float32,
-                         device=a_tiles.device)
-    else:
-        out.fill_(semiring.zero)
-    if nprod == 0:
-        return out
-    if not a_tiles.is_cuda:
-        out.copy_(bsr_spgemm_ref(a_tiles, b_tiles, a_slot, b_slot, c_slot,
-                                 nc=nc, semiring=semiring,
-                                 seg_start=seg_start, seg_len=nprod))
+    if nprod == 0 or not a_tiles.is_cuda:
+        if out is None:
+            out = torch.full((max(nc, 1) if nprod == 0 else nc, bs, bs),
+                             semiring.zero, dtype=torch.float32,
+                             device=a_tiles.device)
+        else:
+            out.fill_(semiring.zero)
+        if nprod:
+            out.copy_(bsr_spgemm_ref(a_tiles, b_tiles, a_slot, b_slot,
+                                     c_slot, nc=nc, semiring=semiring,
+                                     seg_start=seg_start, seg_len=nprod))
         return out
 
+    if out is None:
+        out = torch.empty((nc, bs, bs), dtype=torch.float32,
+                          device=a_tiles.device)
     check_launch_args(a_tiles, b_tiles, a_slot, b_slot, c_slot, run_starts,
                       out, nprod=nprod, nc=nc, bs=bs, semiring=semiring,
                       seg_start=seg_start)
-    nruns = run_starts.shape[0] - 1
-    if nruns == 0:  # only pad products in the window: nothing to launch
-        return out
-    if _lib is None:
-        build()
-    err = _lib.bsr_spgemm_launch(
-        _SEMIRING_CODE[semiring.name], bs, a_tiles.data_ptr(),
-        b_tiles.data_ptr(), a_slot.data_ptr(), b_slot.data_ptr(),
-        c_slot.data_ptr(), run_starts.data_ptr(), nruns, out.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"bsr_spgemm launch failed: cudaError_t {err}")
-    bsr_spgemm.launches += 1
+    name = route(semiring, bs)
+    if _launch(name, a_tiles, b_tiles, a_slot, b_slot, c_slot, run_starts,
+               out, bs=bs, semiring=semiring):
+        bsr_spgemm.launches += 1
+        bsr_spgemm.route_launches[name] += 1
     return out
 
 
-bsr_spgemm.launches = 0
+def reset_launches() -> None:
+    """Set ``bsr_spgemm.launches`` and every route's count to 0."""
+    bsr_spgemm.launches = 0
+    bsr_spgemm.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+reset_launches()

@@ -26,7 +26,7 @@ from typing import Dict, List, Sequence
 import torch
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "local_headers", "library_path",
-           "compile_sources", "compile_source", "check_tensor"]
+           "compile_sources", "check_tensor"]
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -108,11 +108,6 @@ def compile_sources(sources: Sequence[Path]) -> Dict[Path, dict]:
                      "built": src in running,
                      "log": log.read_text() if log.exists() else ""}
     return info
-
-
-def compile_source(source: Path) -> dict:
-    """:func:`compile_sources` for one source."""
-    return compile_sources([source])[source]
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype, ndim: int, device,
