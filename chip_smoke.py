@@ -36,24 +36,39 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  ``previous_ms``, and fp32 ``torch.bmm`` of the gathered
                  products as a yardstick that is not the same function
   4. semirings — banded_clustered(65536, 64, 16.0) with integer weights,
-                 bool_or_and (``tc``) and min_plus (``simt``) at nparts=8,
-                 bs=64, chunk=2, bitwise against the port's host
-                 ``local_spgemm.spgemm``; each route's largest launch of
-                 the call timed beside the plain version
-  5. build_lm  — load the flash_attention and moe_gemm libraries (for
+                 bool_or_and (``tc``) and min_plus (``simt``) at bs=64
+                 through the 1D ring (nparts=8, chunk=2), 2D SUMMA (grid
+                 2) and Split-3D (grid 2, 2 layers), each bitwise against
+                 the port's host ``local_spgemm.spgemm``, each on its own
+                 rung; each route's largest launch of the 1D call timed
+                 beside the plain version
+  5. summa     — the main path's laplacian_2d(1024)² through
+                 ``SpGEMMSession(device="cuda").matmul(algorithm="2d",
+                 grid=2, bs=128)`` and ``algorithm="3d", grid=2,
+                 layers=2``: cold, hit and values x2 repack, bitwise
+                 against scipy, no downgrade, every launch on ``tc``; per
+                 call the peak device memory (the 2D call's must stay below
+                 30 GB; the 3D call's below a whole (8, nc_max + 1) output
+                 stack), the executable's time (CUDA events), the plan and
+                 decode seconds, and the planned / padded bytes of the 1D
+                 ring, 2D SUMMA and Split-3D side by side
+  6. build_lm  — load the flash_attention and moe_gemm libraries (for
                  each, the fp32 CUDA-core source and the bf16 tensor-core
                  one); ptxas's registers, spills and shared memory per
                  kernel, and the tensor-core kernels' dynamic shared memory
                  (flash_attention per padded head dim 64 / 128 / 192 / 256)
-  6. flash_attention_vs_plain — both routes against ``mha_ref`` on the
+  7. flash_attention_vs_plain — both routes against ``mha_ref`` on the
                  card, causal, window in {0, 64}, softcap in {0, 50}, Hq = 8
                  with Hkv in {8, 2}: bfloat16 on the tensor-core route at D
                  in {16, 64, 96, 128, 160, 256} and S in {77, 128, 129,
                  1000, 2048}, within atol 2e-2 + rtol 1e-2 (one bf16 ulp of
                  the output), each launch repeated, bitwise; float32 on the
-                 CUDA-core route at D in {64, 128, 256} and S in {77, 128,
-                 1000}, within atol 2e-5 + rtol 1e-4
-  7. moe_gemm_vs_plain — every route of the kernel against
+                 CUDA-core route at D in {16, 64, 128, 160, 256} and S in
+                 {77, 128, 1000}, within atol 2e-5 + rtol 1e-4
+  8. serve_smoke — ``python -m repro_torch.launch.serve --arch
+                 qwen2-moe-a2.7b --smoke`` on the card in a process of its
+                 own (float32, head dim 16): must exit 0
+  9. moe_gemm_vs_plain — every route of the kernel against
                  ``moe_gemm_ref`` on the card: E in {1, 64}, cap in {8, 16,
                  96, 688} (bf16: the decode route up to 16, the prefill
                  route above; float32: the CUDA-core route), (d, f) in
@@ -62,7 +77,7 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  63-65 and 127-129; integer-valued float32 bitwise, float32
                  within atol 1e-4 + rtol 1e-4, bfloat16 within atol 2e-2 +
                  rtol 1e-2; every bf16 launch repeated, bitwise
-  8. lm_serve  — qwen2-moe-a2.7b at its full published size (24 layers, 64
+  10. lm_serve — qwen2-moe-a2.7b at its full published size (24 layers, 64
                  padded experts, bf16 weights from a seeded generator)
                  through ``ServeEngine.generate``: four prompts of 2048,
                  1536, 1024 and 512 tokens, 32 new tokens, greedy,
@@ -497,14 +512,12 @@ def same_csc(c, ref, what):
           f"{what}: values differ")
 
 
-def phase_main_path(dev, side=1024):
-    """laplacian_2d(side)·itself through SpGEMMSession, against scipy."""
+def laplacian_case(side=1024):
+    """laplacian_2d(side) in float32, its values x2, and scipy's products
+    A·A and (2A)·(2A)."""
     import scipy.sparse as sp
 
     from repro_torch.core import CSC, laplacian_2d
-    from repro_torch.core.device_common import REQUIRED_STATS
-    from repro_torch.core.session import SpGEMMSession
-    from repro_torch.kernels.bsr_spgemm import kernel
 
     a = laplacian_2d(side).astype(np.float32)
     a2 = CSC(a.indptr, a.indices, a.data * 2, a.shape)
@@ -516,7 +529,17 @@ def phase_main_path(dev, side=1024):
     ref_c = CSC(ref.indptr.astype(np.int64), ref.indices.astype(np.int64),
                 ref.data, ref.shape)
     ref4 = CSC(ref_c.indptr, ref_c.indices, ref_c.data * 4, ref.shape)
+    return dict(side=side, a=a, a2=a2, ref=ref_c, ref4=ref4)
 
+
+def phase_main_path(dev, case):
+    """laplacian_2d(1024)·itself through SpGEMMSession, against scipy."""
+    from repro_torch.core.device_common import REQUIRED_STATS
+    from repro_torch.core.session import SpGEMMSession
+    from repro_torch.kernels.bsr_spgemm import kernel
+
+    side, a, a2 = case["side"], case["a"], case["a2"]
+    ref_c, ref4 = case["ref"], case["ref4"]
     sess = SpGEMMSession(device=dev)
     kw = dict(algorithm="1d", nparts=8, bs=128)
     kernel.reset_launches()
@@ -561,7 +584,9 @@ def phase_main_path(dev, side=1024):
               **{k: plan.stats[k] for k in REQUIRED_STATS}})
     emit({"phase": "main_path_counts", "launches": launches,
           "route_launches": routes, "session_stats": sess.stats})
-    return sess, entries[0].plan, entries[0].args, launches
+    ring = {k: entries[0].plan.stats[k] for k in
+            ("comm_bytes_planned", "comm_bytes_padded", "messages")}
+    return sess, entries[0].plan, entries[0].args, launches, ring
 
 
 def tc_pass_panels(a_tiles, b_tiles, a_slot, b_slot, bs):
@@ -749,9 +774,15 @@ def time_semiring_launch(kernel, args, kw):
             "bytes": moved, "tiles_read": read, "bounds": bd}
 
 
+SEMIRING_CALLS = (("1d", dict(nparts=8, chunk=2)), ("2d", dict(grid=2)),
+                  ("3d", dict(grid=2, layers=2)))
+
+
 def phase_semirings(dev, sess, n=65536):
-    """bool_or_and (``tc``) and min_plus (``simt``) at scale, against the
-    host oracle; each call's largest launch timed on its route."""
+    """bool_or_and (``tc``) and min_plus (``simt``) at scale through the
+    1D ring, 2D SUMMA and Split-3D, against the host oracle; the 1D call's
+    largest launch timed on its route. Launches are counted per call (reset
+    just before, read just after) and summed per semiring."""
     from repro_torch.core import banded_clustered, by_name
     from repro_torch.core.device_common import REQUIRED_STATS
     from repro_torch.core.local_spgemm import spgemm
@@ -764,33 +795,130 @@ def phase_semirings(dev, sess, n=65536):
     timings = {}
     for srname, want_route in (("bool_or_and", "tc"), ("min_plus", "simt")):
         sr = by_name(srname)
-        kernel.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        c, wall = session_call(sess, kernel, a, a, algorithm="1d", nparts=8,
-                               bs=64, chunk=2, semiring=sr)
-        routes = dict(kernel.bsr_spgemm.route_launches)
-        check(routes[want_route] > 0
-              and sum(routes.values()) == routes[want_route],
-              f"{srname} at bs 64 ran off the {want_route} route: {routes}")
-        mem = torch.cuda.max_memory_allocated()
-        plan_and_build = sess.last_call["plan_seconds"]
-        same_csc(c, spgemm(a, a, sr), srname)
-        entry = next(reversed(sess._cache.values()))  # the cold call's
-        ms = cuda_ms(lambda: entry.fn(*entry.args), 3)
-        t = time_semiring_launch(
-            kernel, *largest_launch(kernel, lambda: entry.fn(*entry.args)))
-        t["launches"] = routes[want_route]
-        timings[srname] = t
-        emit({"phase": "semiring", "semiring": srname,
-              "matrix": f"banded_clustered({n}, 64, 16.0, seed=0)",
-              "nparts": 8, "bs": 64, "chunk": 2,
-              "plan_seconds": entry.plan.stats["plan_seconds"],
-              "plan_and_build_seconds": plan_and_build, "execute_ms": ms,
-              "wall_s": wall, "max_memory_allocated": mem,
-              "launches": sum(routes.values()), "route_launches": routes,
-              "largest_launch": t,
-              **{k: entry.plan.stats[k] for k in REQUIRED_STATS}})
+        want = spgemm(a, a, sr)
+        launches = 0
+        for alg, geo in SEMIRING_CALLS:
+            kernel.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            c, wall = session_call(sess, kernel, a, a, algorithm=alg, bs=64,
+                                   semiring=sr, **geo)
+            routes = dict(kernel.bsr_spgemm.route_launches)
+            check(routes[want_route] > 0
+                  and sum(routes.values()) == routes[want_route],
+                  f"{srname} {alg} at bs 64 ran off the {want_route} route: "
+                  f"{routes}")
+            check(sess.last_call["algorithm"] == alg
+                  and not sess.last_call["degraded"],
+                  f"{srname} {alg} was served by another rung: "
+                  f"{sess.last_call}")
+            launches += routes[want_route]
+            mem = torch.cuda.max_memory_allocated()
+            plan_and_build = sess.last_call["plan_seconds"]
+            same_csc(c, want, f"{srname} {alg}")
+            entry = next(reversed(sess._cache.values()))  # the cold call's
+            ms = cuda_ms(lambda: entry.fn(*entry.args), 3)
+            row = {"phase": "semiring", "semiring": srname,
+                   "algorithm": alg,
+                   "matrix": f"banded_clustered({n}, 64, 16.0, seed=0)",
+                   "bs": 64, **geo,
+                   "plan_seconds": entry.plan.stats["plan_seconds"],
+                   "plan_and_build_seconds": plan_and_build,
+                   "execute_ms": ms, "wall_s": wall,
+                   "max_memory_allocated": mem,
+                   "launches": sum(routes.values()), "route_launches": routes,
+                   **{k: entry.plan.stats[k] for k in REQUIRED_STATS}}
+            if alg == "1d":
+                t = time_semiring_launch(kernel, *largest_launch(
+                    kernel, lambda: entry.fn(*entry.args)))
+                timings[srname] = row["largest_launch"] = t
+            emit(row)
+        timings[srname]["launches"] = launches
     return timings
+
+
+def phase_summa(dev, case, ring):
+    """laplacian_2d(1024)·itself through SpGEMMSession as 2D SUMMA (grid
+    2) and Split-3D (grid 2, 2 layers): cold, hit and values-only repack,
+    each bitwise against scipy, on its own rung with every launch on the
+    ``tc`` route; each call's peak device memory (reset per call), the
+    executable's time from CUDA events, the decode's host time, and the
+    planned and padded bytes beside the 1D ring's (``ring``)."""
+    from repro_torch.core.device_common import REQUIRED_STATS
+    from repro_torch.core.session import SpGEMMSession
+    from repro_torch.kernels.bsr_spgemm import kernel
+
+    side, a, a2 = case["side"], case["a"], case["a2"]
+    sess = SpGEMMSession(device=dev)
+    comm = {"1d": ring}
+    launches = 0
+    for alg, geo in (("2d", dict(grid=2)), ("3d", dict(grid=2, layers=2))):
+        kw = dict(algorithm=alg, bs=128, **geo)
+        kernel.reset_launches()
+        walls, peaks_b = {}, {}
+        traces = sess.stats["traces"]
+        for label, x, want in (("cold", a, case["ref"]),
+                               ("hit", a, case["ref"]),
+                               ("repack", a2, case["ref4"])):
+            torch.cuda.reset_peak_memory_stats()
+            c, walls[label] = session_call(sess, kernel, x, x, **kw)
+            peaks_b[label] = torch.cuda.max_memory_allocated()
+            same_csc(c, want, f"{alg} {label}")
+            lc = sess.last_call
+            check(lc["algorithm"] == lc["requested_algorithm"] == alg
+                  and not lc["degraded"], f"{alg} {label} was served by "
+                  f"another rung: {lc}")
+            check(lc["cache_hit"] == (label != "cold")
+                  and lc["repacked"] == (label == "repack"),
+                  f"{alg} {label}: cache_hit {lc['cache_hit']}, repacked "
+                  f"{lc['repacked']}")
+            if label == "cold":
+                plan_and_build = lc["plan_seconds"]
+        check(sess.stats["traces"] == traces + 1,
+              f"{alg}: a hit or a repack rebuilt the executable")
+        routes = dict(kernel.bsr_spgemm.route_launches)
+        check(routes["tc"] == kernel.bsr_spgemm.launches > 0,
+              f"{alg} launches off the tc route: {routes}")
+        launches += routes["tc"]
+        entry = next(reversed(sess._cache.values()))
+        plan = entry.plan
+        ms = cuda_ms(lambda: entry.fn(*entry.args), 3)
+        split = decode_split(entry)
+        tile = plan.bs * plan.bs * 4
+        g2, layers = plan.grid * plan.grid, plan.layers
+        stacks = nbytes(entry.args[0], entry.args[1])
+        out_bytes = g2 * (plan.nc_max + 1) * tile
+        if alg == "2d":
+            check(max(peaks_b.values()) < 30e9,
+                  f"2d peak device memory {peaks_b} past 30 GB")
+        else:   # the merge holds (r, c) blocks and two layers' partials
+            check(max(peaks_b.values())
+                  < stacks + g2 * layers * (plan.nc_max + 1) * tile,
+                  f"3d peak device memory {peaks_b} reaches a whole "
+                  f"(parts, nc_max + 1) output stack")
+        comm[alg] = {k: plan.stats[k] for k in
+                     ("comm_bytes_planned", "comm_bytes_padded",
+                      "comm_bytes_model", "messages")}
+        emit({"phase": "summa", "algorithm": alg,
+              "matrix": f"laplacian_2d({side})", "rows": a.shape[0],
+              "nnz_a": a.nnz, "nnz_c": case["ref"].nnz, "bs": 128, **geo,
+              "logical_parts": g2 * layers,
+              "plan_seconds": plan.stats["plan_seconds"],
+              "plan_and_build_seconds": plan_and_build,
+              "execute_ms": ms, "wall_s": walls, **split,
+              "max_memory_allocated": peaks_b,
+              "payload_stack_bytes": stacks, "output_bytes": out_bytes,
+              "launches": routes["tc"], "route_launches": routes,
+              "tile_products": plan.stats["nprod_total"],
+              **{k: plan.stats[k] for k in
+                 ("na_max", "nb_max", "nc_max", "nprod_max")},
+              **{k: plan.stats[k] for k in REQUIRED_STATS}})
+        sess.clear()
+        del entry, plan
+        torch.cuda.empty_cache()
+    emit({"phase": "comm_bytes", "matrix": f"laplacian_2d({side})",
+          "bs": 128, "geometry": {"1d": "nparts=8", "2d": "grid=2",
+                                  "3d": "grid=2, layers=2"}, **comm})
+    return launches
 
 
 def timing_entry(ms, plain_ms, library_ms, flop, moved, dtype, err):
@@ -835,6 +963,28 @@ def phase_build_lm(infos):
                   **extra})
 
 
+def phase_serve_smoke(arch="qwen2-moe-a2.7b"):
+    """``python -m repro_torch.launch.serve --arch <arch> --smoke`` on the
+    card (its ``--device`` default): the float32 smoke config at head dim
+    16 through both LM kernels' float32 routes, in a process of its own.
+    It must exit 0."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--smoke"], cwd=root, env=env, capture_output=True, text=True,
+        timeout=300)
+    lines = (proc.stdout + proc.stderr).strip().splitlines()
+    check(proc.returncode == 0, f"launch.serve --smoke exited "
+          f"{proc.returncode}: {lines[-20:]}")
+    emit({"phase": "serve_smoke", "arch": arch, "seconds":
+          time.perf_counter() - t0, "returncode": proc.returncode,
+          "output": lines[:2]})
+
+
 def within(got, want, atol, rtol):
     err = float((got.float() - want.float()).abs().max())
     ok = bool(torch.all((got.float() - want.float()).abs()
@@ -848,7 +998,7 @@ MOE_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
 
 FLASH_GRID = {torch.bfloat16: ((16, 64, 96, 128, 160, 256),
                                 (77, 128, 129, 1000, 2048)),
-              torch.float32: ((64, 128, 256), (77, 128, 1000))}
+              torch.float32: ((16, 64, 128, 160, 256), (77, 128, 1000))}
 
 
 def phase_flash_grid(dev):
@@ -1493,13 +1643,17 @@ def main():
     try:
         infos = phase_build()
         grid_err = phase_kernel(dev)
-        sess, plan, args, launches = phase_main_path(dev)
+        case = laplacian_case()
+        sess, plan, args, launches, ring = phase_main_path(dev, case)
         timing = measure_kernel(dev, plan, args)
         semirings = phase_semirings(dev, sess)
         del sess, plan, args      # the SpGEMM session's cached entries
         torch.cuda.empty_cache()
+        summa_launches = phase_summa(dev, case, ring)
+        del case
         phase_build_lm(infos)
         flash_grid_err = phase_flash_grid(dev)
+        phase_serve_smoke()
         moe_grid_err = phase_moe_grid(dev)
         (routes, attn_routes, flash, flash_fp32, gemms,
          fp32) = phase_lm_serve(dev)
@@ -1539,9 +1693,14 @@ def main():
             source=moe_src + source)
 
     emit({"kernels": [
-        kernel_row("bsr_spgemm_tc", bsr_pallas, launches, timing,
+        kernel_row("bsr_spgemm_tc", bsr_pallas, launches + summa_launches,
+                   timing,
                    {"kernel_route": "tc", "launches_on":
-                    "the main path (laplacian_2d(1024), bs 128)",
+                    "the main path (laplacian_2d(1024), bs 128): the 1D "
+                    "ring (chunk None and 2) and 2D / 3D SUMMA, cold, hit "
+                    "and repack each",
+                    "launches_by_path": {"1d": launches,
+                                         "2d_3d": summa_launches},
                     "previous_ms": timing["previous_ms"],
                     "float_ms": timing["float_ms"],
                     "float_bound_ms": timing["float_bound_ms"],
@@ -1551,7 +1710,8 @@ def main():
                    source=bsr_src + "bsr_spgemm_tc.cu"),
         kernel_row("bsr_spgemm_simt", bsr_pallas, simt["launches"], simt,
                    {"kernel_route": "simt", "launches_on":
-                    "the min-plus path (banded_clustered, bs 64)",
+                    "the min-plus path (banded_clustered, bs 64): 1D "
+                    "(chunk 2), 2D and 3D",
                     "main_path_ms": timing["previous_ms"]},
                    source=bsr_src + "bsr_spgemm.cu"),
         kernel_row("flash_attention_bf16", fa_pallas, attn_routes["tc"],

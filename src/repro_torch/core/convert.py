@@ -2,7 +2,8 @@
 
 The port never imports ``repro``; these functions build its objects from
 the plain fields of the reference's (numpy arrays, ints, tuples, names), so
-a test can run the port's ring on the reference planner's own plan.
+a test can run the port's ring or SUMMA on the reference planner's own
+plan.
 """
 
 from __future__ import annotations
@@ -17,9 +18,10 @@ from .plan import Partition1D
 from .semiring import by_name
 from .sparse import CSC
 from .spgemm_1d_device import DeviceSpGEMMPlan
+from .spgemm_2d_device import SummaDevicePlan
 
 __all__ = ["csc_from_arrays", "blocksparse_from_arrays",
-           "plan_from_reference"]
+           "plan_from_reference", "summa_plan_from_reference"]
 
 
 def csc_from_arrays(shape: Tuple[int, int], indptr, indices, data) -> CSC:
@@ -42,6 +44,29 @@ def blocksparse_from_arrays(tiles, tile_rows, tile_cols,
                        bs=int(bs), fill=float(fill))
 
 
+def _carry(cls, fields: dict):
+    """An instance of the plan dataclass ``cls`` from a reference plan's
+    fields: arrays copied, the semiring by name, partitions by splits."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    missing = names - set(fields)
+    if missing:
+        raise ValueError(f"plan fields missing: {sorted(missing)}")
+    kw = {}
+    for name in names:
+        v = fields[name]
+        if name == "semiring":
+            v = by_name(getattr(v, "name", v))
+        elif name.startswith("part_"):
+            v = Partition1D(np.array(getattr(v, "splits", v),
+                                     dtype=np.int64))
+        elif isinstance(v, np.ndarray):
+            v = v.copy()
+        elif name == "stats":
+            v = dict(v)
+        kw[name] = v
+    return cls(**kw)
+
+
 def plan_from_reference(fields: dict) -> DeviceSpGEMMPlan:
     """The port's :class:`DeviceSpGEMMPlan` from a reference plan's fields.
 
@@ -51,21 +76,11 @@ def plan_from_reference(fields: dict) -> DeviceSpGEMMPlan:
     ``name``; ``part_k`` / ``part_n`` may be split arrays or any object with
     ``splits``. The port's registered semiring of that name is used.
     """
-    names = {f.name for f in dataclasses.fields(DeviceSpGEMMPlan)}
-    missing = names - set(fields)
-    if missing:
-        raise ValueError(f"plan fields missing: {sorted(missing)}")
-    kw = {}
-    for name in names:
-        v = fields[name]
-        if name == "semiring":
-            v = by_name(getattr(v, "name", v))
-        elif name in ("part_k", "part_n"):
-            v = Partition1D(np.array(getattr(v, "splits", v),
-                                     dtype=np.int64))
-        elif isinstance(v, np.ndarray):
-            v = v.copy()
-        elif name == "stats":
-            v = dict(v)
-        kw[name] = v
-    return DeviceSpGEMMPlan(**kw)
+    return _carry(DeviceSpGEMMPlan, fields)
+
+
+def summa_plan_from_reference(fields: dict) -> SummaDevicePlan:
+    """The port's :class:`SummaDevicePlan` from a reference SUMMA plan's
+    fields (``vars(plan)`` of ``repro.core.spgemm_2d_device``'s), carried
+    as :func:`plan_from_reference` carries a ring plan's."""
+    return _carry(SummaDevicePlan, fields)

@@ -1,8 +1,8 @@
 """Shared plan/compile/decode machinery for the device SpGEMM engines.
 
 The port's counterpart of ``repro.core.device_common``. The 1D ring
-(``spgemm_1d_device.py``) is the engine of this slice; the 2D SUMMA and
-Split-3D engines will reuse the same pieces:
+(``spgemm_1d_device.py``) and the 2D SUMMA / Split-3D engines
+(``spgemm_2d_device.py``) share these pieces:
 
   * device resolution (:func:`resolve_device`: ``"cuda"`` by default, and
     an error — never a quiet CPU run — when no CUDA device is present);
@@ -13,7 +13,8 @@ Split-3D engines will reuse the same pieces:
     semiring handshake (:func:`check_plan_semiring`);
   * static-shape packing of per-part product schedules with the
     garbage-slot pad convention (:func:`pack_schedules`);
-  * the compute-phase dispatch (:func:`run_schedule`);
+  * the compute-phase dispatch (:func:`run_schedule`) and the kernel's
+    run boundaries of a schedule window (:func:`window_run_starts`);
   * the semiring-aware output decode, pruned on the output's device before
     the copy back (:func:`decode_tiles`);
   * the shared stats surfaces :data:`REQUIRED_STATS` and
@@ -35,7 +36,8 @@ from .sparse import CSC, from_coo
 __all__ = [
     "ENGINES", "REQUIRED_STATS", "CHUNK_STATS", "SESSION_STATS",
     "resolve_device", "snap_to_tiles", "blockize_parts", "resolve_engine",
-    "check_plan_semiring", "pack_schedules", "run_schedule", "decode_tiles",
+    "check_plan_semiring", "pack_schedules", "run_schedule",
+    "window_run_starts", "decode_tiles",
 ]
 
 ENGINES = ("cuda", "torch")
@@ -205,6 +207,25 @@ def run_schedule(stack_a, stack_b, a_slot, b_slot, c_slot, run_starts, *,
     return res if out is None else out.copy_(res)
 
 
+def window_run_starts(flags: np.ndarray, c_slot: np.ndarray, nc_max: int,
+                      off: int, ln: int) -> np.ndarray:
+    """Run boundaries of one part's schedule window ``[off, off + ln)`` for
+    the kernel (``flags`` / ``c_slot`` are the part's rows), once per plan.
+    The trailing run of pad products (the garbage slot ``nc_max``) is left
+    out: its output is dropped, so the kernel need not compute it."""
+    from ..kernels.bsr_spgemm.kernel import run_starts_from_flags
+
+    starts = run_starts_from_flags(flags, off, ln)
+    if len(starts) > 1 and c_slot[starts[-2]] == nc_max:
+        starts = starts[:-1]
+    return starts
+
+
+# output tiles pruned at once in a decode: bounds the prune's temporaries
+# (a float and a bool copy of the chunk) to 256 MiB at bs 128
+DECODE_CHUNK_TILES = 4096
+
+
 def decode_tiles(out, c_rows: np.ndarray, c_cols: np.ndarray,
                  c_counts: np.ndarray, semiring: Semiring,
                  out_shape: Tuple[int, int],
@@ -213,8 +234,9 @@ def decode_tiles(out, c_rows: np.ndarray, c_cols: np.ndarray,
     """Decode per-part output tile stacks into one global CSC.
 
     The prune runs where ``out`` lies (a torch tensor on the device, or a
-    numpy array on the host), one part at a time, and only the surviving
-    COO triples are copied back. Tiles past each part's real count are
+    numpy array on the host), one part and at most
+    :data:`DECODE_CHUNK_TILES` tiles at a time, and only the surviving COO
+    triples are copied back. Tiles past each part's real count are
     treated as the additive identity; an entry is kept iff the semiring's
     ``prune_mask`` keeps it, never by a literal nonzero test.
 
@@ -234,16 +256,19 @@ def decode_tiles(out, c_rows: np.ndarray, c_cols: np.ndarray,
         col_lim = np.full(D, out_shape[1], dtype=np.int64)
     rows_l, cols_l, vals_l = [], [], []
     for d in range(D):
-        n = int(c_counts[d])
-        part = out[d, :n]
-        tt, rr, cc = torch.nonzero(semiring.prune_mask(part), as_tuple=True)
-        vals = part[tt, rr, cc].cpu().numpy()
-        tt, rr, cc = (x.cpu().numpy() for x in (tt, rr, cc))
-        rows_g = rr + c_rows[d, tt].astype(np.int64) * bs
-        cols_g = cc + c_cols[d, tt].astype(np.int64) * bs + int(col_off[d])
-        keep = (rows_g < out_shape[0]) & (cols_g < int(col_lim[d]))
-        rows_l.append(rows_g[keep])
-        cols_l.append(cols_g[keep])
-        vals_l.append(vals[keep])
+        for t0 in range(0, max(int(c_counts[d]), 1), DECODE_CHUNK_TILES):
+            part = out[d, t0:min(int(c_counts[d]), t0 + DECODE_CHUNK_TILES)]
+            tt, rr, cc = torch.nonzero(semiring.prune_mask(part),
+                                       as_tuple=True)
+            vals = part[tt, rr, cc].cpu().numpy()
+            tt, rr, cc = (x.cpu().numpy() for x in (tt, rr, cc))
+            tt = tt + t0
+            rows_g = rr + c_rows[d, tt].astype(np.int64) * bs
+            cols_g = (cc + c_cols[d, tt].astype(np.int64) * bs
+                      + int(col_off[d]))
+            keep = (rows_g < out_shape[0]) & (cols_g < int(col_lim[d]))
+            rows_l.append(rows_g[keep])
+            cols_l.append(cols_g[keep])
+            vals_l.append(vals[keep])
     return from_coo(np.concatenate(rows_l), np.concatenate(cols_l),
                     np.concatenate(vals_l), out_shape)

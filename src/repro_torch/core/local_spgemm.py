@@ -1,6 +1,6 @@
 """Local (single-process) SpGEMM over a semiring — the numpy oracle.
 
-The port's copy of ``repro.core.local_spgemm`` (``spgemm``, ``spgemm_flops``).
+The port's copy of ``repro.core.local_spgemm``.
 
 The paper uses a hybrid heap/hash SpGEMM [Azad+'16, Nagasaka+'19] for the
 local multiply. Scalar probing does not vectorize in numpy, so we use the
@@ -18,7 +18,7 @@ import numpy as np
 from .semiring import PLUS_TIMES, Semiring
 from .sparse import CSC, _segment_indices
 
-__all__ = ["spgemm", "spgemm_flops"]
+__all__ = ["spgemm", "spgemm_flops", "spadd", "spgemm_structure"]
 
 
 def spgemm_flops(a: CSC, b: CSC) -> int:
@@ -69,6 +69,42 @@ def spgemm(a: CSC, b: CSC, semiring: Semiring = PLUS_TIMES,
     if prune:
         keep = semiring.prune_mask(red)
         rows_out, cols_out, red = rows_out[keep], cols_out[keep], red[keep]
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(indptr, cols_out + 1, 1)
+    np.cumsum(indptr, out=indptr)
+    return CSC(indptr, rows_out, red, (m, n))
+
+
+def spgemm_structure(a: CSC, b: CSC) -> CSC:
+    """Boolean structure of A·B (symbolic phase) — used for output sizing."""
+    from .semiring import BOOL_OR_AND
+    return spgemm(a.astype(np.float64), b.astype(np.float64), BOOL_OR_AND)
+
+
+def spadd(a: CSC, b: CSC, semiring: Semiring = PLUS_TIMES) -> CSC:
+    """C = A ⊕ B (additive monoid of the semiring)."""
+    assert a.shape == b.shape
+    m, n = a.shape
+    ra, ca, va = a.to_coo()
+    rb, cb, vb = b.to_coo()
+    rows = np.concatenate([ra, rb])
+    cols = np.concatenate([ca, cb])
+    vals = np.concatenate([va, vb])
+    key = cols * m + rows
+    order = np.argsort(key, kind="stable")
+    key, vals = key[order], vals[order]
+    if key.size == 0:
+        return CSC(np.zeros(n + 1, dtype=np.int64),
+                   np.zeros(0, dtype=np.int64), vals, (m, n))
+    uniq = np.empty(key.shape, dtype=bool)
+    uniq[0] = True
+    np.not_equal(key[1:], key[:-1], out=uniq[1:])
+    pos = np.nonzero(uniq)[0]
+    red = semiring.add_reduceat(vals, pos)
+    key = key[pos]
+    keep = semiring.prune_mask(red)
+    key, red = key[keep], red[keep]
+    rows_out, cols_out = key % m, key // m
     indptr = np.zeros(n + 1, dtype=np.int64)
     np.add.at(indptr, cols_out + 1, 1)
     np.cumsum(indptr, out=indptr)

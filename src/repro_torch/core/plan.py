@@ -1,10 +1,13 @@
 """Symbolic/planning phase of the sparsity-aware 1D SpGEMM (Algorithms 1-2).
 
-The port's copy of the 1D part of ``repro.core.plan``: from sparsity
-*metadata* only (no numerics) it derives which columns of A each process
-must fetch, groups them into block-fetch messages (Algorithm 2), and
-accounts communication exactly. The host oracle ``spgemm_1d`` executes
-against this plan, and the device ring's ``bs=1`` plan is held against it.
+The port's copy of ``repro.core.plan``: from sparsity *metadata* only (no
+numerics) it derives which columns of A each process must fetch, groups
+them into block-fetch messages (Algorithm 2), and accounts communication
+exactly. The host oracle ``spgemm_1d`` executes against this plan, and
+the device ring's ``bs=1`` plan is held against it. It also holds the
+exact communication volumes of the sparsity-oblivious baselines (2D SUMMA,
+Split-3D), which the device SUMMA plan's ``comm_bytes_model`` must equal,
+and the alpha-beta time model of the benchmarks.
 
 Bytes accounting follows the paper's implementation: 64-bit row indices +
 double-precision values, 16 bytes per nonzero.
@@ -13,7 +16,7 @@ double-precision values, 16 bytes per nonzero.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -26,6 +29,10 @@ __all__ = [
     "FetchPlan",
     "build_fetch_plan",
     "block_fetch_groups",
+    "cv_over_mema",
+    "summa2d_comm_volume",
+    "summa3d_comm_volume",
+    "CommModel",
 ]
 
 BYTES_PER_NNZ = 16  # int64 row id + float64 value, as in the paper's impl
@@ -62,6 +69,19 @@ class Partition1D:
     def balanced(ncols: int, nparts: int) -> "Partition1D":
         """Equal column counts (the default CombBLAS-style split)."""
         splits = np.linspace(0, ncols, nparts + 1).astype(np.int64)
+        return Partition1D(splits)
+
+    @staticmethod
+    def by_weight(weights: np.ndarray, nparts: int) -> "Partition1D":
+        """Contiguous split balancing cumulative weight (paper: weight =
+        (column nnz)^2 ~ sparse flops per column in squaring)."""
+        cum = np.concatenate([[0], np.cumsum(weights.astype(np.float64))])
+        total = cum[-1]
+        targets = total * np.arange(1, nparts) / nparts
+        cuts = np.searchsorted(cum, targets)
+        splits = np.concatenate([[0], cuts, [len(weights)]]).astype(np.int64)
+        # enforce monotonicity in degenerate cases (empty weight runs)
+        splits = np.maximum.accumulate(splits)
         return Partition1D(splits)
 
 
@@ -215,3 +235,134 @@ def build_fetch_plan(a: CSC, b: CSC, part_k: Partition1D,
         a_nnz_bytes=a.nnz * BYTES_PER_NNZ,
         nblocks=nblocks,
     )
+
+
+def cv_over_mema(a: CSC, b: CSC, nparts: int, nblocks: int = 2048) -> float:
+    """Convenience: the paper's partitioning-decision criterion."""
+    pk = Partition1D.balanced(a.ncols, nparts)
+    pn = Partition1D.balanced(b.ncols, nparts)
+    return build_fetch_plan(a, b, pk, pn, nblocks).cv_over_mema
+
+
+# ---------------------------------------------------------------------------
+# sparsity-oblivious baselines — exact per-instance communication volumes
+# ---------------------------------------------------------------------------
+
+def _block_nnz(mat: CSC, row_splits: np.ndarray,
+               col_splits: np.ndarray) -> np.ndarray:
+    """nnz of each (row-block, col-block) tile of ``mat``."""
+    rows, cols, _ = mat.to_coo()
+    ri = np.searchsorted(row_splits, rows, side="right") - 1
+    ci = np.searchsorted(col_splits, cols, side="right") - 1
+    nr, nc = len(row_splits) - 1, len(col_splits) - 1
+    out = np.zeros((nr, nc), dtype=np.int64)
+    np.add.at(out, (ri, ci), 1)
+    return out
+
+
+def summa2d_comm_volume(a: CSC, b: CSC, grid: int,
+                        row_splits: Optional[np.ndarray] = None,
+                        colk_splits: Optional[np.ndarray] = None,
+                        coln_splits: Optional[np.ndarray] = None) -> dict:
+    """Exact comm volume of 2D sparse SUMMA on a grid×grid process mesh.
+
+    Every A block is broadcast along its process row (grid-1 receivers);
+    every B block along its process column. This is sparsity-*oblivious*:
+    volume depends only on block nnz, not on whether the data is used.
+
+    The optional splits override the default balanced block cuts (A rows /
+    contraction dim / B cols, each ``(grid+1,)`` monotone) so the model can
+    be evaluated on exactly the partition another plan used — e.g. the
+    tile-snapped partitions of ``spgemm_2d_device.build_summa_plan``, whose
+    ``comm_bytes_model`` stat must agree with this function.
+    """
+    rs_a = (np.linspace(0, a.nrows, grid + 1).astype(np.int64)
+            if row_splits is None else np.asarray(row_splits, np.int64))
+    cs_a = (np.linspace(0, a.ncols, grid + 1).astype(np.int64)
+            if colk_splits is None else np.asarray(colk_splits, np.int64))
+    rs_b = cs_a  # B's rows live on the contraction partition
+    cs_b = (np.linspace(0, b.ncols, grid + 1).astype(np.int64)
+            if coln_splits is None else np.asarray(coln_splits, np.int64))
+    a_blocks = _block_nnz(a, rs_a, cs_a)
+    b_blocks = _block_nnz(b, rs_b, cs_b)
+    vol_a = int(a_blocks.sum()) * (grid - 1) * BYTES_PER_NNZ
+    vol_b = int(b_blocks.sum()) * (grid - 1) * BYTES_PER_NNZ
+    # per-process received bytes: all A blocks in my row + B blocks in my col
+    per_proc = np.zeros((grid, grid), dtype=np.int64)
+    for r in range(grid):
+        for c in range(grid):
+            recv_a = a_blocks[r, :].sum() - a_blocks[r, c]
+            recv_b = b_blocks[:, c].sum() - b_blocks[r, c]
+            per_proc[r, c] = (recv_a + recv_b) * BYTES_PER_NNZ
+    return {
+        "total_bytes": vol_a + vol_b,
+        "bytes_a": vol_a,
+        "bytes_b": vol_b,
+        "per_process_bytes": per_proc.reshape(-1),
+        "messages": 2 * grid * (grid - 1) * grid,  # bcast as p2p sends
+    }
+
+
+def summa3d_comm_volume(a: CSC, b: CSC, grid: int, layers: int) -> dict:
+    """Exact comm volume of Split-3D-SpGEMM [Azad+ '16] on grid×grid×layers.
+
+    The k dimension is split across layers; each layer runs a 2D SUMMA on
+    its k-slice, then partial C results are merged across layers (the
+    all-to-all/reduction volume is the nnz of the partial results, computed
+    exactly via a symbolic multiply per layer).
+    """
+    from .local_spgemm import spgemm_structure
+
+    k = a.ncols
+    ksplits = np.linspace(0, k, layers + 1).astype(np.int64)
+    total_ab = 0
+    partial_nnz = []
+    for l in range(layers):
+        lo, hi = int(ksplits[l]), int(ksplits[l + 1])
+        a_l = a.col_slice(lo, hi)
+        bt = b.transpose().col_slice(lo, hi)  # rows lo:hi of B
+        b_l = bt.transpose()
+        v2d = summa2d_comm_volume(a_l, b_l, grid)
+        total_ab += v2d["total_bytes"]
+        if layers > 1:
+            partial_nnz.append(spgemm_structure(a_l, b_l).nnz)
+    merge_bytes = 0
+    if layers > 1:
+        # every layer's partial C moves once during the merge (split+reduce)
+        merge_bytes = int(sum(partial_nnz)) * (layers - 1) // layers \
+            * BYTES_PER_NNZ
+    return {
+        "total_bytes": total_ab + merge_bytes,
+        "bytes_ab": total_ab,
+        "bytes_merge": merge_bytes,
+        "messages": 2 * grid * (grid - 1) * grid * layers
+        + (layers - 1) * grid * grid,
+    }
+
+
+# ---------------------------------------------------------------------------
+# latency/bandwidth time model (for benchmark "modeled time" columns)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CommModel:
+    """alpha-beta model. Defaults ~ Slingshot-11 NIC per the paper's system:
+    ~25 GB/s injection bandwidth, ~2 microseconds latency."""
+
+    bandwidth: float = 25e9   # bytes/s
+    latency: float = 2e-6     # s per message
+
+    def time(self, nbytes: float, nmessages: float) -> float:
+        return nbytes / self.bandwidth + nmessages * self.latency
+
+    def pipelined_time(self, nbytes: float, nmessages: float,
+                       compute_seconds: float,
+                       overlap_fraction: float = 0.0) -> float:
+        """Modeled wall time of a double-buffered (fetch/compute pipelined)
+        exchange: the overlapped fraction of the communication hides behind
+        compute, bounded by whichever of the two phases is shorter.
+        ``overlap_fraction=0`` degenerates to serial ``time() + compute``.
+        """
+        t_comm = self.time(nbytes, nmessages)
+        hidden = overlap_fraction * min(t_comm, compute_seconds)
+        return t_comm + compute_seconds - hidden

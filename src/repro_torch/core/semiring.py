@@ -8,9 +8,13 @@ Each semiring supplies two layers of the same algebra:
   * **device (torch)**: the dense-tile contract the block-sparse engines
     consume — a batched tile product (``matmul``), the additive combine
     (``add``), the fused step on one ``(bs, bs)`` accumulator
-    (``tile_combine``), and a segment-reduce over the additive monoid
+    (``tile_combine``), a segment-reduce over the additive monoid
     (``segment_reduce``: ``scatter_reduce`` with ``sum``/``amax``/``amin``
-    into an output filled with the identity).
+    into an output filled with the identity), and a reduce of the additive
+    monoid over one tensor dim (``axis_reduce``: ``sum``/``amax``/``amin``;
+    the reference's ``jnp_axis_reduce`` reduces over a named mesh axis with
+    ``psum``/``pmax``/``pmin``, and the Split-3D merge over logical layers
+    on one device reduces over a tensor dim instead).
 
 Device code never spells a literal ``0.0``: every payload pad, accumulator
 reset, empty-schedule output and decode prune goes through ``Semiring.zero``
@@ -55,6 +59,9 @@ class Semiring:
     # (vals [nprod, ...], segment_ids, num_segments) -> [num_segments, ...];
     # segments no product targets come back as ``zero``
     segment_reduce: Callable
+    # (vals, dim, out=None) -> vals reduced over ``dim`` under the additive
+    # monoid — the Split-3D cross-layer merge
+    axis_reduce: Callable
 
     def prune_mask(self, vals, tol: float = 0.0):
         """Entries considered nonzero by this semiring: |v - 0̄| > tol for
@@ -90,6 +97,7 @@ def _make_plus_times() -> Semiring:
         add=torch.add,
         tile_combine=lambda acc, a, b: acc + torch.matmul(a, b),
         segment_reduce=_segment_reduce("sum", 0.0),
+        axis_reduce=lambda v, dim, out=None: torch.sum(v, dim, out=out),
     )
 
 
@@ -108,6 +116,7 @@ def _make_bool_or_and() -> Semiring:
         add=torch.maximum,
         tile_combine=lambda acc, a, b: torch.maximum(acc, _bool_matmul(a, b)),
         segment_reduce=_segment_reduce("amax", 0.0),
+        axis_reduce=lambda v, dim, out=None: torch.amax(v, dim, out=out),
     )
 
 
@@ -138,6 +147,7 @@ def _make_min_plus() -> Semiring:
         add=torch.minimum,
         tile_combine=lambda acc, a, b: _mp_stream(acc.clone(), a, b),
         segment_reduce=_segment_reduce("amin", inf),
+        axis_reduce=lambda v, dim, out=None: torch.amin(v, dim, out=out),
     )
 
 

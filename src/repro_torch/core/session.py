@@ -4,25 +4,29 @@ The port's counterpart of ``repro.core.session``. The paper's use cases are
 all *iterated* multiplies (BC frontier levels, AMG Galerkin products, Markov
 clustering, sketching). On the device path the expensive work per multiply
 is **host planning** (symbolic phase, schedule join, static-shape packing)
-and **building the ring executable** (uploading the plan's stacks, deriving
-the gather indices and run boundaries) — both depend only on the operands'
-*sparsity structure* and the call geometry, never on the values.
+and **building the executable** (uploading the plan's stacks, deriving the
+gather indices or slot remaps and the run boundaries) — both depend only on
+the operands' *sparsity structure* and the call geometry, never on the
+values.
 
 :class:`SpGEMMSession` serves every multiply from an LRU cache keyed on
 
-    (algorithm, geometry (nparts), bs, nblocks, chunk, semiring, engine,
-     payload dtype, structure fingerprint of A, structure fingerprint of B)
+    (algorithm, geometry (nparts / grid×layers), bs, nblocks, chunk,
+     semiring, engine, payload dtype,
+     structure fingerprint of A, structure fingerprint of B)
 
-with three outcomes:
+(``nblocks`` and ``chunk`` are 1D-ring knobs and key only ``"1d"``
+entries) with three outcomes:
 
-  * **cold key** — plan (``build_device_plan``), build the executable
-    (``compile_ring``: the plan's device tensors plus the ring closure),
-    cache both;
+  * **cold key** — plan (``build_device_plan`` / ``build_summa_plan``),
+    build the executable (``compile_ring`` / ``compile_summa``: the plan's
+    device tensors plus the body closure), cache both;
   * **hit, same values** — run the cached executable as-is: zero host
     planning, zero builds, zero payload transfer;
   * **hit, new values** — the values-only path: re-blockize payloads on
-    the cached plan's partitions (``repack_ring_payloads``), swap them into
-    the cached device args, run the same executable.
+    the cached plan's partitions (``repack_ring_payloads`` /
+    ``repack_summa_payloads``), swap them into the cached device args, run
+    the same executable.
 
 ``stats["traces"]`` counts executable builds, so a hit is observable as
 zero new ones (the surface is ``device_common.SESSION_STATS``).
@@ -31,15 +35,15 @@ Hardened-runtime contract (``core/validate.py``): operands are validated at
 ingress; every stage (plan / compile / execute / repack) runs under
 seeded-jitter backoff retries, and cached entries whose stage fails are
 quarantined behind a per-key circuit breaker. Whatever escapes is a typed
-:class:`SpGEMMError`. The degradation ladder's engine fallback cuda→torch
-(visible in ``stats["fallbacks"]``) exists only for CPU tensors: on a CUDA
-device the kernel serves every call or the call raises, so the plain
-version never stands in for the kernel on the card. The kernel is built
+:class:`SpGEMMError`. A stage that stays broken walks the **degradation
+ladder**: engine fallback cuda→torch inside each algorithm rung, then the
+algorithm downgrade 3d→2d→1d; every rung is bitwise oracle-equivalent, and
+each descent shows in ``stats["fallbacks"]``. The engine fallback exists
+only for CPU tensors: on a CUDA device every rung runs the kernel, so the
+plain version never stands in for it on the card (an algorithm downgrade
+still may, and ``last_call["degraded"]`` says so). The kernel is built
 before the ladder and a bs the kernel does not take is rejected at
 ingress, so neither reaches a rung.
-
-Only the 1D ring is ported in this package so far: ``algorithm="2d"`` /
-``"3d"`` raise a typed :class:`PlanError` instead of downgrading.
 """
 
 from __future__ import annotations
@@ -57,7 +61,7 @@ from ..runtime.fault_tolerance import RetryPolicy, with_retries
 from .device_common import SESSION_STATS, resolve_device, resolve_engine
 from .semiring import PLUS_TIMES, Semiring
 from .sparse import CSC
-from .validate import (DeviceExecError, PlanError, SpGEMMError,
+from .validate import (DeviceExecError, SpGEMMError,
                        ValidationError, validate_matmul_operands,
                        wrap_stage_error)
 
@@ -66,9 +70,10 @@ __all__ = ["SpGEMMSession", "as_payload_dtype", "structure_fingerprint",
 
 ALGORITHMS = ("1d", "2d", "3d")
 
-# the algorithm rungs of the degradation ladder; only the 1D ring is
-# ported, so 2d/3d have no rungs yet (they raise PlanError, never downgrade)
-DOWNGRADE = {"1d": ("1d",)}
+# the algorithm rungs of the degradation ladder, most- to least-demanding;
+# every rung is bitwise-pinned to the same host oracle, so a downgraded
+# call returns the identical CSC — it just moves more bytes to get there
+DOWNGRADE = {"1d": ("1d",), "2d": ("2d", "1d"), "3d": ("3d", "2d", "1d")}
 
 
 def structure_fingerprint(mat: CSC) -> bytes:
@@ -142,7 +147,8 @@ class _Entry:
 
 
 class SpGEMMSession:
-    """Persistent SpGEMM session over the device ring on one device.
+    """Persistent SpGEMM session over the device engines (1D/2D/3D) on one
+    device.
 
     ``maxsize`` bounds the LRU entry count (each entry pins a plan, an
     executable and its device-resident payload stacks). ``device`` is
@@ -256,27 +262,36 @@ class SpGEMMSession:
             self.stats["bytes_cached"] -= entry.nbytes
             entry.release()
 
-    def _plan(self, a: CSC, b: CSC, nparts: int, bs: int,
-              nblocks: Optional[int], semiring: Semiring, dtype,
-              chunk: Optional[int]):
+    def _plan(self, a: CSC, b: CSC, algorithm: str, nparts: int, grid: int,
+              layers: int, bs: int, nblocks: Optional[int],
+              semiring: Semiring, dtype, chunk: Optional[int]):
         """Host planning only (the ``plan`` stage); returns
         (plan, decode, repack)."""
         from .spgemm_1d_device import (build_device_plan, decode_ring_output,
                                        repack_ring_payloads)
+        from .spgemm_2d_device import (build_summa_plan, decode_summa_output,
+                                       repack_summa_payloads)
 
-        plan = build_device_plan(
-            a, b, nparts, bs=bs, nblocks=nblocks, dtype=dtype,
-            semiring=semiring, a_blockize_cache=self._blockize_cache,
-            chunk=chunk)
-        return plan, decode_ring_output, repack_ring_payloads
+        if algorithm == "1d":
+            plan = build_device_plan(
+                a, b, nparts, bs=bs, nblocks=nblocks, dtype=dtype,
+                semiring=semiring, a_blockize_cache=self._blockize_cache,
+                chunk=chunk)
+            return plan, decode_ring_output, repack_ring_payloads
+        plan = build_summa_plan(
+            a, b, grid=grid, layers=layers if algorithm == "3d" else 1,
+            bs=bs, dtype=dtype, semiring=semiring)
+        return plan, decode_summa_output, repack_summa_payloads
 
-    def _compile(self, plan, engine: str):
-        """Upload the plan and build the ring executable (the ``compile``
+    def _compile(self, plan, algorithm: str, engine: str):
+        """Upload the plan and build the executable (the ``compile``
         stage); returns (fn, device args)."""
         from .spgemm_1d_device import compile_ring
+        from .spgemm_2d_device import compile_summa
 
-        fn, args = compile_ring(plan, device=self.device, engine=engine,
-                                trace_probe=self._count_trace)
+        compiler = compile_ring if algorithm == "1d" else compile_summa
+        fn, args = compiler(plan, device=self.device, engine=engine,
+                            trace_probe=self._count_trace)
         return fn, list(args)
 
     def _build_kernel(self) -> None:
@@ -301,6 +316,8 @@ class SpGEMMSession:
     def matmul(self, a: CSC, b: CSC, *,
                algorithm: str = "1d",
                nparts: int = 1,
+               grid: int = 1,
+               layers: int = 1,
                bs: int = 32,
                nblocks: Optional[int] = None,
                semiring: Semiring = PLUS_TIMES,
@@ -309,9 +326,13 @@ class SpGEMMSession:
                chunk: Optional[int] = None) -> CSC:
         """C = A ⊗ B on the device path, cached by structure.
 
-        ``algorithm="1d"`` runs the sparsity-aware ring with ``nparts``
-        logical parts on the session's device. ``"2d"`` (sparse SUMMA) and
-        ``"3d"`` (Split-3D) are not ported yet and raise :class:`PlanError`.
+        ``algorithm`` selects the engine, each run as logical parts on the
+        session's device: ``"1d"`` (the sparsity-aware ring, geometry
+        ``nparts``), ``"2d"`` (sparse SUMMA, geometry ``grid``×``grid``) or
+        ``"3d"`` (Split-3D, geometry ``grid``×``grid``×``layers``). A 2d or
+        3d call whose rung keeps failing downgrades (3d→2d→1d); a
+        downgraded 1d rung gets ``grid*grid`` ring parts, a downgraded 2d
+        rung keeps the grid.
 
         On a CUDA device with the kernel engine, ``bs`` must be one the
         kernel takes (``KERNEL_BS``); any other is a :class:`ValidationError`
@@ -319,16 +340,12 @@ class SpGEMMSession:
 
         ``chunk`` selects the ring's k-chunk pipeline (ring steps per
         fetched chunk; ``None`` = single-pass ring). It is part of the
-        cache key — chunked and unchunked plans build different bodies.
+        cache key — chunked and unchunked plans build different bodies —
+        and is ignored by the 2d/3d engines, exactly like ``nblocks``.
         """
         if algorithm not in ALGORITHMS:
             raise ValueError(
                 f"algorithm must be one of {ALGORITHMS}, got {algorithm!r}")
-        if algorithm not in DOWNGRADE:
-            raise PlanError(
-                f"algorithm {algorithm!r} is not yet ported to the PyTorch/"
-                "CUDA backend; only '1d' runs here", stage="plan",
-                context={"algorithm": algorithm})
         if chunk is not None and (not isinstance(chunk, int) or chunk < 1):
             raise ValueError(
                 f"chunk must be a positive int or None, got {chunk!r}")
@@ -350,12 +367,12 @@ class SpGEMMSession:
         if on_card:
             self._build_kernel()
 
-        # the degradation ladder: engine fallback cuda→torch, for CPU
-        # tensors only (there the cuda engine's wrapper runs the plain
-        # version anyway). On the card the kernel rung is the only rung, so
-        # a launch failure raises instead of being served by the plain
-        # version. Every rung is bitwise oracle-equivalent on
-        # integer-valued inputs.
+        # the degradation ladder: engine fallback cuda→torch inside each
+        # algorithm rung, for CPU tensors only (there the cuda engine's
+        # wrapper runs the plain version anyway), then algorithm downgrade.
+        # On the card every rung runs the kernel, so a launch failure is
+        # never served by the plain version. Every rung is bitwise
+        # oracle-equivalent on integer-valued inputs.
         rungs = []
         for alg in DOWNGRADE[algorithm]:
             rungs.append((alg, engine))
@@ -367,8 +384,8 @@ class SpGEMMSession:
         for i, (alg_r, eng_r) in enumerate(rungs):
             try:
                 c, info = self._run_rung(a, b, alg_r, eng_r, algorithm,
-                                         nparts, bs, nblocks, semiring,
-                                         dtype, chunk)
+                                         nparts, grid, layers, bs, nblocks,
+                                         semiring, dtype, chunk)
             except ValidationError:
                 # an ingress rejection (e.g. a dtype-mismatched values-only
                 # repack) is deterministic: every rung would refuse it the
@@ -395,13 +412,27 @@ class SpGEMMSession:
         raise last_err
 
     def _run_rung(self, a: CSC, b: CSC, algorithm: str, engine: str,
-                  requested: str, nparts: int,
+                  requested: str, nparts: int, grid: int, layers: int,
                   bs: int, nblocks: Optional[int], semiring: Semiring,
                   dtype, chunk: Optional[int] = None) -> Tuple[CSC, dict]:
         """One rung of the ladder: serve the multiply with a fixed
         (algorithm, engine), all four stages under retry + typed wrapping.
-        The key keeps the reference's layout."""
-        key = (algorithm, (nparts,), bs, nblocks, chunk, semiring.name, engine, np.dtype(dtype).str,
+
+        A downgraded 1d rung inherits the 2d/3d call's part budget
+        (``grid*grid`` ring parts); a downgraded 2d rung keeps the grid and
+        collapses the layers. The key keeps the reference's layout.
+        """
+        if algorithm == "1d":
+            geom = (nparts if requested == "1d" else grid * grid,)
+        else:
+            geom = (grid, layers if algorithm == "3d" else 1)
+        # nblocks and chunk are 1D-ring knobs (Algorithm-2 fetch grouping /
+        # the chunked pipeline); the SUMMA planners have neither, so they
+        # must not split byte-identical 2d/3d plans into distinct entries
+        key = (algorithm, geom, bs,
+               nblocks if algorithm == "1d" else None,
+               chunk if algorithm == "1d" else None,
+               semiring.name, engine, np.dtype(dtype).str,
                structure_fingerprint(a), structure_fingerprint(b))
         ctx = {"algorithm": algorithm, "engine": engine,
                "requested_algorithm": requested}
@@ -458,12 +489,14 @@ class SpGEMMSession:
                             entry.plan,
                             a if val_fp[0] != entry.val_fp[0] else None,
                             b if val_fp[1] != entry.val_fp[1] else None)
+                        # the stacks arrive in the plan's layout; the
+                        # executable's may be their flat view
                         if new_a is not None:
                             entry.args[0] = torch.from_numpy(new_a).to(
-                                self.device)
+                                self.device).reshape(entry.args[0].shape)
                         if new_b is not None:
                             entry.args[1] = torch.from_numpy(new_b).to(
-                                self.device)
+                                self.device).reshape(entry.args[1].shape)
 
                     self._stage("repack", do_repack, ctx)
                     entry.val_fp = val_fp
@@ -473,12 +506,13 @@ class SpGEMMSession:
                 t0 = time.perf_counter()
                 plan, decode, repack = self._stage(
                     "plan",
-                    lambda: self._plan(a, b, nparts, bs, nblocks, semiring,
+                    lambda: self._plan(a, b, algorithm, geom[0], grid,
+                                       layers, bs, nblocks, semiring,
                                        dtype, chunk),
                     ctx)
                 fn, args = self._stage(
                     "compile",
-                    lambda: self._compile(plan, engine), ctx)
+                    lambda: self._compile(plan, algorithm, engine), ctx)
                 plan_seconds = time.perf_counter() - t0
                 entry = _Entry(plan, fn, args, decode, repack,
                                (values_fingerprint(a),

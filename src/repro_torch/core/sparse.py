@@ -1,10 +1,12 @@
 """Element-level sparse matrix substrate (host side, numpy).
 
 The port's own copy of ``repro.core.sparse``: a CSC with an explicit
-nonzero-column view (the DCSC ``JC`` array), the COO constructor and the
-structure-matched generators of the paper's input families. Everything
-here is numpy; on the same seed the generators give array-equal output to
-the reference's. Device execution lives in ``spgemm_1d_device.py``.
+nonzero-column view (the DCSC ``JC`` array), the COO and dense
+constructors, the structure-matched generators of the paper's input
+families, the AMG restriction operator and the permutation helpers.
+Everything here is numpy; on the same seed the generators give
+array-equal output to the reference's. Device execution lives in the
+``spgemm_*_device.py`` engines.
 """
 
 from __future__ import annotations
@@ -17,11 +19,18 @@ import numpy as np
 __all__ = [
     "CSC",
     "from_coo",
+    "from_dense",
+    "identity",
     "erdos_renyi",
     "banded_clustered",
     "laplacian_2d",
     "rmat",
+    "block_diagonal_noise",
+    "restriction_operator",
     "symmetrize",
+    "permute_symmetric",
+    "permute_cols",
+    "permute_rows",
     "hstack_partitions",
 ]
 
@@ -135,6 +144,13 @@ class CSC:
         rows, cols, vals = self.to_coo()
         return from_coo(rows[keep], cols[keep], vals[keep], self.shape)
 
+    def allclose(self, other: "CSC", rtol: float = 1e-6,
+                 atol: float = 1e-8) -> bool:
+        if self.shape != other.shape:
+            return False
+        return np.allclose(self.to_dense(), other.to_dense(),
+                           rtol=rtol, atol=atol)
+
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return (f"CSC(shape={self.shape}, nnz={self.nnz}, "
                 f"nzc={self.nzc}, dtype={self.data.dtype})")
@@ -189,6 +205,17 @@ def from_coo(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
     np.add.at(indptr, cols + 1, 1)
     np.cumsum(indptr, out=indptr)
     return CSC(indptr, rows, vals, shape)
+
+
+def from_dense(a: np.ndarray, tol: float = 0.0) -> CSC:
+    rows, cols = np.nonzero(np.abs(a) > tol)
+    return from_coo(rows, cols, a[rows, cols], a.shape)
+
+
+def identity(n: int, dtype=np.float64) -> CSC:
+    idx = np.arange(n, dtype=np.int64)
+    return CSC(np.arange(n + 1, dtype=np.int64), idx,
+               np.ones(n, dtype=dtype), (n, n))
 
 
 # ---------------------------------------------------------------------------
@@ -260,11 +287,85 @@ def rmat(scale: int, edge_factor: int = 8, seed: int = 0,
     return symmetrize(g)
 
 
+def block_diagonal_noise(n: int, nblocks: int, d_in: float, d_out: float,
+                         seed: int = 0, dtype=np.float64) -> CSC:
+    """Community structure: dense diagonal blocks + sparse off-block noise.
+
+    METIS-partitionable by construction — used to validate that the
+    partitioner recovers structure that random permutation destroys.
+    """
+    rng = np.random.default_rng(seed)
+    bsz = n // nblocks
+    nnz_in = int(d_in * n)
+    cols_in = rng.integers(0, n, size=nnz_in)
+    blk = cols_in // bsz
+    rows_in = blk * bsz + rng.integers(0, bsz, size=nnz_in)
+    nnz_out = int(d_out * n)
+    rows_out = rng.integers(0, n, size=nnz_out)
+    cols_out = rng.integers(0, n, size=nnz_out)
+    rows = np.concatenate([rows_in, rows_out])
+    cols = np.concatenate([cols_in, cols_out])
+    vals = rng.standard_normal(rows.shape[0]).astype(dtype)
+    return symmetrize(from_coo(rows, cols, vals, (n, n), dedupe="first"))
+
+
+def restriction_operator(a: CSC, coarsening: int = 100,
+                         seed: int = 0) -> CSC:
+    """AMG restriction operator R (tall-skinny, one nonzero per row).
+
+    nrows(R) = n_fine, nnz(R) = n_fine. Aggregates are grown greedily from
+    seeds over A's graph (a cheap stand-in for MIS-2 aggregation).
+    """
+    n = a.nrows
+    target = max(1, n // coarsening)
+    at = a.transpose()
+    rng = np.random.default_rng(seed)
+    agg = np.full(n, -1, dtype=np.int64)
+    seeds = rng.permutation(n)
+    n_agg = 0
+    # greedy aggregation: unaggregated vertex becomes a seed, grabs its
+    # unaggregated neighbors (distance-1 closure of an independent set).
+    for v in seeds:
+        if agg[v] >= 0:
+            continue
+        agg[v] = n_agg
+        nbrs = at.indices[at.indptr[v]:at.indptr[v + 1]]
+        free = nbrs[agg[nbrs] < 0]
+        agg[free] = n_agg
+        n_agg += 1
+    # fold aggregates down to ~target by modular merge (keeps locality)
+    if n_agg > target:
+        agg = agg % target
+        n_agg = target
+    rows = np.arange(n, dtype=np.int64)
+    return from_coo(rows, agg, np.ones(n), (n, n_agg))
+
+
+# ---------------------------------------------------------------------------
+# permutation helpers
+# ---------------------------------------------------------------------------
+
 def symmetrize(a: CSC) -> CSC:
     rows, cols, vals = a.to_coo()
     return from_coo(np.concatenate([rows, cols]),
                     np.concatenate([cols, rows]),
                     np.concatenate([vals, vals]), a.shape, dedupe="max")
+
+
+def permute_symmetric(a: CSC, perm: np.ndarray) -> CSC:
+    """P A P^T — relabel rows and columns by ``perm`` (new_id = perm[old])."""
+    rows, cols, vals = a.to_coo()
+    return from_coo(perm[rows], perm[cols], vals, a.shape)
+
+
+def permute_cols(a: CSC, perm: np.ndarray) -> CSC:
+    rows, cols, vals = a.to_coo()
+    return from_coo(rows, perm[cols], vals, a.shape)
+
+
+def permute_rows(a: CSC, perm: np.ndarray) -> CSC:
+    rows, cols, vals = a.to_coo()
+    return from_coo(perm[rows], cols, vals, a.shape)
 
 
 def hstack_partitions(parts: list) -> CSC:

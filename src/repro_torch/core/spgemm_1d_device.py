@@ -46,7 +46,8 @@ import torch
 from .blocksparse import BlockSparse, build_schedule, flags_from_c_slot
 from .device_common import (ENGINES, blockize_parts, check_plan_semiring,
                             decode_tiles, pack_schedules, resolve_device,
-                            resolve_engine, run_schedule, snap_to_tiles)
+                            resolve_engine, run_schedule, snap_to_tiles,
+                            window_run_starts)
 from .plan import Partition1D
 from .semiring import PLUS_TIMES, Semiring
 from .sparse import CSC
@@ -540,15 +541,10 @@ def _windows(plan: DeviceSpGEMMPlan) -> List[Tuple[int, int]]:
 
 def _run_starts(plan: DeviceSpGEMMPlan, part: int, off: int,
                 ln: int) -> np.ndarray:
-    """Run boundaries of one part's window, for the kernel, once per plan.
-    The trailing run of pad products (the garbage slot ``nc_max``) is
-    left out: its output is dropped, so the kernel need not compute it."""
-    from ..kernels.bsr_spgemm.kernel import run_starts_from_flags
-
-    starts = run_starts_from_flags(plan.flags[part], off, ln)
-    if len(starts) > 1 and plan.c_slot[part, starts[-2]] == plan.nc_max:
-        starts = starts[:-1]
-    return starts
+    """Run boundaries of one part's window, for the kernel, once per plan
+    (``device_common.window_run_starts``)."""
+    return window_run_starts(plan.flags[part], plan.c_slot[part],
+                             plan.nc_max, off, ln)
 
 
 def _make_step_fn(plan: DeviceSpGEMMPlan, device: torch.device, engine: str,

@@ -1,7 +1,7 @@
 """Structural validation + the sparse runtime's typed error taxonomy.
 
-The port's copy of ``repro.core.validate`` (the CSC checks and the error
-taxonomy; the BlockSparse check waits for the slice that needs it).
+The port's copy of ``repro.core.validate``: the CSC and BlockSparse
+checks and the error taxonomy.
 
 Serving-grade SpGEMM (ROADMAP open item 1) cannot afford a single corrupt
 request poisoning a shared plan cache: a non-monotone ``indptr`` or an
@@ -43,7 +43,8 @@ from .sparse import CSC
 
 __all__ = [
     "SpGEMMError", "ValidationError", "PlanError", "DeviceExecError",
-    "wrap_stage_error", "validate_csc", "validate_matmul_operands",
+    "wrap_stage_error", "validate_csc", "validate_blocksparse",
+    "validate_matmul_operands",
 ]
 
 
@@ -220,6 +221,37 @@ def validate_csc(mat: CSC, *, semiring: Optional[Semiring] = None,
                                 f"{float(offending[0])!r} (not the additive "
                                 f"identity)",
                           semiring=getattr(semiring, "name", None))
+
+
+def validate_blocksparse(bsp, *, name: str = "tiles") -> None:
+    """Structural validation of a BSR/BlockSparse payload stack.
+
+    Used by tools that ingest pre-blockized operands; the session path
+    validates at CSC granularity before blockization instead.
+    """
+    from .blocksparse import BlockSparse
+    if not isinstance(bsp, BlockSparse):
+        _fail(name, f"expected BlockSparse, got {type(bsp).__name__}")
+    bs = int(bsp.bs)
+    if bs <= 0:
+        _fail(name, f"block size must be positive, got {bs}")
+    tiles = bsp.tiles
+    if tiles.ndim != 3:
+        _fail(name, f"tiles must be (ntiles, bs, bs), got {tiles.shape}")
+    n = tiles.shape[0]
+    if bsp.tile_rows.shape != (n,) or bsp.tile_cols.shape != (n,):
+        _fail(name, f"tile coordinate arrays {bsp.tile_rows.shape} / "
+                    f"{bsp.tile_cols.shape} do not match ntiles = {n}")
+    gr = -(-int(bsp.shape[0]) // bs)
+    gc = -(-int(bsp.shape[1]) // bs)
+    if n:
+        if int(bsp.tile_rows.min()) < 0 or int(bsp.tile_rows.max()) >= gr:
+            _fail(name, f"tile_rows out of bounds for grid {gr}")
+        if int(bsp.tile_cols.min()) < 0 or int(bsp.tile_cols.max()) >= gc:
+            _fail(name, f"tile_cols out of bounds for grid {gc}")
+        if np.issubdtype(tiles.dtype, np.floating) and \
+                np.isnan(tiles).any():
+            _fail(name, "tile payloads contain NaN")
 
 
 def validate_matmul_operands(a: CSC, b: CSC, *,

@@ -16,6 +16,16 @@
 // are masked and rows past S are not stored, which for causal attention is
 // what padding S with zeros gives.
 //
+// Head dims: any D that is a multiple of 8 up to 256. The kernel is
+// instantiated at DP, D rounded up to a multiple of 64 (64, 128, 192, 256):
+// at D == DP with D known at compile time (FULL), else with D taken at run
+// time, where columns at or past D load as zeros (so they add nothing to
+// q . k, and P V gives zeros there) and are never stored. A row of D floats
+// is a multiple of 32 bytes and of bf16 16 bytes, so every 16-byte vector a
+// thread reads lies wholly inside or wholly past D, and every 4-column group
+// it stores likewise. On an H100 the run-time masks cost 2-14 % at the
+// published head dims (chip_smoke.py), hence the FULL instantiations.
+//
 // Work division: the Pallas grid walks every kv block of a (head, q block)
 // pair in order and masks the dead ones. Here one CTA takes one (q block of
 // 64 rows, head, batch) and loops over key blocks of 64 from the window's
@@ -48,13 +58,13 @@ constexpr int BK = 64;          // keys per step
 constexpr int PS = BK + 4;      // padded row stride of the P tile
 constexpr float kNegInf = -1e30f;
 
-template <int D>
+template <int DP>
 struct Smem {
-  static constexpr int QS = D + 4;  // padded row stride of the Q tile
+  static constexpr int QS = DP + 4;  // padded row stride of the Q tile
   static constexpr int q = 0;
-  static constexpr int kt = q + BQ * QS;     // K^T: [D][BK]
-  static constexpr int v = kt + D * BK;      // V:   [BK][D]
-  static constexpr int p = v + BK * D;       // P:   [BQ][PS]
+  static constexpr int kt = q + BQ * QS;     // K^T: [DP][BK]
+  static constexpr int v = kt + DP * BK;     // V:   [BK][DP]
+  static constexpr int p = v + BK * DP;      // P:   [BQ][PS]
   static constexpr int floats = p + BQ * PS;
   static constexpr size_t bytes = sizeof(float) * floats;
 };
@@ -105,15 +115,16 @@ __device__ __forceinline__ float comp(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-template <typename T, int D>
+template <typename T, int DP, bool FULL>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int S, int Hq, int Hkv,
-          float scale, int causal, int window, float softcap) {
-  using L = Smem<D>;
+          const T* __restrict__ v, T* __restrict__ o, int d, int S, int Hq,
+          int Hkv, float scale, int causal, int window, float softcap) {
+  using L = Smem<DP>;
+  const int D = FULL ? DP : d;
   constexpr int VEC = Vec16<T>::n;
-  constexpr int NCH = D / VEC;      // 16-byte chunks per row
-  constexpr int CG = D / 64;        // output column groups of 4 per thread
+  constexpr int NCH = DP / VEC;     // 16-byte chunks per padded row
+  constexpr int CG = DP / 64;       // output column groups of 4 per thread
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* Qs = smem + L::q;
@@ -140,7 +151,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   for (int idx = tid; idx < BQ * NCH; idx += kThreads) {
     const int r = idx / NCH, ch = idx % NCH;
     float vals[VEC];
-    if (q0 + r < S) {
+    if (q0 + r < S && (FULL || ch * VEC < D)) {
       Vec16<T>::load(qb_ptr + (size_t)(q0 + r) * q_row + ch * VEC, vals);
     } else {
 #pragma unroll
@@ -171,7 +182,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = tid; idx < BK * NCH; idx += kThreads) {
       const int c = idx % BK, ch = idx / BK;
       float vals[VEC];
-      if (k0 + c < S) {
+      if (k0 + c < S && (FULL || ch * VEC < D)) {
         Vec16<T>::load(kb_ptr + (size_t)(k0 + c) * kv_row + ch * VEC, vals);
       } else {
 #pragma unroll
@@ -185,14 +196,14 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = tid; idx < BK * NCH; idx += kThreads) {
       const int r = idx / NCH, ch = idx % NCH;
       float vals[VEC];
-      if (k0 + r < S) {
+      if (k0 + r < S && (FULL || ch * VEC < D)) {
         Vec16<T>::load(vb_ptr + (size_t)(k0 + r) * kv_row + ch * VEC, vals);
       } else {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) vals[e] = 0.0f;
       }
 #pragma unroll
-      for (int e = 0; e < VEC; e += 4) store4(Vs + r * D + ch * VEC + e, vals + e);
+      for (int e = 0; e < VEC; e += 4) store4(Vs + r * DP + ch * VEC + e, vals + e);
     }
     __syncthreads();
 
@@ -203,7 +214,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DP; d += 4) {
       float4 qv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -272,7 +283,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int g = 0; g < CG; ++g) {
           const float4 vv =
-              *reinterpret_cast<const float4*>(Vs + (kk + dd) * D + g * 64 + tx * 4);
+              *reinterpret_cast<const float4*>(Vs + (kk + dd) * DP + g * 64 + tx * 4);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const float pi = comp(pv[i], dd);
@@ -286,7 +297,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // normalise (l == 0 divides by 1) and store the rows inside S
+  // normalise (l == 0 divides by 1) and store the rows inside S, the
+  // columns inside D
   T* ob_ptr = o + (size_t)b * S * q_row + (size_t)h * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -295,6 +307,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = l[i] == 0.0f ? 1.0f : l[i];
 #pragma unroll
     for (int g = 0; g < CG; ++g) {
+      if (!FULL && g * 64 + tx * 4 >= D) continue;
       float out[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) out[e] = acc[i][g * 4 + e] / denom;
@@ -303,46 +316,60 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int Hq, int Hkv, float scale, int causal, int window, float softcap,
-           cudaStream_t stream) {
-  auto kern = flash_fwd<T, D>;
-  const size_t smem = Smem<D>::bytes;
+template <typename T, int DP, bool FULL>
+int launch(const void* q, const void* k, const void* v, void* o, int D, int B,
+           int S, int Hq, int Hkv, float scale, int causal, int window,
+           float softcap, cudaStream_t stream) {
+  auto kern = flash_fwd<T, DP, FULL>;
+  const size_t smem = Smem<DP>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + BQ - 1) / BQ, Hq, B);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Hq, Hkv, scale, causal,
-      window, softcap);
+      static_cast<const T*>(v), static_cast<T*>(o), D, S, Hq, Hkv, scale,
+      causal, window, softcap);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int DP>
+int launch_dp(const void* q, const void* k, const void* v, void* o, int d,
+              int B, int S, int Hq, int Hkv, float scale, int causal,
+              int window, float softcap, cudaStream_t stream) {
+  if (d == DP)
+    return launch<T, DP, true>(q, k, v, o, d, B, S, Hq, Hkv, scale, causal,
+                               window, softcap, stream);
+  return launch<T, DP, false>(q, k, v, o, d, B, S, Hq, Hkv, scale, causal,
+                              window, softcap, stream);
 }
 
 template <typename T>
 int launch_d(int d, const void* q, const void* k, const void* v, void* o,
              int B, int S, int Hq, int Hkv, float scale, int causal,
              int window, float softcap, cudaStream_t stream) {
-  switch (d) {
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, S, Hq, Hkv, scale, causal, window,
-                           softcap, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, S, Hq, Hkv, scale, causal, window,
-                            softcap, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, o, B, S, Hq, Hkv, scale, causal, window,
-                            softcap, stream);
+  if (d <= 0 || d > 256 || d % 8 != 0) return -1;
+  switch ((d + 63) / 64) {
+    case 1:
+      return launch_dp<T, 64>(q, k, v, o, d, B, S, Hq, Hkv, scale, causal,
+                              window, softcap, stream);
+    case 2:
+      return launch_dp<T, 128>(q, k, v, o, d, B, S, Hq, Hkv, scale, causal,
+                               window, softcap, stream);
+    case 3:
+      return launch_dp<T, 192>(q, k, v, o, d, B, S, Hq, Hkv, scale, causal,
+                               window, softcap, stream);
     default:
-      return -1;
+      return launch_dp<T, 256>(q, k, v, o, d, B, S, Hq, Hkv, scale, causal,
+                               window, softcap, stream);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch
-// (0 on success), or -1 for a head dim or dtype without an instantiation.
+// dtype: 0 = float32, 1 = bfloat16; d a multiple of 8 up to 256. Returns
+// the cudaError_t of the launch (0 on success), or -1 for a head dim or
+// dtype the kernel does not take.
 extern "C" int flash_attention_launch(int dtype, int d, const void* q,
                                       const void* k, const void* v, void* o,
                                       int B, int S, int Hq, int Hkv,

@@ -10,8 +10,9 @@ Two routes, chosen by :func:`route` from the dtype and the head dim:
   operands in shared memory) and for PV (P rounded to bf16 in registers),
   with the online softmax in fp32 registers. The head dim is processed at
   D rounded up to 64: TMA zero-fills the columns past D.
-* ``"fp32"`` — float32 at D in {64, 128, 256}, ``csrc/flash_attention.cu``:
-  fp32 FMAs on the CUDA cores, 64-row query blocks over 64-key blocks.
+* ``"fp32"`` — float32, the same head dims, ``csrc/flash_attention.cu``:
+  fp32 FMAs on the CUDA cores, 64-row query blocks over 64-key blocks, at
+  D rounded up to 64 (columns past D load as zeros and are not stored).
   It stays full fp32 (no TF32), for the float32 checks' tolerances.
 
 Both read the model layout (B, S, H, D) in place: a query head reads kv
@@ -45,15 +46,14 @@ from ..cuda_lib import check_tensor, compile_sources
 from .ref import mha_ref
 
 __all__ = ["flash_attention", "check_launch_args", "route", "build",
-           "reset_launches", "tc_smem_bytes", "ROUTES", "FP32_D", "TC_MAX_D",
+           "reset_launches", "tc_smem_bytes", "ROUTES", "MAX_D",
            "SOURCE", "TC_SOURCE", "SOURCES"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 TC_SOURCE = SOURCE.with_name("flash_attention_tc.cu")
 SOURCES = (SOURCE, TC_SOURCE)
 ROUTES = ("tc", "fp32")
-FP32_D = (64, 128, 256)
-TC_MAX_D = 256
+MAX_D = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib: Optional[Dict[str, ctypes.CDLL]] = None
@@ -88,21 +88,17 @@ def build() -> dict:
 
 def route(dtype: torch.dtype, d: int) -> str:
     """The kernel a card runs for attention in ``dtype`` at head dim ``d``:
-    ``"tc"`` for bfloat16 with d a multiple of 8 up to :data:`TC_MAX_D`,
-    ``"fp32"`` for float32 with d in :data:`FP32_D`. Raises ``ValueError``
-    for anything else."""
-    if dtype == torch.bfloat16:
-        if 0 < d <= TC_MAX_D and d % 8 == 0:
-            return "tc"
-        raise ValueError(f"the bfloat16 kernel takes head dims that are "
-                         f"multiples of 8 up to {TC_MAX_D}, got {d}")
-    if dtype == torch.float32:
-        if d in FP32_D:
-            return "fp32"
-        raise ValueError(f"the float32 kernel takes head dim in {FP32_D}, "
-                         f"got {d}")
-    raise ValueError(f"the CUDA kernels take float32 or bfloat16, got "
-                     f"{dtype}")
+    ``"tc"`` for bfloat16, ``"fp32"`` for float32, each for d a multiple of
+    8 up to :data:`MAX_D`. Raises ``ValueError`` for anything else."""
+    names = {torch.bfloat16: "tc", torch.float32: "fp32"}
+    if dtype not in names:
+        raise ValueError(f"the CUDA kernels take float32 or bfloat16, got "
+                         f"{dtype}")
+    if not (0 < d <= MAX_D and d % 8 == 0):
+        raise ValueError(f"the {str(dtype).split('.')[-1]} kernel takes "
+                         f"head dims that are multiples of 8 up to "
+                         f"{MAX_D}, got {d}")
+    return names[dtype]
 
 
 def check_launch_args(q, k, v, out) -> None:
@@ -161,14 +157,11 @@ def tc_smem_bytes(d: int) -> int:
 
 def _launch_cuda_core(q, k, v, *, scale: float, causal: bool = True,
                       window: int = 0, softcap: float = 0.0) -> torch.Tensor:
-    """The CUDA-core kernel on bf16 or float32 CUDA tensors (D in
-    :data:`FP32_D`), counted nowhere: the ``"tc"`` route's predecessor for
-    bf16, kept so a timing can set the two side by side on one card."""
+    """The CUDA-core kernel on bf16 or float32 CUDA tensors, counted
+    nowhere: the ``"tc"`` route's predecessor for bf16, kept so a timing can
+    set the two side by side on one card."""
     out = torch.empty_like(q)
     check_launch_args(q, k, v, out)
-    if q.shape[3] not in FP32_D:
-        raise ValueError(f"the CUDA-core kernel takes head dim in {FP32_D}, "
-                         f"got {q.shape[3]}")
     if q.numel():
         _launch("fp32", q, k, v, out, scale, causal, window, softcap)
     return out

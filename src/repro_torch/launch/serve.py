@@ -3,8 +3,9 @@
   python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b [--smoke] \\
       [--device cpu]
 
-Random weights from ``--seed`` (bf16 on a card, the config's own compute
-dtype on the CPU); random prompts of 2 to ``--prompt-len`` tokens.
+Random weights from ``--seed`` in the config's compute dtype on either
+device (bfloat16 for the published configs, float32 for the ``--smoke``
+ones); random prompts of 2 to ``--prompt-len`` tokens.
 """
 
 from __future__ import annotations

@@ -17,8 +17,11 @@
   dims 128, 160 and 256.
 * ``route`` and the wrapper's argument checks per route: what the prefill
   path hands the kernel on a card passes them (run on CPU tensors, at each
-  architecture's published head dim), and what the kernels do not take
-  raises. The CUDA kernels themselves run only on a card
+  architecture's published head dim in bf16, and in float32 at each smoke
+  config's own head dim and at 160), and what the kernels do not take
+  raises. The float32 route pads the head dim to a multiple of 64 with
+  zero columns; the plain version on zero-padded inputs gives the same
+  output. The CUDA kernels themselves run only on a card
   (``chip_smoke.py``).
 * ``cuda_lib.library_path`` names a new library when a header the source
   includes changes.
@@ -186,6 +189,47 @@ def test_prefill_f32_hands_the_fp32_route_arguments_it_accepts(monkeypatch):
     assert {tkernel.route(c[2], c[0][3]) for c in calls} == {"fp32"}
 
 
+SMOKE_ATTENTION_ARCHS = ("musicgen-large", "pixtral-12b", "gemma2-2b",
+                         "mistral-large-123b", "qwen3-8b", "nemotron-4-15b",
+                         "phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b")
+
+
+@pytest.mark.parametrize("arch", SMOKE_ATTENTION_ARCHS)
+def test_smoke_config_prefill_hands_the_fp32_route_arguments_it_accepts(
+        monkeypatch, arch):
+    """``launch.serve --smoke`` runs each attention architecture's smoke
+    config in float32 at its own head dim (16): every attention launch of
+    its prefill passes the fp32 route's checks, and so does the same
+    config at pixtral-12b's published head dim of 160."""
+    calls = _checked_calls(monkeypatch)
+    cfg = smoke_config(arch)
+    assert cfg.dtype == "float32" and cfg.hd == 16
+    for hd in (cfg.hd, 160):
+        before = len(calls)
+        _prefill(dataclasses.replace(cfg, head_dim=hd), torch.float32)
+        mine = calls[before:]
+        assert len(mine) == sum(k in "aAl" for k in cfg.pattern) \
+            * cfg.n_periods
+        assert {c[0][3] for c in mine} == {hd}
+        assert {tkernel.route(c[2], c[0][3]) for c in mine} == {"fp32"}
+
+
+@pytest.mark.parametrize("d", [8, 16, 40, 160, 200])
+def test_fp32_route_zero_padding_changes_nothing(d):
+    """The fp32 kernel runs at D rounded up to 64 with the columns past D
+    read as zeros and never stored; the plain version on inputs padded so
+    gives the unpadded output (float32, within 1e-6: the longer dot
+    products add exact zeros, summed in another blocking)."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 77, 4, 2, d, seed=d))
+    dp = -(-d // 64) * 64
+    pad = lambda t: torch.nn.functional.pad(t, (0, dp - d))
+    kw = dict(scale=d ** -0.5, causal=True, window=32, softcap=30.0)
+    got = mha_ref(pad(q), pad(k), pad(v), **kw)
+    assert torch.all(got[..., d:] == 0)
+    torch.testing.assert_close(got[..., :d], mha_ref(q, k, v, **kw),
+                               atol=1e-6, rtol=1e-5)
+
+
 def _misaligned(shape, dtype):
     """A contiguous tensor of ``shape`` whose data starts one element past
     a 16-byte boundary."""
@@ -195,14 +239,15 @@ def _misaligned(shape, dtype):
 
 @pytest.mark.parametrize("case", ["head_dim", "dtype", "gqa", "contiguous",
                                   "out_shape", "bf16_d100", "bf16_d264",
-                                  "f32_d160", "misaligned", "bf16_misaligned",
+                                  "f32_d100", "f32_d264", "misaligned",
+                                  "bf16_misaligned",
                                   "bf16_contiguous"])
 def test_check_launch_args_rejects(case):
     q = torch.zeros(1, 8, 4, 64)
     k = v = torch.zeros(1, 8, 2, 64)
     out = torch.empty_like(q)
     if case == "head_dim":
-        q, k, v, out = (t[..., :16].contiguous() for t in (q, k, v, out))
+        q, k, v, out = (t[..., :12].contiguous() for t in (q, k, v, out))
     elif case == "dtype":
         q, out = q.half(), out.half()
     elif case == "gqa":
@@ -211,9 +256,9 @@ def test_check_launch_args_rejects(case):
         q = torch.zeros(1, 4, 8, 64).transpose(1, 2)
     elif case == "out_shape":
         out = torch.empty(1, 8, 2, 64)
-    elif case.startswith("bf16_d") or case == "f32_d160":
+    elif case.startswith(("bf16_d", "f32_d")):
         d = int(case.split("_d")[1])
-        dtype = torch.float32 if case == "f32_d160" else torch.bfloat16
+        dtype = torch.float32 if case.startswith("f32") else torch.bfloat16
         q = torch.zeros(1, 8, 4, d, dtype=dtype)
         k = v = torch.zeros(1, 8, 2, d, dtype=dtype)
         out = torch.empty_like(q)
@@ -232,7 +277,8 @@ def test_check_launch_args_rejects(case):
 
 @pytest.mark.parametrize("dtype,d", [
     (torch.bfloat16, 96), (torch.bfloat16, 160), (torch.bfloat16, 8),
-    (torch.bfloat16, 256), (torch.float32, 64), (torch.float32, 256)])
+    (torch.bfloat16, 256), (torch.float32, 64), (torch.float32, 256),
+    (torch.float32, 16), (torch.float32, 160), (torch.float32, 8)])
 def test_check_launch_args_accepts(dtype, d):
     q = torch.zeros(2, 9, 4, d, dtype=dtype)
     k = v = torch.zeros(2, 9, 2, d, dtype=dtype)
@@ -241,14 +287,13 @@ def test_check_launch_args_accepts(dtype, d):
 
 def test_route_by_dtype_and_head_dim():
     """bf16 takes every multiple of 8 up to 256 on the tensor-core route,
-    float32 takes 64, 128 and 256 on the CUDA-core route; anything else
+    float32 the same head dims on the CUDA-core route; anything else
     raises."""
     for d in range(8, 257, 8):
         assert tkernel.route(torch.bfloat16, d) == "tc"
-    for d in (64, 128, 256):
         assert tkernel.route(torch.float32, d) == "fp32"
     bad = [(torch.bfloat16, d) for d in (0, 4, 100, 260, 264, 512)]
-    bad += [(torch.float32, d) for d in (8, 16, 96, 160, 192, 512)]
+    bad += [(torch.float32, d) for d in (0, 4, 12, 100, 264, 512)]
     bad += [(torch.float16, 128), (torch.float64, 64)]
     for dtype, d in bad:
         with pytest.raises(ValueError):

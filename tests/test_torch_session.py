@@ -1,10 +1,12 @@
 """The port's SpGEMMSession against the reference's contract, on the CPU.
 
 Pins the stats surface (the same ``SESSION_STATS`` keys as the reference),
-structure-keyed caching (a hit builds no new executable), the values-only
-repack, the typed dtype rejection on a repack, the degradation ladder and
-the circuit breaker under injected faults, the card's rules (no plain rung
-behind the kernel, a bs the kernel does not take rejected at ingress), and
+structure-keyed caching (a hit builds no new executable; the reference's
+key rules for 2d/3d), the values-only repack, the typed dtype rejection on
+a repack, the degradation ladder (engine, then 3d→2d→1d) and the circuit
+breaker under injected faults, the card's rules (no plain rung behind the
+kernel on any algorithm rung, a bs the kernel does not take rejected at
+ingress), and
 the device rule (asking for ``"cuda"`` without a GPU raises). Results compare bitwise on
 integer-valued operands (tolerance: none).
 """
@@ -20,11 +22,11 @@ from repro.core.session import SpGEMMSession as RSession
 from repro.core.sparse import erdos_renyi as r_erdos_renyi
 from repro_torch.core import MIN_PLUS, PLUS_TIMES, erdos_renyi
 from repro_torch.core.device_common import SESSION_STATS
-from repro_torch.core.session import SpGEMMSession
+from repro_torch.core.session import DOWNGRADE, SpGEMMSession
 from repro_torch.core.spgemm_1d_device import (build_device_plan,
                                                run_device_spgemm)
-from repro_torch.core.validate import (DeviceExecError, PlanError,
-                                       SpGEMMError, ValidationError)
+from repro_torch.core.validate import (DeviceExecError, SpGEMMError,
+                                       ValidationError)
 from repro_torch.runtime import fault_tolerance as tft
 from repro_torch.runtime.faults import FaultInjector, InjectedFault
 
@@ -140,13 +142,104 @@ def test_fault_then_recovery_serves_the_right_answer():
     _assert_bitwise(c, _cold(a, a, nparts=2, bs=16))
 
 
+GEOMETRY = {"2d": dict(grid=2), "3d": dict(grid=2, layers=2)}
+
+
 @pytest.mark.parametrize("algorithm", ["2d", "3d"])
-def test_unported_algorithms_raise_plan_error(algorithm):
+def test_2d_3d_served_without_downgrade(algorithm):
+    """SUMMA and Split-3D serve on their own rung: bitwise the oracle, a
+    hit builds nothing, new values repack."""
     a = _int_matrix()
     s = SpGEMMSession(device="cpu")
-    with pytest.raises(PlanError, match="not yet ported"):
-        s.matmul(a, a, algorithm=algorithm, nparts=2)
-    assert s.stats["fallbacks"] == 0 and s.stats["calls"] == 0
+    c = s.matmul(a, a, algorithm=algorithm, bs=16, **GEOMETRY[algorithm])
+    _assert_bitwise(c, _cold(a, a, nparts=1, bs=16))
+    assert s.last_call["algorithm"] == s.last_call["requested_algorithm"] \
+        == algorithm
+    assert s.last_call["degraded"] is False and s.stats["fallbacks"] == 0
+    assert s.last_call["comm_bytes_planned"] > 0
+    s.matmul(a, a, algorithm=algorithm, bs=16, **GEOMETRY[algorithm])
+    assert s.last_call["cache_hit"] and s.stats["traces"] == 1
+    a2 = a.astype(np.float32)
+    a2.data = a2.data * 2
+    c = s.matmul(a2, a2, algorithm=algorithm, bs=16, **GEOMETRY[algorithm])
+    assert s.last_call["repacked"] and s.stats["traces"] == 1
+    _assert_bitwise(c, _cold(a2, a2, nparts=1, bs=16))
+
+
+def test_2d_3d_cache_keys_ignore_ring_knobs():
+    """nblocks and chunk key only 1d entries; the grid keys 2d and 3d, the
+    layers only 3d."""
+    a = _int_matrix()
+    s = SpGEMMSession(device="cpu")
+    s.matmul(a, a, algorithm="2d", grid=2, bs=16)
+    s.matmul(a, a, algorithm="2d", grid=2, bs=16, nblocks=3, chunk=2,
+             layers=5)
+    assert s.stats["plan_cache_misses"] == 1 and s.last_call["cache_hit"]
+    s.matmul(a, a, algorithm="3d", grid=2, layers=2, bs=16, nblocks=3,
+             chunk=2)
+    s.matmul(a, a, algorithm="3d", grid=2, layers=2, bs=16)
+    assert s.stats["plan_cache_misses"] == 2 and s.last_call["cache_hit"]
+    for kw in (dict(algorithm="3d", grid=2, layers=3),
+               dict(algorithm="2d", grid=3),
+               dict(algorithm="1d", nparts=4, chunk=2)):
+        s.matmul(a, a, bs=16, **kw)
+        assert not s.last_call["cache_hit"], kw
+    assert s.stats["plan_cache_misses"] == 5 and s.stats["traces"] == 5
+
+
+def test_ladder_downgrades_3d_to_2d():
+    """The plan stage hard-fails 3 times with zero retries: on CPU tensors
+    the ladder walks (3d, cuda) → (3d, torch) → (2d, cuda) and serves at
+    (2d, torch), still bitwise, the descent visible in stats and
+    last_call (the reference's (3d, pallas) → ... → (2d, jnp))."""
+    inj = FaultInjector(seed=0, rates={"plan": 1.0}, max_faults=3)
+    s = SpGEMMSession(device="cpu", fault_injector=inj,
+                      retry_policy=tft.RetryPolicy(max_retries=0,
+                                                   backoff_s=0.0))
+    a = _int_matrix(30, seed=2)
+    c = s.matmul(a, a, algorithm="3d", grid=1, layers=1, bs=16,
+                 engine="cuda")
+    _assert_bitwise(c, _cold(a, a, nparts=1, bs=16))
+    assert s.last_call["degraded"] is True
+    assert s.last_call["requested_algorithm"] == "3d"
+    assert (s.last_call["algorithm"], s.last_call["engine"]) == \
+        ("2d", "torch")
+    assert s.stats["fallbacks"] == 3
+    assert len(s) == 1      # only the serving rung's entry was cached
+
+
+def test_ladder_exhaustion_raises_typed_not_bare():
+    inj = FaultInjector(seed=0, rates=1.0)
+    s = SpGEMMSession(device="cpu", fault_injector=inj,
+                      retry_policy=tft.RetryPolicy(max_retries=1,
+                                                   backoff_s=0.0),
+                      retry_sleep=lambda _: None)
+    a = _int_matrix(20, seed=4)
+    with pytest.raises(SpGEMMError) as ei:
+        s.matmul(a, a, algorithm="3d", grid=1, layers=1, bs=16,
+                 engine="cuda")
+    assert not type(ei.value) is RuntimeError  # noqa: E714
+    assert isinstance(ei.value.__cause__, InjectedFault)
+    n_rungs = sum(2 for _ in DOWNGRADE["3d"])   # cuda + torch per algorithm
+    assert s.stats["fallbacks"] == n_rungs - 1
+    assert len(s) == 0      # nothing poisoned ever entered the cache
+
+
+def test_downgraded_1d_rung_inherits_the_grid():
+    """A 2d call that falls to the 1d rung runs the ring on grid*grid
+    parts, under the same key a direct 1d call on that many parts uses."""
+    inj = FaultInjector(seed=0, rates={"plan": 1.0}, max_faults=1)
+    s = SpGEMMSession(device="cpu", fault_injector=inj,
+                      retry_policy=tft.RetryPolicy(max_retries=0,
+                                                   backoff_s=0.0))
+    a = _int_matrix()
+    c = s.matmul(a, a, algorithm="2d", grid=2, bs=16)
+    assert (s.last_call["algorithm"], s.last_call["degraded"]) == \
+        ("1d", True)
+    assert next(iter(s._cache.values())).plan.nparts == 4
+    _assert_bitwise(c, _cold(a, a, nparts=4, bs=16))
+    s.matmul(a, a, algorithm="1d", nparts=4, bs=16)
+    assert s.last_call["cache_hit"] and s.stats["plan_cache_misses"] == 1
 
 
 def _card_session(monkeypatch, **kw):
@@ -182,6 +275,45 @@ def test_launch_failure_on_the_card_raises_without_fallback(monkeypatch):
     with pytest.raises(DeviceExecError, match="circuit breaker open"):
         s.matmul(a, a, nparts=2, bs=16)
     assert s.stats["fallbacks"] == 0
+
+
+def test_card_ladder_runs_the_kernel_on_every_rung(monkeypatch):
+    """On the card the algorithm downgrade runs the kernel engine on every
+    rung: two plan faults take a 3d call to (1d, cuda), never to the plain
+    version (the compilers are pointed at CPU tensors here, where the
+    kernel wrapper takes its plain version)."""
+    import repro_torch.core.spgemm_1d_device as dev1d
+    import repro_torch.core.spgemm_2d_device as dev2d
+
+    a = _int_matrix()
+    want = _cold(a, a, nparts=4, bs=16)
+    engines = []
+    for mod, name in ((dev1d, "compile_ring"), (dev2d, "compile_summa")):
+        inner = getattr(mod, name)
+
+        def on_cpu(plan, device, engine, trace_probe=None, inner=inner):
+            engines.append(engine)
+            return inner(plan, device="cpu", engine=engine,
+                         trace_probe=trace_probe)
+        monkeypatch.setattr(mod, name, on_cpu)
+    s = _card_session(monkeypatch,
+                      fault_injector=FaultInjector(seed=0,
+                                                   rates={"plan": 1.0},
+                                                   max_faults=2),
+                      retry_policy=tft.RetryPolicy(max_retries=0,
+                                                   backoff_s=0.0))
+    c = s.matmul(a, a, algorithm="3d", grid=2, layers=2, bs=16)
+    assert (s.last_call["algorithm"], s.last_call["engine"]) == \
+        ("1d", "cuda")
+    assert s.last_call["degraded"] is True and s.stats["fallbacks"] == 2
+    assert engines == ["cuda"]
+    _assert_bitwise(c, want)
+    s.fault_injector = None
+    for alg, kw in GEOMETRY.items():
+        s.matmul(a, a, algorithm=alg, bs=16, **kw)
+        assert (s.last_call["algorithm"], s.last_call["engine"],
+                s.last_call["degraded"]) == (alg, "cuda", False)
+    assert engines == ["cuda"] * 3
 
 
 @pytest.mark.parametrize("bs", [1, 8, 256])
