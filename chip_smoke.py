@@ -6,24 +6,29 @@
 Needs one CUDA device and ``nvcc``; imports only ``repro_torch``, torch,
 numpy and scipy. Phases (any failure exits non-zero and prints no result):
 
-  1. build     — compile the kernels' six sources from the repo, one
-                 nvcc each, all started together; report both bsr_spgemm
-                 sources' ptxas lines and the tensor-core route's dynamic
-                 shared memory
-  2. kernel    — both bsr_spgemm routes against the plain PyTorch version
-                 on the card: 3 semirings x bs in {16, 32, 64, 128} through
-                 the wrapper (plus_times and bool_or_and at bs 64/128 on
-                 the ``tc`` route, the rest on ``simt``; the ``simt``
-                 kernel also at bs 64/128 directly), runs of 1-8 products,
-                 a seg_start offset and an empty schedule; on ``tc`` also
-                 odd integers in 2049-4093 (not TF32-exact; one nonzero per
-                 row and column, runs of one product), windows whose runs
+  1. build     — compile the kernels' seven sources from the repo, one
+                 nvcc each, all started together; report the three
+                 bsr_spgemm sources' ptxas lines and the ``tc`` and ``warp``
+                 routes' dynamic shared memory
+  2. kernel    — the three bsr_spgemm routes against the plain PyTorch
+                 version on the card: 3 semirings x bs in {16, 32, 64, 128}
+                 through the wrapper (every semiring at bs 16/32 on the
+                 ``warp`` route, plus_times and bool_or_and at bs 64/128 on
+                 ``tc``, min_plus at bs 64/128 on ``simt``; the ``simt``
+                 kernel also directly wherever it is not the route), runs
+                 of 1-8 products, a seg_start offset and an empty schedule,
+                 min-plus also with NaNs planted (its plain version on the
+                 CPU); on ``warp`` and ``tc`` also odd integers in
+                 2049-4093 (not TF32-exact; one nonzero per row and column,
+                 runs of one product), inf / -inf / NaN / |x| >= 2^127
+                 planted for plus_times and bool_or_and, windows whose runs
                  leave gaps and whose nc runs past the last visited slot
                  (the output starts as NaN: every slot must be written),
-                 and a window made only of pad products; integer-valued
-                 tiles bitwise, float plus-times within rtol=1e-5,
-                 atol=1e-4 (summation order, the TF32 split), bool /
-                 min-plus bitwise, every ``tc`` launch repeated bitwise
+                 and a window made only of pad products (min-plus too on
+                 ``warp``); integer-valued tiles bitwise, float plus-times
+                 within rtol=1e-5, atol=1e-4 (summation order, the TF32
+                 split), bool / min-plus bitwise (a NaN matching any NaN),
+                 every ``warp`` and ``tc`` launch repeated bitwise
   3. main path — laplacian_2d(1024) (1,048,576 rows) A·A through
                  ``SpGEMMSession(device="cuda").matmul(algorithm="1d",
                  nparts=8, bs=128)`` with chunk=None and chunk=2, held
@@ -42,6 +47,17 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  the port's host ``local_spgemm.spgemm``, each on its own
                  rung; each route's largest launch of the 1D call timed
                  beside the plain version
+  4b. default_bs — the session at its default bs (32) and BC's (16), all
+                 on the ``warp`` route: laplacian_2d(1024)^2 through the 1D
+                 ring with ``bs`` left out, chunk=None and chunk=2, and at
+                 bs=16, chunk=None, cold then hit, bitwise against scipy,
+                 the execute ms beside the bs-128 ring's; part 0's launch at
+                 bs 32 and 16 timed as in phase 3 (``previous_ms``: the
+                 ``simt`` kernel with its fill, which is also timed alone);
+                 bool_or_and at bs 16 and min_plus at bs 32 on
+                 banded_clustered through the ring (chunk=2), bitwise
+                 against the host oracle, each call's largest launch timed
+                 beside ``simt`` and the plain version
   5. summa     — the main path's laplacian_2d(1024)² through
                  ``SpGEMMSession(device="cuda").matmul(algorithm="2d",
                  grid=2, bs=128)`` and ``algorithm="3d", grid=2,
@@ -205,8 +221,8 @@ def ptxas_lines(log):
 
 
 def phase_build():
-    """Every kernel source built in parallel; both bsr_spgemm libraries
-    loaded."""
+    """Every kernel source built in parallel; the three bsr_spgemm
+    libraries loaded."""
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.bsr_spgemm import kernel
     from repro_torch.kernels.flash_attention import kernel as fa
@@ -215,11 +231,13 @@ def phase_build():
     infos = cuda_lib.compile_sources([*kernel.SOURCES, *fa.SOURCES,
                                       *mg.SOURCES])
     kernel.build()
+    smem = {kernel.TC_SOURCE: ("tc", kernel.TC_BS),
+            kernel.WARP_SOURCE: ("warp", kernel.WARP_BS)}
     for src in kernel.SOURCES:
         info = infos[src]
-        extra = ({"dynamic_smem_bytes": {f"bs{bs}": kernel.tc_smem_bytes(bs)
-                                         for bs in kernel.TC_BS}}
-                 if src == kernel.TC_SOURCE else {})
+        extra = ({"dynamic_smem_bytes": {
+            f"bs{bs}": kernel.smem_bytes(smem[src][0], bs)
+            for bs in smem[src][1]}} if src in smem else {})
         emit({"phase": "build", "kernel": src.stem,
               "seconds": info["seconds"], "built": info["built"],
               "library": info["path"], "ptxas": ptxas_lines(info["log"]),
@@ -272,8 +290,8 @@ class RouteCheck:
     repeated must be bitwise equal."""
 
     def __init__(self):
-        self.cases = {"tc": 0, "simt": 0}
-        self.max_err = {"tc": 0.0, "simt": 0.0}
+        self.cases = {"tc": 0, "warp": 0, "simt": 0}
+        self.max_err = {"tc": 0.0, "warp": 0.0, "simt": 0.0}
 
     def __call__(self, name, got, want, exact, label, repeat=None):
         torch.cuda.synchronize()
@@ -291,7 +309,7 @@ class RouteCheck:
 
 
 def phase_kernel(dev):
-    """Both bsr_spgemm routes against their plain version on the card."""
+    """Every bsr_spgemm route against its plain version on the card."""
     from repro_torch.core.blocksparse import flags_from_c_slot
     from repro_torch.core.semiring import by_name
     from repro_torch.kernels.bsr_spgemm import kernel
@@ -328,23 +346,38 @@ def phase_kernel(dev):
                        (int(starts[3]), 0)]
             slots = [put(a_slot), put(b_slot), put(c_slot)]
             routes = [kernel.route(sr, bs)]
-            if routes[0] == "tc":
+            if routes[0] != "simt":
                 routes.append("simt")    # the previous kernel, same inputs
-            for kind in ("int", "float"):
+            # min-plus also with a NaN planted in every third tile; its
+            # plain version runs on the CPU, where torch.minimum and the
+            # segment amin propagate NaN as the reference's jnp.minimum does
+            kinds = ("int", "float") + (("nan",) if srname == "min_plus"
+                                        else ())
+            for kind in kinds:
                 tiles = []
                 for n in (na, nb):
-                    vals = (rng.integers(-3, 4, size=(n, bs, bs))
-                            if kind == "int" else
-                            rng.standard_normal((n, bs, bs)))
+                    vals = (rng.standard_normal((n, bs, bs))
+                            if kind == "float" else
+                            rng.integers(-3, 4, size=(n, bs, bs)))
                     vals = vals.astype(np.float32)
                     vals[rng.random((n, bs, bs)) < 0.5] = sr.zero
+                    if kind == "nan":
+                        vals = plant(rng, vals, [np.nan, 0.0, 1.0])
                     tiles.append(put(vals))
                 for seg_start, nprod in windows:
                     rs = put(kernel.run_starts_from_flags(flags, seg_start,
                                                           nprod))
-                    want = bsr_spgemm_ref(*tiles, *slots, nc=nruns,
-                                          semiring=sr, seg_start=seg_start,
-                                          seg_len=nprod)
+                    on = (lambda t: t.cpu()) if kind == "nan" else (
+                        lambda t: t)
+                    want = bsr_spgemm_ref(
+                        *map(on, tiles), *map(on, slots), nc=nruns,
+                        semiring=sr, seg_start=seg_start,
+                        seg_len=nprod).to(dev)
+                    if kind == "nan" and nprod:
+                        check(bool(torch.isnan(want).any())
+                              and bool(torch.isfinite(want).any()),
+                              f"min-plus NaN case bs={bs} lacks NaN or "
+                              f"finite outputs")
                     for name in routes if nprod else routes[:1]:
                         def launch(name=name):
                             if not nprod:
@@ -354,13 +387,16 @@ def phase_kernel(dev):
                             return run(name, tiles, slots, rs, nprod, nruns,
                                        bs, sr, seg_start)
                         held(name, launch(), want,
-                             kind == "int" or srname != "plus_times",
+                             kind != "float" or srname != "plus_times",
                              f"{srname} bs={bs} {kind} "
                              f"window=({seg_start}, {nprod})",
-                             repeat=launch if name == "tc" else None)
+                             repeat=(launch if name in ("tc", "warp")
+                                     else None))
 
-    # the tc route's own cases, at bs 64 and 128
-    for bs in kernel.TC_BS:
+    # the tensor-core routes' own cases: warp at bs 16 and 32, tc at 64 and
+    # 128
+    for bs in (*kernel.WARP_BS, *kernel.TC_BS):
+        name = kernel.route(by_name("plus_times"), bs)
         na = nb = 16
         # odd integers past 2048, runs of one product: exact only with the
         # lo.lo term
@@ -371,9 +407,9 @@ def phase_kernel(dev):
         rs = put(kernel.run_starts_from_flags(flags, 0, len(c_slot)))
         want = bsr_spgemm_ref(*tiles, *slots, nc=24)
         check(float(want.max()) > 2049.0 ** 2, "odd-integer case too small")
-        launch = lambda: run("tc", tiles, slots, rs, len(c_slot), 24, bs,
+        launch = lambda: run(name, tiles, slots, rs, len(c_slot), 24, bs,
                              by_name("plus_times"))
-        held("tc", launch(), want, True, f"odd integers bs={bs}",
+        held(name, launch(), want, True, f"odd integers bs={bs}",
              repeat=launch)
         # infinities and NaNs among odd integers past 2048 and among
         # integers, with |x| >= 2**127 in A (FLT_MAX's hi rounds to
@@ -381,9 +417,12 @@ def phase_kernel(dev):
         # on the CUDA cores. No product overflows (a fused multiply-add and
         # a rounded product disagree there), and runs of one product leave
         # each output element at most one huge finite term, so no sum
-        # depends on its order
+        # depends on its order. bool takes the same tiles (inf and NaN are
+        # true, as x != 0 makes them)
         inf = np.float32(np.inf)
-        for kind in ("int", "odd"):
+        for srname, kind in (("plus_times", "int"), ("plus_times", "odd"),
+                             ("bool_or_and", "odd")):
+            sr = by_name(srname)
             if kind == "odd":
                 a, b = odd_tiles(rng, na, bs), odd_tiles(rng, nb, bs)
                 a = plant(rng, a, [inf, -inf, np.nan])
@@ -394,17 +433,20 @@ def phase_kernel(dev):
                                    np.finfo(np.float32).max,
                                    np.float32(-1.5 * 2.0 ** 127)])
             tiles = [put(a), put(plant(rng, b, [np.nan, inf, -inf]))]
-            want = bsr_spgemm_ref(*tiles, *slots, nc=24)
-            for test in (torch.isnan, torch.isposinf, torch.isneginf,
-                         torch.isfinite):
+            want = bsr_spgemm_ref(*tiles, *slots, nc=24, semiring=sr)
+            for test in ((torch.isnan, torch.isposinf, torch.isneginf,
+                          torch.isfinite) if srname == "plus_times" else ()):
                 check(bool(test(want).any()), f"non-finite case lacks "
                       f"{test.__name__}")
-            launch = lambda: run("tc", tiles, slots, rs, len(c_slot), 24, bs,
-                                 by_name("plus_times"))
-            held("tc", launch(), want, True,
-                 f"inf / NaN / huge among {kind} integers bs={bs}",
+            launch = lambda: run(name, tiles, slots, rs, len(c_slot), 24, bs,
+                                 sr)
+            held(name, launch(), want, True,
+                 f"{srname}: inf / NaN / huge among {kind} integers bs={bs}",
                  repeat=launch)
-        for srname in ("plus_times", "bool_or_and"):
+        # gapped windows and pad-only windows: min-plus too on the warp
+        # route, whose kernel fills the identity (+inf) itself
+        for srname in ("plus_times", "bool_or_and") + (
+                ("min_plus",) if name == "warp" else ()):
             sr = by_name(srname)
             # runs on a sorted subset of the slots, nc past the last one
             nruns, nc = 30, 3 * 30 + 7
@@ -424,9 +466,9 @@ def phase_kernel(dev):
                                                       nprod))
                 want = bsr_spgemm_ref(*tiles, *slots, nc=nc, semiring=sr,
                                       seg_start=seg_start, seg_len=nprod)
-                launch = lambda: run("tc", tiles, slots, rs, nprod, nc, bs,
+                launch = lambda: run(name, tiles, slots, rs, nprod, nc, bs,
                                      sr, seg_start)
-                held("tc", launch(), want, True,
+                held(name, launch(), want, True,
                      f"gapped {srname} bs={bs} window=({seg_start}, "
                      f"{nprod}) nc={nc}", repeat=launch)
             # pad products after the last run, into the garbage slot nc - 1,
@@ -448,16 +490,16 @@ def phase_kernel(dev):
                 real = int(starts_np[-1] - seg_start)
                 want = bsr_spgemm_ref(*tiles, *pad_slots, nc=nc, semiring=sr,
                                       seg_start=seg_start, seg_len=real)
-                launch = lambda: run("tc", tiles, pad_slots, rs, nprod, nc,
+                launch = lambda: run(name, tiles, pad_slots, rs, nprod, nc,
                                      bs, sr, seg_start)
-                held("tc", launch(), want, True,
+                held(name, launch(), want, True,
                      f"pad products {srname} bs={bs} window=({seg_start}, "
                      f"{nprod}), {real} real", repeat=launch)
     emit({"phase": "kernel_vs_plain", "cases": held.cases,
           "max_abs_err_float_plus_times": held.max_err,
           "tolerance": {"integer_bool_min_plus": "bitwise, NaN as any NaN",
                         "float_plus_times": {"rtol": 1e-5, "atol": 1e-4},
-                        "repeat_tc": "bitwise"}})
+                        "repeat_tc_warp": "bitwise"}})
     return held.max_err
 
 
@@ -568,10 +610,11 @@ def phase_main_path(dev, case):
           f"main-path launches off the tc route: {routes}")
 
     entries = list(sess._cache.values())  # read-only: time the executables
+    execute_ms = {}
     for chunk, entry in zip((None, 2), entries[:2]):
         plan = entry.plan
         r = runs[chunk]
-        ms = cuda_ms(lambda: entry.fn(*entry.args), 3)
+        ms = execute_ms[chunk] = cuda_ms(lambda: entry.fn(*entry.args), 3)
         split = decode_split(entry)
         emit({"phase": "main_path", "matrix": f"laplacian_2d({side})",
               "rows": a.shape[0], "nnz_a": a.nnz, "nnz_c": ref_c.nnz,
@@ -586,21 +629,22 @@ def phase_main_path(dev, case):
           "route_launches": routes, "session_stats": sess.stats})
     ring = {k: entries[0].plan.stats[k] for k in
             ("comm_bytes_planned", "comm_bytes_padded", "messages")}
-    return sess, entries[0].plan, entries[0].args, launches, ring
+    return sess, entries[0].plan, entries[0].args, launches, ring, execute_ms
 
 
 def tc_pass_panels(a_tiles, b_tiles, a_slot, b_slot, bs):
-    """Tensor-core passes the ``tc`` kernel runs over these products: per
-    product and 32-deep k-panel, hi.hi plus one pass for each operand
-    whose panel holds an element that is not TF32-exact, plus lo.lo when
-    both do."""
-    kp = bs // 32
+    """Tensor-core passes the ``tc`` and ``warp`` kernels run over these
+    products: per product and k-panel (32 deep, or bs below 32), hi.hi plus
+    one pass for each operand whose panel holds an element that is not
+    TF32-exact, plus lo.lo when both do."""
+    depth = min(bs, 32)
+    kp = bs // depth
 
     def inexact(t, a_side):              # (tiles, kp) flags
         low = (t.view(torch.int32) & 0x1FFF) != 0
-        if a_side:                       # an A panel is 32 columns
-            return low.view(t.shape[0], bs, kp, 32).any(3).any(1)
-        return low.view(t.shape[0], kp, 32 * bs).any(2)   # B: 32 rows
+        if a_side:                       # an A panel is `depth` columns
+            return low.view(t.shape[0], bs, kp, depth).any(3).any(1)
+        return low.view(t.shape[0], kp, depth * bs).any(2)   # B: rows
 
     fa = inexact(a_tiles, True)[a_slot.long()]
     fb = inexact(b_tiles, False)[b_slot.long()]
@@ -620,47 +664,57 @@ def launch_bytes(a_slot, b_slot, rs, nc, bs):
 
 def bounds(moved, fp32_flop, pass_panels, bs):
     """Least times (ms) for the work: bytes over HBM, ``fp32_flop`` over
-    the CUDA-core fp32 peak, and ``pass_panels`` TF32 passes of a 32-deep
-    k-panel (2 bs^2 32 flop each) over the tensor-core peak."""
+    the CUDA-core fp32 peak, and ``pass_panels`` TF32 passes of a k-panel
+    (2 bs^2 min(bs, 32) flop each) over the tensor-core peak."""
     variant, (fp32, hbm, _, tf32) = peaks(torch.cuda.get_device_name(0))
+    depth = min(bs, 32)
     return {"bytes_ms": moved / hbm * 1e3,
             "fp32_ops_ms": fp32_flop / fp32 * 1e3,
-            "tf32_ops_ms": pass_panels * 2 * bs * bs * 32 / tf32 * 1e3,
+            "tf32_ops_ms": pass_panels * 2 * bs * bs * depth / tf32 * 1e3,
             "peak_variant": variant, "hbm_bytes_per_s": hbm,
             "fp32_flops": fp32, "tf32_flops": tf32}
 
 
-def measure_kernel(dev, plan, args):
-    """Part 0's launch of the unchunked plan, with the ring's own run
-    starts, on both routes, against the plain version on the same inputs:
-    integer payloads (one TF32 pass), the same schedule with every value x
-    (1 + 2^-12) (not TF32-exact), the ``simt`` kernel with its fill as
-    ``previous_ms``, and fp32 ``torch.bmm`` of the gathered products (a
-    yardstick: no segment sum, so not the same function)."""
+def part0_inputs(dev, plan, args):
+    """Part 0's launch of an unchunked 1D plan as the ring makes it: the
+    gathered A stack (its own tiles, then what the ring brings, absent ones
+    at the identity) and its B stack, its schedule slots, and the host run
+    starts."""
     from repro_torch.core.spgemm_1d_device import _run_starts, recv_index
-    from repro_torch.kernels.bsr_spgemm import kernel
-    from repro_torch.kernels.bsr_spgemm.ref import bsr_spgemm_ref
 
-    P, bs, nc = plan.nparts, plan.bs, plan.nc_max + 1
-    sr = plan.semiring
-    check(kernel.route(sr, bs) == "tc", "the main path is off the tc route")
+    P, bs, sr = plan.nparts, plan.bs, plan.semiring
     na = plan.a_tiles.shape[1]
     idx = np.concatenate([np.arange(na), recv_index(plan, range(P - 1))[0]])
     a_tiles, b_tiles, a_slot, b_slot, c_slot = args
     stack = a_tiles.reshape(P * na, bs, bs)[
         torch.from_numpy(idx.clip(min=0)).to(dev)]
     stack[torch.from_numpy(idx < 0).to(dev)] = sr.zero
+    starts = _run_starts(plan, 0, 0, int(plan.a_slot.shape[1]))
+    return (stack, b_tiles[0]), (a_slot[0], b_slot[0], c_slot[0]), starts
+
+
+def measure_kernel(dev, plan, args):
+    """Part 0's launch of the unchunked plan, with the ring's own run
+    starts, on its route, against the plain version on the same inputs:
+    integer payloads (one TF32 pass), the same schedule with every value x
+    (1 + 2^-12) (not TF32-exact), the ``simt`` kernel with its identity
+    fill as ``previous_ms`` (and the fill alone), and fp32 ``torch.bmm`` of
+    the gathered products (a yardstick: no segment sum, so not the same
+    function)."""
+    from repro_torch.kernels.bsr_spgemm import kernel
+    from repro_torch.kernels.bsr_spgemm.ref import bsr_spgemm_ref
+
+    bs, nc, sr = plan.bs, plan.nc_max + 1, plan.semiring
+    name = kernel.route(sr, bs)
+    ints, slots, starts = part0_inputs(dev, plan, args)
     nprod = int(plan.a_slot.shape[1])
-    starts = _run_starts(plan, 0, 0, nprod)
     real = int(starts[-1] - starts[0])
     rs = torch.from_numpy(starts).to(dev)
-    slots = (a_slot[0], b_slot[0], c_slot[0])
-    ints = (stack, b_tiles[0])
     scaled = tuple(t * (1 + 2 ** -12) for t in ints)
     out = torch.empty((nc, bs, bs), dtype=torch.float32, device=dev)
 
-    def launch(name, tiles):
-        kernel._launch(name, *tiles, *slots, rs, out, bs=bs, semiring=sr)
+    def launch(route, tiles):
+        kernel._launch(route, *tiles, *slots, rs, out, bs=bs, semiring=sr)
         return out
 
     def plain(tiles):
@@ -668,21 +722,23 @@ def measure_kernel(dev, plan, args):
                               seg_len=real)
 
     want = plain(ints)
-    for name in ("tc", "simt"):
-        check(bitwise(launch(name, ints), want),
-              f"main-path launch on {name} != plain version")
+    for route in dict.fromkeys((name, "simt")):
+        check(bitwise(launch(route, ints), want),
+              f"main-path launch at bs {bs} on {route} != plain version")
     del want
     want = plain(scaled)
-    got = launch("tc", scaled)
+    got = launch(name, scaled)
     err = float((got - want).abs().max())
     check(torch.allclose(got, want, rtol=1e-5, atol=1e-4),
-          f"main-path launch x (1 + 2^-12) != plain version: {err}")
+          f"main-path launch at bs {bs} x (1 + 2^-12) != plain version: "
+          f"{err}")
     del want, got
-    ms = cuda_ms(lambda: launch("tc", ints), 5)
-    float_ms = cuda_ms(lambda: launch("tc", scaled), 5)
+    ms = cuda_ms(lambda: launch(name, ints), 5)
+    float_ms = cuda_ms(lambda: launch(name, scaled), 5)
     previous_ms = cuda_ms(lambda: launch("simt", ints), 5)
+    fill_ms = cuda_ms(lambda: out.fill_(sr.zero), 5)
     plain_ms = cuda_ms(lambda: plain(ints), 2)
-    ga = stack[slots[0][:real].long()]
+    ga = ints[0][slots[0][:real].long()]
     gb = ints[1][slots[1][:real].long()]
     gout = torch.empty_like(ga)
     bmm_ms = cuda_ms(lambda: torch.bmm(ga, gb, out=gout), 3)
@@ -693,20 +749,24 @@ def measure_kernel(dev, plan, args):
     passes_f = tc_pass_panels(*scaled, slots[0][:real], slots[1][:real], bs)
     del scaled
     bd, bd_f = (bounds(moved, flop, n, bs) for n in (passes, passes_f))
-    emit({"phase": "kernel_timing", "part": 0, "route": "tc",
+    emit({"phase": "kernel_timing", "part": 0, "bs": bs, "route": name,
           "tile_products": real, "padded_products": nprod,
           "runs": len(starts) - 1, "output_tiles": nc, "flop": flop,
-          "bytes": moved, "tiles_read": read,
+          "bytes": moved, "output_bytes": nc * bs * bs * 4,
+          "tiles_read": read,
           "tf32_pass_panels": {"integer": passes, "scaled": passes_f},
           "ms": ms, "float_ms": float_ms, "previous_ms": previous_ms,
+          "previous_fill_ms": fill_ms,
+          "previous_ms_less_fill": previous_ms - fill_ms,
           "plain_ms": plain_ms, "bmm_products_ms": bmm_ms,
           "float_max_abs_err": err, "tflops_fp32_work": flop / ms / 1e9,
           "bounds": bd, "float_tf32_ops_ms": bd_f["tf32_ops_ms"]})
-    return dict(ms=ms, plain_ms=plain_ms, err=err,
+    return dict(ms=ms, plain_ms=plain_ms, err=err, route=name, bs=bs,
                 bound_ms=max(bd["bytes_ms"], bd["tf32_ops_ms"]),
                 bound_by=("operations" if bd["tf32_ops_ms"] >= bd["bytes_ms"]
                           else "bytes"),
-                previous_ms=previous_ms, float_ms=float_ms,
+                previous_ms=previous_ms, previous_fill_ms=fill_ms,
+                float_ms=float_ms,
                 float_bound_ms=max(bd["bytes_ms"], bd_f["tf32_ops_ms"]),
                 fp32_bound_ms=max(bd["bytes_ms"], bd["fp32_ops_ms"]),
                 bmm_products_ms=bmm_ms, tile_products=real)
@@ -754,11 +814,20 @@ def time_semiring_launch(kernel, args, kw):
         return bsr_spgemm_ref(*tiles, *slots, nc=nc, semiring=sr,
                               seg_start=seg_start, seg_len=end - seg_start)
 
+    def previous():
+        kernel._launch("simt", *tiles, *slots, rs, out, bs=bs, semiring=sr)
+        return out
+
     check(bitwise(launch(), plain()),
           f"{sr.name} launch on {name} != plain version")
     ms, plain_ms = cuda_ms(launch, 5), cuda_ms(plain, 2)
+    extra = {}
+    if name != "simt":   # the earlier kernel, with its fill, same inputs
+        check(bitwise(previous(), plain()),
+              f"{sr.name} launch on simt != plain version")
+        extra["previous_ms"] = cuda_ms(previous, 5)
     moved, read = launch_bytes(slots[0], slots[1], rs, nc, bs)
-    if name == "tc":   # bool: booleanized operands, one TF32 pass a panel
+    if sr.name != "min_plus":   # bool: booleanized operands, one TF32 pass
         bd = bounds(moved, 2 * real * bs ** 3, tc_pass_panels(
             (tiles[0] != 0).float(), (tiles[1] != 0).float(),
             slots[0][first:end], slots[1][first:end], bs), bs)
@@ -770,8 +839,9 @@ def time_semiring_launch(kernel, args, kw):
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": max(t_ops, bd["bytes_ms"]),
             "bound_by": "operations" if t_ops >= bd["bytes_ms"] else "bytes",
-            "route": name, "tile_products": real, "output_tiles": nc,
-            "bytes": moved, "tiles_read": read, "bounds": bd}
+            "route": name, "bs": bs, "tile_products": real,
+            "output_tiles": nc, "bytes": moved, "tiles_read": read,
+            "bounds": bd, **extra}
 
 
 SEMIRING_CALLS = (("1d", dict(nparts=8, chunk=2)), ("2d", dict(grid=2)),
@@ -834,6 +904,101 @@ def phase_semirings(dev, sess, n=65536):
             emit(row)
         timings[srname]["launches"] = launches
     return timings
+
+
+def phase_default_bs(dev, case, ring_ms, n=65536):
+    """The session at its default bs (32; BC's 16): laplacian_2d(1024)^2
+    through the 1D ring with ``bs`` left out, chunk=None and chunk=2, cold
+    then hit, bitwise against scipy, the execute ms beside the bs-128
+    ring's (``ring_ms``); the same at bs 16, chunk=None; part 0's launch
+    timed at both; bool_or_and at bs 16 and min_plus at bs 32 on
+    banded_clustered(n, 64, 16.0) through the ring (chunk=2), bitwise
+    against the host oracle, each call's largest launch timed. Every launch
+    on the route ``kernel.route`` names for the bs; counts are read per
+    call, reset just before."""
+    from repro_torch.core import PLUS_TIMES, banded_clustered, by_name
+    from repro_torch.core.local_spgemm import spgemm
+    from repro_torch.core.session import SpGEMMSession
+    from repro_torch.kernels.bsr_spgemm import kernel
+
+    a, ref_c = case["a"], case["ref"]
+    sess = SpGEMMSession(device=dev)
+    launches, timings, ring = 0, {}, []
+
+    def call(x, bs_kw, sr, **kw):
+        """One session call, every launch on the bs's route."""
+        bs = bs_kw.get("bs", 32)
+        want = kernel.route(sr, bs)
+        check(want == "warp", f"{sr.name} at bs {bs} is routed to {want}")
+        kernel.reset_launches()
+        c, wall = session_call(sess, kernel, x, x, algorithm="1d", nparts=8,
+                               semiring=sr, **bs_kw, **kw)
+        routes = dict(kernel.bsr_spgemm.route_launches)
+        check(routes[want] > 0 and sum(routes.values()) == routes[want],
+              f"{sr.name} at bs {bs} ran off the {want} route: {routes}")
+        check(sess.last_call["algorithm"] == "1d"
+              and not sess.last_call["degraded"],
+              f"{sr.name} at bs {bs} was served by another rung")
+        return c, wall, routes
+
+    for bs_kw, chunks in (({}, (None, 2)), ({"bs": 16}, (None,))):
+        for chunk in chunks:
+            walls = {}
+            for label in ("cold", "hit"):
+                c, walls[label], routes = call(a, bs_kw, PLUS_TIMES,
+                                               chunk=chunk)
+                check(sess.last_call["cache_hit"] == (label == "hit"),
+                      f"default bs chunk={chunk} {label}: cache_hit "
+                      f"{sess.last_call['cache_hit']}")
+                same_csc(c, ref_c, f"bs {bs_kw or 'default'} chunk={chunk} "
+                         f"{label}")
+                launches += routes[kernel.route(PLUS_TIMES,
+                                                bs_kw.get("bs", 32))]
+            entry = next(reversed(sess._cache.values()))
+            plan = entry.plan
+            ms = cuda_ms(lambda: entry.fn(*entry.args), 3)
+            row = {"phase": "default_bs", "matrix":
+                   f"laplacian_2d({case['side']})", "bs": plan.bs,
+                   "bs_argument": bs_kw.get("bs", "default"), "chunk": chunk,
+                   "nparts": 8, "route": kernel.route(PLUS_TIMES, plan.bs),
+                   "route_launches": routes, "execute_ms": ms,
+                   "bs128_execute_ms": ring_ms.get(chunk), "wall_s": walls,
+                   "plan_seconds": plan.stats["plan_seconds"],
+                   "tile_products": plan.stats["nprod_total"],
+                   "nc_max": plan.nc_max}
+            ring.append(row)
+            emit(row)
+            if chunk is None:
+                timings[plan.bs] = measure_kernel(dev, plan, entry.args)
+            del entry, plan
+        sess.clear()
+        torch.cuda.empty_cache()
+
+    g = banded_clustered(n, 64, 16.0, seed=0)
+    g.data[:] = np.rint(2 * g.data)
+    g.data[g.data == 0] = 1.0
+    g = g.astype(np.float32)
+    semirings = {}
+    for srname, bs in (("bool_or_and", 16), ("min_plus", 32)):
+        sr = by_name(srname)
+        c, wall, routes = call(g, {"bs": bs}, sr, chunk=2)
+        same_csc(c, spgemm(g, g, sr), f"{srname} bs {bs}")
+        entry = next(reversed(sess._cache.values()))
+        t = time_semiring_launch(kernel, *largest_launch(
+            kernel, lambda: entry.fn(*entry.args)))
+        t["launches"] = routes[t["route"]]
+        launches += t["launches"]
+        semirings[srname] = t
+        emit({"phase": "default_bs_semiring", "semiring": srname,
+              "matrix": f"banded_clustered({n}, 64, 16.0, seed=0)",
+              "bs": bs, "chunk": 2, "nparts": 8, "wall_s": wall,
+              "execute_ms": cuda_ms(lambda: entry.fn(*entry.args), 3),
+              "route_launches": routes, "largest_launch": t})
+        del entry
+        sess.clear()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, timings=timings, semirings=semirings,
+                ring=ring)
 
 
 def phase_summa(dev, case, ring):
@@ -1644,11 +1809,15 @@ def main():
         infos = phase_build()
         grid_err = phase_kernel(dev)
         case = laplacian_case()
-        sess, plan, args, launches, ring = phase_main_path(dev, case)
+        sess, plan, args, launches, ring, ring_ms = phase_main_path(dev,
+                                                                    case)
         timing = measure_kernel(dev, plan, args)
+        check(timing["route"] == "tc", "the bs-128 main path is off the tc "
+              "route")
         semirings = phase_semirings(dev, sess)
         del sess, plan, args      # the SpGEMM session's cached entries
         torch.cuda.empty_cache()
+        default = phase_default_bs(dev, case, ring_ms)
         summa_launches = phase_summa(dev, case, ring)
         del case
         phase_build_lm(infos)
@@ -1692,7 +1861,29 @@ def main():
              "shapes": [{k: t[k] for k in moe_keys} for t in timings]},
             source=moe_src + source)
 
+    warp = dict(default["timings"][32], library_ms=None,
+                max_abs_err=max(grid_err["warp"],
+                                *(t["err"] for t in
+                                  default["timings"].values())))
     emit({"kernels": [
+        kernel_row("bsr_spgemm_warp", bsr_pallas, default["launches"], warp,
+                   {"kernel_route": "warp", "launches_on":
+                    "the session at its default bs: laplacian_2d(1024) "
+                    "through the 1D ring at bs 32 (chunk None and 2) and 16 "
+                    "(chunk None), cold and hit each; bool_or_and at bs 16 "
+                    "and min_plus at bs 32 on banded_clustered (chunk 2)",
+                    "bs": 32, "previous_ms": warp["previous_ms"],
+                    "previous_fill_ms": warp["previous_fill_ms"],
+                    "float_ms": warp["float_ms"],
+                    "float_bound_ms": warp["float_bound_ms"],
+                    "fp32_bound_ms": warp["fp32_bound_ms"],
+                    "bmm_products_ms": warp["bmm_products_ms"],
+                    "bs16": {k: default["timings"][16][k] for k in
+                             ("ms", "float_ms", "previous_ms", "plain_ms",
+                              "bound_ms", "bound_by", "bmm_products_ms")},
+                    "bool_bs16": default["semirings"]["bool_or_and"],
+                    "min_plus_bs32": default["semirings"]["min_plus"]},
+                   source=bsr_src + "bsr_spgemm_warp.cu"),
         kernel_row("bsr_spgemm_tc", bsr_pallas, launches + summa_launches,
                    timing,
                    {"kernel_route": "tc", "launches_on":
@@ -1709,7 +1900,8 @@ def main():
                     "bool_bs64": semirings["bool_or_and"]},
                    source=bsr_src + "bsr_spgemm_tc.cu"),
         kernel_row("bsr_spgemm_simt", bsr_pallas, simt["launches"], simt,
-                   {"kernel_route": "simt", "launches_on":
+                   {"kernel_route": "simt", "serves": "min_plus at bs 64 "
+                    "and 128", "launches_on":
                     "the min-plus path (banded_clustered, bs 64): 1D "
                     "(chunk 2), 2D and 3D",
                     "main_path_ms": timing["previous_ms"]},

@@ -1,8 +1,9 @@
 // Scheduled block-sparse semiring tile product for Hopper (sm_90a), on the
 // CUDA cores: the "simt" route of bsr_spgemm. The wrapper (kernel.py::route)
-// sends min_plus at every bs, and every semiring at bs 16 and 32, here;
-// plus_times and bool_or_and at bs 64 and 128 run on the tensor cores
-// (bsr_spgemm_tc.cu). This kernel instantiates every semiring at every bs.
+// sends min_plus at bs 64 and 128 here; plus_times and bool_or_and at bs 64
+// and 128 run on the tensor cores (bsr_spgemm_tc.cu), every semiring at bs
+// 16 and 32 on bsr_spgemm_warp.cu. This kernel instantiates every semiring
+// at every bs (the earlier kernel, timed beside the others).
 //
 // Replaces src/repro/kernels/bsr_spgemm/kernel.py::bsr_spgemm_pallas.
 // For every product s of the schedule window,
@@ -26,7 +27,8 @@
 // Bound: at bs=128 every product is 2*128^3 = 4.2 MFLOP against at most
 // 3 * 64 KiB of tile traffic, so the kernel is compute-bound on fp32 FMAs on
 // the CUDA cores (plus-times and bool use fp32 FMA / compare, min-plus the
-// same sequential-k fminf(acc, a + b) as the reference's rank-1 combine; no
+// same sequential-k min(acc, a + b) as the reference's rank-1 combine, in
+// the NaN-propagating min of jnp.minimum and torch.minimum; no
 // tensor cores and no TF32, so integer-valued inputs stay exact). The design
 // answers that bound only with register blocking: each shared-memory value a
 // thread reads feeds TM fused operations.
@@ -35,6 +37,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "tile_rules.cuh"
 
 namespace {
 
@@ -58,7 +62,7 @@ struct BoolOrAnd {
 struct MinPlus {
   static __device__ __forceinline__ float zero() { return INFINITY; }
   static __device__ __forceinline__ float combine(float acc, float a, float b) {
-    return fminf(acc, a + b);
+    return min_nan(acc, a + b);
   }
 };
 

@@ -88,6 +88,7 @@
 #include <stdint.h>
 
 #include "../../hopper.cuh"
+#include "tile_rules.cuh"
 
 namespace {
 
@@ -151,19 +152,6 @@ __device__ __forceinline__ bool first_panel(Cursor& c, const int* run_starts,
   return advance<KP>(c, run_starts, nruns);
 }
 
-// x = hi + lo (exactly for |x| < 2^22 integers), both tf32. A non-finite x
-// keeps x in hi (a NaN as the quiet NaN, whose payload survives the tensor
-// core's 19-bit read) and 0 in lo.
-__device__ __forceinline__ void split(float x, float& hi, float& lo) {
-  if (isfinite(x)) {
-    hi = tf32_rna(x);
-    lo = tf32_rna(x - hi);
-  } else {
-    hi = x != x ? __uint_as_float(0x7FC00000u) : x;
-    lo = 0.0f;
-  }
-}
-
 __device__ __forceinline__ float4 booleanize(float4 v) {
   return make_float4(v.x != 0.0f ? 1.0f : 0.0f, v.y != 0.0f ? 1.0f : 0.0f,
                      v.z != 0.0f ? 1.0f : 0.0f, v.w != 0.0f ? 1.0f : 0.0f);
@@ -174,24 +162,11 @@ __device__ __forceinline__ uint32_t bits_of(float4 v) {
          | __float_as_uint(v.w);
 }
 
-// The larger of a and b, or NaN where either is one (max.NaN).
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
 // m and the four magnitudes, as their largest, NaN if any is NaN: one
 // instruction an element (the absolute value is an operand modifier).
 __device__ __forceinline__ float mag_of(float m, float4 v) {
   return max_nan(max_nan(m, max_nan(fabsf(v.x), fabsf(v.y))),
                  max_nan(fabsf(v.z), fabsf(v.w)));
-}
-
-// A magnitude the split cannot carry: NaN, infinity or >= 2^127 (an
-// exponent of 0xFE or 0xFF).
-__device__ __forceinline__ bool wide(float mag) {
-  return !(mag < __uint_as_float(0x7F000000u));
 }
 
 __device__ __forceinline__ void split4(float4 v, float4& h, float4& l) {
@@ -266,7 +241,8 @@ __device__ __forceinline__ uint32_t stage_copy(uint8_t* raw, uint8_t* ops,
       mag = mag_of(mag, v);
     }
   }
-  return ((a_bits & 0x1FFFu) ? 1u : 0u) | ((b_bits & 0x1FFFu) ? 2u : 0u)
+  return ((a_bits & kTf32LowBits) ? 1u : 0u)
+         | ((b_bits & kTf32LowBits) ? 2u : 0u)
          | (wide(mag) ? 4u : 0u);
 }
 

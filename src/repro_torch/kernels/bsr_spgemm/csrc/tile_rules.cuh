@@ -1,0 +1,56 @@
+// Rules shared by the bsr_spgemm kernels (bsr_spgemm.cu, bsr_spgemm_tc.cu,
+// bsr_spgemm_warp.cu): the exact TF32 split of a float32 operand, the test
+// for elements it cannot carry, and the NaN-propagating min and max.
+//
+// Included by relative path; cuda_lib.library_path hashes it into every
+// library that includes it.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "../../hopper.cuh"
+
+namespace {
+
+// The 13 mantissa bits a tf32 read drops: a word with any of them set is not
+// TF32-exact and needs a lo part.
+constexpr uint32_t kTf32LowBits = 0x1FFFu;
+
+// x = hi + lo (exactly for |x| < 2^22 integers), both tf32. A non-finite x
+// keeps x in hi (a NaN as the quiet NaN, whose payload survives the tensor
+// core's 19-bit read) and 0 in lo.
+__device__ __forceinline__ void split(float x, float& hi, float& lo) {
+  if (isfinite(x)) {
+    hi = tf32_rna(x);
+    lo = tf32_rna(x - hi);
+  } else {
+    hi = x != x ? __uint_as_float(0x7FC00000u) : x;
+    lo = 0.0f;
+  }
+}
+
+// The larger of a and b, or NaN where either is one (max.NaN).
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// The smaller of a and b, or NaN where either is one (min.NaN), as
+// torch.minimum and jnp.minimum give it; fminf would drop the NaN.
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// A magnitude the split cannot carry: NaN, infinity or >= 2^127 (an
+// exponent of 0xFE or 0xFF). Fold magnitudes with max_nan first, so one NaN
+// marks the whole panel.
+__device__ __forceinline__ bool wide(float mag) {
+  return !(mag < __uint_as_float(0x7F000000u));
+}
+
+}  // namespace

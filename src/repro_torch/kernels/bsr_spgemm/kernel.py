@@ -1,32 +1,39 @@
 """Hopper CUDA kernels: scheduled block-sparse semiring product.
 
-Replaces ``src/repro/kernels/bsr_spgemm/kernel.py::bsr_spgemm_pallas``. Two
+Replaces ``src/repro/kernels/bsr_spgemm/kernel.py::bsr_spgemm_pallas``. Three
 routes, chosen by :func:`route` from the semiring and bs alone:
 
+* ``"warp"`` — every semiring at bs 16 and 32 (the session's default bs
+  and every app's), ``csrc/bsr_spgemm_warp.cu``: one warp per run of
+  products that share an output tile, persistent warps striding over the
+  runs, a ``cp.async`` ring per warp kept full across run boundaries.
+  plus_times and bool_or_and run ``mma.sync`` m16n8k8 (tf32 in, fp32
+  accumulate) in the ``"tc"`` route's exact arithmetic below; min_plus
+  runs on the CUDA cores in a NaN-propagating min, two warps a run at bs
+  32. The kernel writes the identity into every output slot no run
+  writes.
 * ``"tc"`` — plus_times and bool_or_and at bs 64 and 128,
-  ``csrc/bsr_spgemm_tc.cu``: persistent CTAs walk the runs of products
-  that share an output tile; a producer keeps a TMA ring of 32-deep
-  k-panels full across run boundaries, and the consumer warpgroups stage
-  each panel (B transposed on the way), split an operand that is not
-  TF32-exact into TF32 hi and lo parts, and run ``wgmma`` (tf32 in, fp32
-  accumulate) on hi.hi plus whichever lo passes the panel needs.
-  Integer-valued tiles (exact up to 2048) run one pass and stay bitwise
-  equal to the plain version; general floats run up to four
-  (``ref.bsr_spgemm_tc_model`` is its arithmetic on the CPU). A k-panel
-  holding an infinity, a NaN or an ``|x| >= 2**127``, which the split
-  cannot carry, is summed unsplit on the CUDA cores in fp32, so those
-  propagate as in the plain version. The kernel also writes the identity
-  into every output slot no run writes.
-* ``"simt"`` — min_plus at every bs, and every semiring at bs 16 and 32,
-  ``csrc/bsr_spgemm.cu``: one CTA per run, fp32 on the CUDA cores. Min-plus
-  has no tensor-core form, and wgmma's 64-row tiles do not fit bs 16/32.
-  The wrapper fills the output with the identity before it launches.
+  ``csrc/bsr_spgemm_tc.cu``: persistent CTAs walk the runs; a producer
+  keeps a TMA ring of 32-deep k-panels full across run boundaries, and the
+  consumer warpgroups stage each panel (B transposed on the way), split an
+  operand that is not TF32-exact into TF32 hi and lo parts, and run
+  ``wgmma`` (tf32 in, fp32 accumulate) on hi.hi plus whichever lo passes
+  the panel needs. Integer-valued tiles (exact up to 2048) run one pass
+  and stay bitwise equal to the plain version; general floats run up to
+  four (``ref.bsr_spgemm_tc_model`` is this arithmetic on the CPU, for
+  both tensor-core routes). A k-panel holding an infinity, a NaN or an
+  ``|x| >= 2**127``, which the split cannot carry, is summed unsplit on
+  the CUDA cores in fp32, so those propagate as in the plain version. The
+  kernel also writes the identity into every output slot no run writes.
+* ``"simt"`` — min_plus at bs 64 and 128, ``csrc/bsr_spgemm.cu``: one CTA
+  per run, fp32 on the CUDA cores (min-plus has no tensor-core form). The
+  wrapper fills the output with the identity before it launches.
 
-Build and binding: ``..cuda_lib`` compiles both sources for ``sm_90a`` at
-first use, one ``nvcc`` each, and ``ctypes`` loads them. The tensor-core
-library encodes its TMA tensor maps per launch with the CUDA driver API's
-``cuTensorMapEncodeTiled``, reached through ``cudaGetDriverEntryPoint``.
-Nothing is compiled or loaded at import.
+Build and binding: ``..cuda_lib`` compiles the three sources for
+``sm_90a`` at first use, one ``nvcc`` each, and ``ctypes`` loads them. The
+``"tc"`` library encodes its TMA tensor maps per launch with the CUDA
+driver API's ``cuTensorMapEncodeTiled``, reached through
+``cudaGetDriverEntryPoint``. Nothing is compiled or loaded at import.
 
 :func:`bsr_spgemm` is the wrapper. A tensor on the CPU goes to the plain
 version (``ref.bsr_spgemm_ref``) because it lies on the CPU; a CUDA tensor
@@ -50,25 +57,27 @@ from ..cuda_lib import check_tensor, compile_sources
 from .ref import bsr_spgemm_ref
 
 __all__ = ["bsr_spgemm", "run_starts_from_flags", "check_launch_args",
-           "build", "route", "reset_launches", "tc_smem_bytes", "KERNEL_BS",
-           "TC_BS", "TC_SEMIRINGS", "ROUTES", "SOURCE", "TC_SOURCE",
-           "SOURCES"]
+           "build", "route", "reset_launches", "smem_bytes", "KERNEL_BS",
+           "TC_BS", "TC_SEMIRINGS", "WARP_BS", "ROUTES", "SOURCE",
+           "TC_SOURCE", "WARP_SOURCE", "SOURCES"]
 
 KERNEL_BS = (16, 32, 64, 128)
 TC_BS = (64, 128)
 TC_SEMIRINGS = ("plus_times", "bool_or_and")
-ROUTES = ("tc", "simt")
+WARP_BS = (16, 32)
+ROUTES = ("tc", "warp", "simt")
 SOURCE = Path(__file__).resolve().parent / "csrc" / "bsr_spgemm.cu"
 TC_SOURCE = SOURCE.with_name("bsr_spgemm_tc.cu")
-SOURCES = (SOURCE, TC_SOURCE)
+WARP_SOURCE = SOURCE.with_name("bsr_spgemm_warp.cu")
+SOURCES = (SOURCE, TC_SOURCE, WARP_SOURCE)
 _SEMIRING_CODE = {"plus_times": 0, "bool_or_and": 1, "min_plus": 2}
 
 _lib: Optional[Dict[str, ctypes.CDLL]] = None
 
 
 def build() -> dict:
-    """Compile (if not yet built) and load both kernel libraries; returns
-    ``{source: {"path", "seconds", "built", "log"}}`` as
+    """Compile (if not yet built) and load the three kernel libraries;
+    returns ``{source: {"path", "seconds", "built", "log"}}`` as
     ``cuda_lib.compile_sources`` does. A failing build raises
     ``RuntimeError`` with nvcc's output."""
     global _lib
@@ -87,24 +96,33 @@ def build() -> dict:
         tc.bsr_spgemm_tc_launch.restype = ctypes.c_int
         tc.bsr_spgemm_tc_smem_bytes.argtypes = [ctypes.c_int]
         tc.bsr_spgemm_tc_smem_bytes.restype = ctypes.c_int
-        _lib = {"simt": simt, "tc": tc}
+        warp = ctypes.CDLL(infos[WARP_SOURCE]["path"])
+        warp.bsr_spgemm_warp_launch.argtypes = (
+            [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
+            + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+        warp.bsr_spgemm_warp_launch.restype = ctypes.c_int
+        warp.bsr_spgemm_warp_smem_bytes.argtypes = [ctypes.c_int]
+        warp.bsr_spgemm_warp_smem_bytes.restype = ctypes.c_int
+        _lib = {"simt": simt, "tc": tc, "warp": warp}
     return infos
 
 
 def route(semiring: Semiring, bs: int) -> str:
     """The kernel a card runs for ``semiring`` at tile size ``bs``:
-    ``"tc"`` for plus_times and bool_or_and at bs in :data:`TC_BS`,
-    ``"simt"`` for every other (semiring, bs) the kernels take."""
-    return ("tc" if semiring.name in TC_SEMIRINGS and bs in TC_BS
-            else "simt")
+    ``"warp"`` for every semiring at bs in :data:`WARP_BS`, ``"tc"`` for
+    plus_times and bool_or_and at bs in :data:`TC_BS`, ``"simt"`` for
+    min_plus at bs in :data:`TC_BS`."""
+    if bs in WARP_BS:
+        return "warp"
+    return "tc" if semiring.name in TC_SEMIRINGS else "simt"
 
 
-def tc_smem_bytes(bs: int) -> int:
-    """Dynamic shared memory of one ``"tc"`` launch at ``bs`` (ptxas
-    reports only static shared memory)."""
+def smem_bytes(name: str, bs: int) -> int:
+    """Dynamic shared memory of one launch of route ``name`` (``"tc"`` or
+    ``"warp"``) at ``bs`` (ptxas reports only static shared memory)."""
     if _lib is None:
         build()
-    return _lib["tc"].bsr_spgemm_tc_smem_bytes(bs)
+    return getattr(_lib[name], f"bsr_spgemm_{name}_smem_bytes")(bs)
 
 
 def run_starts_from_flags(flags: np.ndarray, seg_start: int,
@@ -166,10 +184,11 @@ def _launch(name: str, a_tiles, b_tiles, a_slot, b_slot, c_slot,
             run_starts, out, *, bs: int, semiring: Semiring) -> bool:
     """One launch of route ``name``'s kernel over the runs in
     ``run_starts``, counted nowhere (timings call it directly); returns
-    whether a kernel was launched. The ``"tc"`` kernel writes every slot
-    of ``out`` itself, also for a window with no run (only pad products).
-    The ``"simt"`` route gets the identity fill of ``out`` first, and
-    launches nothing for such a window. Raises on a refused launch."""
+    whether a kernel was launched. The ``"tc"`` and ``"warp"`` kernels
+    write every slot of ``out`` themselves, also for a window with no run
+    (only pad products). The ``"simt"`` route gets the identity fill of
+    ``out`` first, and launches nothing for such a window. Raises on a
+    refused launch."""
     nruns = run_starts.shape[0] - 1
     if name == "simt":
         out.fill_(semiring.zero)
@@ -185,6 +204,12 @@ def _launch(name: str, a_tiles, b_tiles, a_slot, b_slot, c_slot,
             b_tiles.data_ptr(), b_tiles.shape[0], a_slot.data_ptr(),
             b_slot.data_ptr(), c_slot.data_ptr(), run_starts.data_ptr(),
             nruns, out.data_ptr(), out.shape[0], stream)
+    elif name == "warp":
+        err = _lib["warp"].bsr_spgemm_warp_launch(
+            code, bs, a_tiles.data_ptr(), b_tiles.data_ptr(),
+            a_slot.data_ptr(), b_slot.data_ptr(), c_slot.data_ptr(),
+            run_starts.data_ptr(), nruns, out.data_ptr(), out.shape[0],
+            stream)
     else:
         err = _lib["simt"].bsr_spgemm_launch(
             code, bs, a_tiles.data_ptr(), b_tiles.data_ptr(),
@@ -212,9 +237,9 @@ def bsr_spgemm(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
         on the same device (the plain version does not read it)
     out : optional ``(nc, bs, bs)`` float32 destination
 
-    Slots no product visits hold ``semiring.zero`` (the ``"tc"`` kernel
-    writes them, the others are filled first). ``nprod == 0`` returns a
-    ``(max(nc, 1), bs, bs)`` identity fill.
+    Slots no product visits hold ``semiring.zero`` (the ``"tc"`` and
+    ``"warp"`` kernels write them; ``"simt"``'s are filled first).
+    ``nprod == 0`` returns a ``(max(nc, 1), bs, bs)`` identity fill.
     """
     if nprod == 0 or not a_tiles.is_cuda:
         if out is None:

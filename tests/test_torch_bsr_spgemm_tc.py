@@ -1,6 +1,8 @@
-"""The tensor-core route of the port's bsr_spgemm, rehearsed on the CPU.
+"""The tensor-core routes of the port's bsr_spgemm, rehearsed on the CPU.
 
-The card's ``csrc/bsr_spgemm_tc.cu`` cannot run here; its arithmetic can.
+The card's ``csrc/bsr_spgemm_tc.cu`` (bs 64/128) and
+``csrc/bsr_spgemm_warp.cu`` (bs 16/32) cannot run here; their arithmetic,
+which is one, can.
 ``ref.tf32_split`` is the kernel's ``cvt.rna.tf32.f32`` split in bit
 operations, and ``ref.bsr_spgemm_tc_model`` its per-k-panel sum of hi·hi,
 hi·lo, lo·hi and lo·lo (lo passes skipped where lo is all zero; a panel
@@ -76,11 +78,14 @@ def _compare(got, want, exact):
 @pytest.mark.parametrize("srname", ["plus_times", "bool_or_and",
                                     "min_plus"])
 def test_route_table(srname, bs):
-    """The route depends on (semiring, bs) alone: the tensor cores take
-    plus-times and bool at bs 64/128, the CUDA cores everything else."""
-    want = "tc" if srname in TC_SEMIRINGS and bs in (64, 128) else "simt"
+    """The route depends on (semiring, bs) alone: every semiring at bs
+    16/32 on the warp-per-run kernel, plus-times and bool at bs 64/128 on
+    the warpgroup tensor-core kernel, min-plus at bs 64/128 on the CUDA-core
+    kernel."""
+    want = ("warp" if bs in (16, 32) else
+            "tc" if srname in TC_SEMIRINGS else "simt")
     assert tkernel.route(tsr.by_name(srname), bs) == want
-    assert tkernel.ROUTES == ("tc", "simt")
+    assert tkernel.ROUTES == ("tc", "warp", "simt")
 
 
 def test_tf32_split_is_exact_on_integers_below_2_22():
@@ -123,13 +128,14 @@ def test_tf32_split_rounds_to_nearest_ties_away():
 
 @pytest.mark.parametrize("window", ["full", "offset"])
 @pytest.mark.parametrize("kind", ["int", "float"])
-@pytest.mark.parametrize("bs", [64, 128])
+@pytest.mark.parametrize("bs", [16, 32, 64, 128])
 @pytest.mark.parametrize("srname", TC_SEMIRINGS)
 def test_tc_model_matches_reference_paths(srname, bs, kind, window):
-    """The model of the card's arithmetic against the Pallas kernel and
-    the port's plain version, on windows whose runs leave gaps between
-    their output slots: visited slots agree (bitwise on integers and bool),
-    every other slot holds the identity."""
+    """The model of the card's arithmetic (the ``tc`` route at bs 64/128,
+    the ``warp`` route at bs 16/32, where a product is one k-panel) against
+    the Pallas kernel and the port's plain version, on windows whose runs
+    leave gaps between their output slots: visited slots agree (bitwise on
+    integers and bool), every other slot holds the identity."""
     rng = np.random.default_rng([bs, len(srname), len(kind), len(window)])
     a_slot, b_slot, c_slot, starts = _schedule(rng)
     a, b = _tiles(rng, NA, bs, kind), _tiles(rng, NB, bs, kind)
@@ -289,10 +295,98 @@ def test_integer_payloads_need_one_pass():
 
 
 def test_tc_source_hashes_the_shared_header():
+    """Every bsr_spgemm source takes the split, the NaN-propagating min and
+    the other rules from ``tile_rules.cuh``, which includes ``hopper.cuh``:
+    both are hashed into each library."""
     header = (tkernel.SOURCE.parents[3] / "kernels" / "hopper.cuh").resolve()
-    assert tkernel.SOURCES == (tkernel.SOURCE, tkernel.TC_SOURCE)
-    assert header in cuda_lib.local_headers(tkernel.TC_SOURCE)
-    assert cuda_lib.local_headers(tkernel.SOURCE) == []
+    rules = tkernel.SOURCE.with_name("tile_rules.cuh").resolve()
+    assert tkernel.SOURCES == (tkernel.SOURCE, tkernel.TC_SOURCE,
+                               tkernel.WARP_SOURCE)
+    for src in tkernel.SOURCES:
+        assert set(cuda_lib.local_headers(src)) == {header, rules}, src
+
+
+def test_warp_source_is_built_and_hashes_its_headers():
+    """The warp route's source is one of the sources ``build`` compiles,
+    and its library's name hashes the source, ``tile_rules.cuh``,
+    ``hopper.cuh`` (which the rules include) and the flags, so an edit to
+    either header builds it anew on a card."""
+    import hashlib
+
+    src = tkernel.WARP_SOURCE
+    assert src.exists() and src in tkernel.SOURCES
+    hopper = (src.parents[3] / "kernels" / "hopper.cuh").resolve()
+    rules = src.with_name("tile_rules.cuh").resolve()
+    assert cuda_lib.local_headers(src) == [rules, hopper]
+
+    def named(headers):
+        digest = hashlib.sha256(src.read_bytes())
+        for header in headers:
+            digest.update(header.read_bytes())
+        digest.update(" ".join(cuda_lib.NVCC_FLAGS).encode())
+        return f"bsr_spgemm_warp-{digest.hexdigest()[:16]}.so"
+
+    assert cuda_lib.library_path(src).name == named([rules, hopper])
+    assert named([rules]) != named([rules, hopper])
+
+
+@pytest.mark.parametrize("bs", [16, 32])
+@pytest.mark.parametrize("srname", ["plus_times", "bool_or_and",
+                                    "min_plus"])
+def test_cpu_wrapper_counts_no_warp_launch(srname, bs):
+    """At the warp route's bs a CPU tensor takes the plain version, because
+    it lies on the CPU: the result is ``bsr_spgemm_ref``'s, unvisited slots
+    hold the identity, and no route counts a launch."""
+    rng = np.random.default_rng([bs, len(srname)])
+    a_slot, b_slot, c_slot, _ = _schedule(rng)
+    ts = tsr.by_name(srname)
+    T = torch.from_numpy
+    a, b = T(_tiles(rng, NA, bs, "int")), T(_tiles(rng, NB, bs, "int"))
+    rs = T(tkernel.run_starts_from_flags(tbs.flags_from_c_slot(c_slot), 0,
+                                         len(c_slot)))
+    before = (tkernel.bsr_spgemm.launches,
+              dict(tkernel.bsr_spgemm.route_launches))
+    out = tkernel.bsr_spgemm(a, b, T(a_slot), T(b_slot), T(c_slot), rs,
+                             nprod=len(c_slot), nc=NC, bs=bs, semiring=ts)
+    assert tkernel.route(ts, bs) == "warp"
+    assert (tkernel.bsr_spgemm.launches,
+            tkernel.bsr_spgemm.route_launches) == before
+    want = bsr_spgemm_ref(a, b, T(a_slot), T(b_slot), T(c_slot), nc=NC,
+                          semiring=ts)
+    assert torch.equal(out, want)
+    unvisited = np.setdiff1d(np.arange(NC), c_slot)
+    assert bool((out[T(unvisited)] == ts.zero).all())
+
+
+@pytest.mark.parametrize("bs", [16, 32])
+def test_min_plus_any_product_order_matches_pallas(bs):
+    """The warp kernel sums a run's min-plus products in its own order, and
+    propagates a NaN as ``jnp.minimum`` does: the plain version over the
+    schedule with the products of every run reversed or shuffled is bitwise
+    equal (a NaN matching any NaN) to the Pallas kernel over the schedule
+    as planned, with infinities (the identity) and NaNs among integer
+    payloads."""
+    rng = np.random.default_rng([bs, 17])
+    lens = np.array([3, 1, 4, 2, 5, 1])
+    a_slot, b_slot, c_slot, starts = _schedule(rng, lens=lens)
+    a = _tiles(rng, NA, bs, "int")
+    b = _tiles(rng, NB, bs, "int")
+    for t in (a, b):
+        t[rng.random(t.shape) < 0.3] = np.inf
+    a = _plant(rng, a, [np.nan, 1.0])
+    want = _pallas(a, b, a_slot, b_slot, c_slot, "min_plus", NC, bs, 0,
+                   len(c_slot))
+    assert np.isnan(want).any() and np.isfinite(want).any()
+    T = torch.from_numpy
+    for order in ("reversed", "shuffled"):
+        perm = np.concatenate([
+            np.arange(s0, s1)[::-1] if order == "reversed" else
+            rng.permutation(np.arange(s0, s1))
+            for s0, s1 in zip(starts[:-1], starts[1:])])
+        got = bsr_spgemm_ref(T(a), T(b), T(a_slot[perm]), T(b_slot[perm]),
+                             T(c_slot[perm]), nc=NC,
+                             semiring=tsr.MIN_PLUS).numpy()
+        _same_or_nan(got[c_slot], want[c_slot])
 
 
 def test_cpu_wrapper_counts_no_route_launch():
