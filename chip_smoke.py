@@ -6,7 +6,7 @@
 Needs one CUDA device and ``nvcc``; imports only ``repro_torch``, torch,
 numpy and scipy. Phases (any failure exits non-zero and prints no result):
 
-  1. build     — compile the kernels' seven sources from the repo, one
+  1. build     — compile the kernels' eight sources from the repo, one
                  nvcc each, all started together; report the three
                  bsr_spgemm sources' ptxas lines and the ``tc`` and ``warp``
                  routes' dynamic shared memory
@@ -69,18 +69,24 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  decode seconds, and the planned / padded bytes of the 1D
                  ring, 2D SUMMA and Split-3D side by side
   6. build_lm  — load the flash_attention and moe_gemm libraries (for
-                 each, the fp32 CUDA-core source and the bf16 tensor-core
-                 one); ptxas's registers, spills and shared memory per
-                 kernel, and the tensor-core kernels' dynamic shared memory
-                 (flash_attention per padded head dim 64 / 128 / 192 / 256)
+                 flash_attention the CUDA-core source and the bf16 and
+                 split-TF32 tensor-core ones; for moe_gemm the fp32
+                 CUDA-core source and the bf16 tensor-core one); ptxas's
+                 registers, spills and shared memory per kernel, and the
+                 tensor-core kernels' dynamic shared memory (flash_attention
+                 bf16 per padded head dim 64 / 128 / 192 / 256; float32 per
+                 padded head dim 32 ... 256 with its query and key block,
+                 held against the host's ``fp32_config`` at every head dim
+                 the route takes)
   7. flash_attention_vs_plain — both routes against ``mha_ref`` on the
                  card, causal, window in {0, 64}, softcap in {0, 50}, Hq = 8
                  with Hkv in {8, 2}: bfloat16 on the tensor-core route at D
                  in {16, 64, 96, 128, 160, 256} and S in {77, 128, 129,
                  1000, 2048}, within atol 2e-2 + rtol 1e-2 (one bf16 ulp of
-                 the output), each launch repeated, bitwise; float32 on the
-                 CUDA-core route at D in {16, 64, 128, 160, 256} and S in
-                 {77, 128, 1000}, within atol 2e-5 + rtol 1e-4
+                 the output); float32 on the split-TF32 route at D in {16,
+                 64, 96, 128, 160, 192, 256} and S in {77, 128, 1000},
+                 within atol 2e-5 + rtol 1e-4; each launch repeated,
+                 bitwise
   8. serve_smoke — ``python -m repro_torch.launch.serve --arch
                  qwen2-moe-a2.7b --smoke`` on the card in a process of its
                  own (float32, head dim 16): must exit 0
@@ -112,7 +118,10 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  CUDA-core kernel on the same bf16 inputs (``previous_ms``;
                  grouped GEMMs as device time from torch.profiler); the
                  attention inputs cast to float32 time the fp32 route
-                 beside SDPA in float32. A torch.profiler window over a
+                 beside SDPA in float32 and the CUDA-core kernel in float32
+                 (``previous_ms``), its bound counted as three TF32 passes
+                 at the tensor-core peak, the fp32 CUDA-core bound beside
+                 it. A torch.profiler window over a
                  prefill-only and a 5-token generate splits device time by
                  kernel. A 512-token bf16 prefill through the plain versions
                  is compared with the kernels' logits (reported), and the
@@ -1086,18 +1095,30 @@ def phase_summa(dev, case, ring):
     return launches
 
 
-def timing_entry(ms, plain_ms, library_ms, flop, moved, dtype, err):
+def timing_entry(ms, plain_ms, library_ms, flop, moved, dtype, err,
+                 tf32_passes=0):
     """A kernel's timing beside its bound: max(flop / peak, bytes / HBM),
-    with the bf16 tensor-core peak for bf16 work and the fp32 peak else."""
-    variant, (fp32, hbm, bf16, _) = peaks(torch.cuda.get_device_name(0))
+    with the bf16 tensor-core peak for bf16 work and the fp32 peak else;
+    for float32 work done as ``tf32_passes`` TF32 passes, that many times
+    the flop at the TF32 tensor-core peak, with the fp32 bound beside it
+    (``fp32_bound_ms``)."""
+    variant, (fp32, hbm, bf16, tf32) = peaks(torch.cuda.get_device_name(0))
     peak = bf16 if dtype == torch.bfloat16 else fp32
-    t_ops, t_bytes = flop / peak * 1e3, moved / hbm * 1e3
+    t_bytes = moved / hbm * 1e3
+    extra = {}
+    if tf32_passes:
+        extra = {"tf32_passes": tf32_passes,
+                 "fp32_bound_ms": max(flop / fp32 * 1e3, t_bytes)}
+        peak, flop_done = tf32, flop * tf32_passes
+    else:
+        flop_done = flop
+    t_ops = flop_done / peak * 1e3
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flop": flop, "bytes": moved, "max_abs_err": err,
             "tflops": flop / ms / 1e9, "peak_variant": variant,
-            "peak_flops": peak, "hbm_bytes_per_s": hbm}
+            "peak_flops": peak, "hbm_bytes_per_s": hbm, **extra}
 
 
 def nbytes(*ts):
@@ -1117,6 +1138,18 @@ def phase_build_lm(infos):
                 extra["dynamic_smem_bytes"] = {
                     f"d_pad{d}": fa.tc_smem_bytes(d)
                     for d in (64, 128, 192, 256)}
+            if src == fa.TF32_SOURCE:
+                per_dp = {}
+                for d in range(8, fa.MAX_D + 1, 8):
+                    got = fa.fp32_kernel_config(d)
+                    want = fa.fp32_config(d)
+                    check(all(got[k] == want[k] for k in want),
+                          f"the fp32 kernel blocks head dim {d} as {got}, "
+                          f"the host expects {want}")
+                    per_dp[f"d_pad{got['dp']}"] = got
+                extra["blocking"] = per_dp
+                extra["dynamic_smem_bytes"] = {
+                    k: v["smem_bytes"] for k, v in per_dp.items()}
             if src == mg.TC_SOURCE:
                 extra["dynamic_smem_bytes"] = {
                     "prefill": mg.tc_smem_bytes("prefill", 2048),
@@ -1163,7 +1196,8 @@ MOE_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
 
 FLASH_GRID = {torch.bfloat16: ((16, 64, 96, 128, 160, 256),
                                 (77, 128, 129, 1000, 2048)),
-              torch.float32: ((16, 64, 128, 160, 256), (77, 128, 1000))}
+              torch.float32: ((16, 64, 96, 128, 160, 192, 256),
+                              (77, 128, 1000))}
 
 
 def phase_flash_grid(dev):
@@ -1197,10 +1231,9 @@ def phase_flash_grid(dev):
                             ok, err = within(got, want, *TOL[dtype])
                             check(ok, f"flash_attention != plain version: "
                                       f"{label} (max abs err {err})")
-                            if dtype == torch.bfloat16:
-                                check(bitwise(flash_attention(q, k, v, **kw),
-                                              got),
-                                      f"a repeated launch differs: {label}")
+                            check(bitwise(flash_attention(q, k, v, **kw),
+                                          got),
+                                  f"a repeated launch differs: {label}")
                             name = route(dtype, d)
                             by_route[name] = by_route.get(name, 0) + 1
                             errs[key] = max(errs[key], err)
@@ -1209,7 +1242,7 @@ def phase_flash_grid(dev):
           "cases_by_route": by_route, "max_abs_err": errs,
           "tolerance": {"float32": TOL[torch.float32],
                         "bfloat16": TOL[torch.bfloat16],
-                        "repeat_bf16": "bitwise"},
+                        "repeat": "bitwise"},
           "grid": {str(k).split(".")[-1]: {"D": v[0], "S": v[1]}
                    for k, v in FLASH_GRID.items()}})
     return errs
@@ -1366,11 +1399,11 @@ class Capture:
 
 def time_flash(dev, captured):
     """The route's kernel, the plain version and SDPA on the captured
-    prefill attention, as CUDA events around back-to-back launches; for
-    bf16 also the earlier CUDA-core kernel on the same inputs
-    (``previous_ms``) and the host time of one wrapper call (argument
-    checks, output allocation, three tensor-map encodes, launch) and of the
-    C launch function alone."""
+    prefill attention, as CUDA events around back-to-back launches; also
+    the earlier CUDA-core kernel on the same inputs (``previous_ms``) and
+    the host time of one wrapper call (argument checks, output allocation,
+    three tensor-map encodes, launch) and of the C launch function alone.
+    The float32 route's bound counts its three TF32 passes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import (
@@ -1394,23 +1427,22 @@ def time_flash(dev, captured):
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, is_causal=True, scale=scale), 10)
         del qh, kh, vh
-    extra = {}
-    if name == "tc":
-        extra["previous_ms"] = cuda_ms(
-            lambda: _launch_cuda_core(q, k, v, **kw), 3)
-        extra["host_us_per_call"] = host_call_us(
-            lambda: flash_attention(q, k, v, **kw))
-        out = torch.empty_like(q)
-        extra["launch_us_per_call"] = host_call_us(
-            lambda: _launch(name, q, k, v, out, scale, causal, window,
-                            softcap))
+    extra = {"previous_ms": cuda_ms(
+        lambda: _launch_cuda_core(q, k, v, **kw), 3)}
+    extra["host_us_per_call"] = host_call_us(
+        lambda: flash_attention(q, k, v, **kw))
+    out = torch.empty_like(q)
+    extra["launch_us_per_call"] = host_call_us(
+        lambda: _launch(name, q, k, v, out, scale, causal, window, softcap))
+    del out
     b, s, hq, d = q.shape
     rows = torch.arange(s, device=dev)
     lo = (rows - window + 1).clamp(min=0) if window > 0 else 0 * rows
     pairs = b * int((rows - lo + 1).sum())         # unmasked (row, key)
     flop = 4 * d * hq * pairs                      # q.k and p.v
     entry = timing_entry(ms, plain_ms, library_ms, flop,
-                         nbytes(q, k, v) + nbytes(q), q.dtype, err)
+                         nbytes(q, k, v) + nbytes(q), q.dtype, err,
+                         tf32_passes=3 if name == "fp32" else 0)
     return {"shape": {"q": list(q.shape), "k": list(k.shape),
                       "dtype": str(q.dtype), "route": name, "window": window,
                       "softcap": softcap}, **entry, **extra}
@@ -1913,8 +1945,16 @@ def main():
                            "launch_us_per_call": flash["launch_us_per_call"]},
                    source=fa_src + "flash_attention_tc.cu"),
         kernel_row("flash_attention_fp32", fa_pallas, attn_routes["fp32"],
-                   flash_fp32, {"shape": flash_fp32["shape"]},
-                   source=fa_src + "flash_attention.cu"),
+                   flash_fp32,
+                   {"shape": flash_fp32["shape"],
+                    "previous_ms": flash_fp32["previous_ms"],
+                    "previous_source": fa_src + "flash_attention.cu",
+                    "tf32_passes": flash_fp32["tf32_passes"],
+                    "fp32_bound_ms": flash_fp32["fp32_bound_ms"],
+                    "host_us_per_call": flash_fp32["host_us_per_call"],
+                    "launch_us_per_call":
+                        flash_fp32["launch_us_per_call"]},
+                   source=fa_src + "flash_attention_tf32.cu"),
         moe_row("prefill", gemms[:2], moe_grid_err["bfloat16"],
                 "moe_gemm_tc.cu"),
         moe_row("decode", gemms[2:], moe_grid_err["bfloat16"],

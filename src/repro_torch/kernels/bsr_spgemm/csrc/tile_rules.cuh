@@ -1,6 +1,6 @@
 // Rules shared by the bsr_spgemm kernels (bsr_spgemm.cu, bsr_spgemm_tc.cu,
-// bsr_spgemm_warp.cu): the exact TF32 split of a float32 operand, the test
-// for elements it cannot carry, and the NaN-propagating min and max.
+// bsr_spgemm_warp.cu): the test for elements the TF32 split (hopper.cuh's
+// split) cannot carry, and the NaN-propagating min and max.
 //
 // Included by relative path; cuda_lib.library_path hashes it into every
 // library that includes it.
@@ -17,19 +17,6 @@ namespace {
 // The 13 mantissa bits a tf32 read drops: a word with any of them set is not
 // TF32-exact and needs a lo part.
 constexpr uint32_t kTf32LowBits = 0x1FFFu;
-
-// x = hi + lo (exactly for |x| < 2^22 integers), both tf32. A non-finite x
-// keeps x in hi (a NaN as the quiet NaN, whose payload survives the tensor
-// core's 19-bit read) and 0 in lo.
-__device__ __forceinline__ void split(float x, float& hi, float& lo) {
-  if (isfinite(x)) {
-    hi = tf32_rna(x);
-    lo = tf32_rna(x - hi);
-  } else {
-    hi = x != x ? __uint_as_float(0x7FC00000u) : x;
-    lo = 0.0f;
-  }
-}
 
 // The larger of a and b, or NaN where either is one (max.NaN).
 __device__ __forceinline__ float max_nan(float a, float b) {

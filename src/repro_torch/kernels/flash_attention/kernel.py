@@ -10,20 +10,28 @@ Two routes, chosen by :func:`route` from the dtype and the head dim:
   operands in shared memory) and for PV (P rounded to bf16 in registers),
   with the online softmax in fp32 registers. The head dim is processed at
   D rounded up to 64: TMA zero-fills the columns past D.
-* ``"fp32"`` — float32, the same head dims, ``csrc/flash_attention.cu``:
-  fp32 FMAs on the CUDA cores, 64-row query blocks over 64-key blocks, at
-  D rounded up to 64 (columns past D load as zeros and are not stored).
-  It stays full fp32 (no TF32), for the float32 checks' tolerances.
+* ``"fp32"`` — float32, the same head dims, ``csrc/flash_attention_tf32.cu``:
+  the same producer / consumer design on split-TF32 ``wgmma`` at float32
+  accuracy: q, k, v and p are split into TF32 hi and lo and each product
+  sums lo·hi + hi·lo + hi·hi in fp32 (``ref.attention_tf32_model`` is its
+  arithmetic on the CPU). V is transposed and split into a K-major Vᵀ in
+  shared memory, since TF32 ``wgmma`` has no transpose bit. The head dim is
+  processed at D rounded up to 32 (224 to 256, :func:`fp32_config`).
 
-Both read the model layout (B, S, H, D) in place: a query head reads kv
+The routes' predecessor, ``csrc/flash_attention.cu`` (fp32 FMAs on the
+CUDA cores, D rounded up to 64, float32 and bf16), is launched only by
+:func:`_launch_cuda_core`, for timings beside either route.
+
+All three read the model layout (B, S, H, D) in place: a query head reads kv
 head ``h // rep`` (GQA), keys past S are masked instead of padded, and only
 the key blocks between the window's first reachable block and the causal
 frontier are read.
 
-Build and binding: ``..cuda_lib`` compiles both sources for ``sm_90a`` at
-first use, one ``nvcc`` each, and ``ctypes`` loads them. The tensor-core
-library encodes its TMA tensor maps per launch with the CUDA driver API's
-``cuTensorMapEncodeTiled``, reached through ``cudaGetDriverEntryPoint``.
+Build and binding: ``..cuda_lib`` compiles the three sources for
+``sm_90a`` at first use, one ``nvcc`` each, and ``ctypes`` loads them. The
+tensor-core libraries encode their TMA tensor maps per launch with the CUDA
+driver API's ``cuTensorMapEncodeTiled``, reached through
+``cudaGetDriverEntryPoint``.
 Nothing is compiled or loaded at import.
 
 :func:`flash_attention` is the wrapper. A tensor on the CPU goes to the
@@ -46,12 +54,14 @@ from ..cuda_lib import check_tensor, compile_sources
 from .ref import mha_ref
 
 __all__ = ["flash_attention", "check_launch_args", "route", "build",
-           "reset_launches", "tc_smem_bytes", "ROUTES", "MAX_D",
-           "SOURCE", "TC_SOURCE", "SOURCES"]
+           "reset_launches", "tc_smem_bytes", "fp32_config",
+           "fp32_kernel_config", "ROUTES", "MAX_D", "SOURCE", "TC_SOURCE",
+           "TF32_SOURCE", "SOURCES"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 TC_SOURCE = SOURCE.with_name("flash_attention_tc.cu")
-SOURCES = (SOURCE, TC_SOURCE)
+TF32_SOURCE = SOURCE.with_name("flash_attention_tf32.cu")
+SOURCES = (SOURCE, TC_SOURCE, TF32_SOURCE)
 ROUTES = ("tc", "fp32")
 MAX_D = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -60,29 +70,36 @@ _lib: Optional[Dict[str, ctypes.CDLL]] = None
 
 
 def build() -> dict:
-    """Compile (if not yet built) and load both kernel libraries; returns
+    """Compile (if not yet built) and load the three kernel libraries; returns
     ``{source: {"path", "seconds", "built", "log"}}`` as
     ``cuda_lib.compile_sources`` does. A failing build raises
     ``RuntimeError`` with nvcc's output."""
     global _lib
     infos = compile_sources(SOURCES)
     if _lib is None:
-        fp32 = ctypes.CDLL(infos[SOURCE]["path"])
-        fp32.flash_attention_launch.argtypes = (
+        core = ctypes.CDLL(infos[SOURCE]["path"])
+        core.flash_attention_launch.argtypes = (
             [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
             + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
                                     ctypes.c_int, ctypes.c_float,
                                     ctypes.c_void_p])
-        fp32.flash_attention_launch.restype = ctypes.c_int
+        core.flash_attention_launch.restype = ctypes.c_int
+        launch_args = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 4
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_float, ctypes.c_void_p])
         tc = ctypes.CDLL(infos[TC_SOURCE]["path"])
-        tc.flash_attention_tc_launch.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-               ctypes.c_void_p])
+        tc.flash_attention_tc_launch.argtypes = launch_args
         tc.flash_attention_tc_launch.restype = ctypes.c_int
         tc.flash_attention_tc_smem_bytes.argtypes = [ctypes.c_int]
         tc.flash_attention_tc_smem_bytes.restype = ctypes.c_int
-        _lib = {"fp32": fp32, "tc": tc}
+        tf32 = ctypes.CDLL(infos[TF32_SOURCE]["path"])
+        tf32.flash_attention_tf32_launch.argtypes = launch_args
+        tf32.flash_attention_tf32_launch.restype = ctypes.c_int
+        tf32.flash_attention_tf32_config.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        tf32.flash_attention_tf32_config.restype = None
+        _lib = {"cuda_core": core, "tc": tc, "fp32": tf32}
     return infos
 
 
@@ -128,8 +145,8 @@ def check_launch_args(q, k, v, out) -> None:
 
 
 def _launch(name: str, q, k, v, out, scale, causal, window, softcap) -> None:
-    """One launch of route ``name``'s kernel (``"fp32"`` runs the CUDA-core
-    kernel in q's dtype); raises on a refused launch."""
+    """One launch of route ``name``'s kernel, or of the CUDA-core kernel in
+    q's dtype for ``"cuda_core"``; raises on a refused launch."""
     b, s, hq, d = q.shape
     if _lib is None:
         build()
@@ -139,9 +156,11 @@ def _launch(name: str, q, k, v, out, scale, causal, window, softcap) -> None:
             float(softcap), stream)
     if name == "tc":
         err = _lib["tc"].flash_attention_tc_launch(d, *args)
+    elif name == "fp32":
+        err = _lib["fp32"].flash_attention_tf32_launch(d, *args)
     else:
-        err = _lib["fp32"].flash_attention_launch(_DTYPE_CODE[q.dtype], d,
-                                                  *args)
+        err = _lib["cuda_core"].flash_attention_launch(_DTYPE_CODE[q.dtype],
+                                                       d, *args)
     if err != 0:
         raise RuntimeError(f"flash_attention {name} launch failed: error "
                            f"{err}")
@@ -155,15 +174,37 @@ def tc_smem_bytes(d: int) -> int:
     return _lib["tc"].flash_attention_tc_smem_bytes(d)
 
 
+def fp32_config(d: int) -> dict:
+    """The ``"fp32"`` kernel's blocking at head dim ``d``, as its ``Cfg``
+    sets it: the padded head dim ``dp`` (d rounded up to 32, 224 to 256),
+    query rows ``bq`` and keys ``bk`` per block. Host arithmetic only; the
+    chip run holds it against :func:`fp32_kernel_config`."""
+    dp = -(-d // 32) * 32
+    dp = 256 if dp == 224 else dp
+    bk = 64 if dp <= 64 else 32 if dp <= 192 else 16
+    return {"dp": dp, "bq": 128 if dp <= 128 else 64, "bk": bk}
+
+
+def fp32_kernel_config(d: int) -> dict:
+    """What the built ``"fp32"`` library reports for head dim ``d``:
+    :func:`fp32_config`'s keys and the launch's dynamic shared memory
+    (ptxas reports only static shared memory)."""
+    if _lib is None:
+        build()
+    out = (ctypes.c_int * 4)()
+    _lib["fp32"].flash_attention_tf32_config(d, out)
+    return {"dp": out[0], "bq": out[1], "bk": out[2], "smem_bytes": out[3]}
+
+
 def _launch_cuda_core(q, k, v, *, scale: float, causal: bool = True,
                       window: int = 0, softcap: float = 0.0) -> torch.Tensor:
     """The CUDA-core kernel on bf16 or float32 CUDA tensors, counted
-    nowhere: the ``"tc"`` route's predecessor for bf16, kept so a timing can
-    set the two side by side on one card."""
+    nowhere: the predecessor of both routes, kept so a timing can set it
+    beside either on one card."""
     out = torch.empty_like(q)
     check_launch_args(q, k, v, out)
     if q.numel():
-        _launch("fp32", q, k, v, out, scale, causal, window, softcap)
+        _launch("cuda_core", q, k, v, out, scale, causal, window, softcap)
     return out
 
 

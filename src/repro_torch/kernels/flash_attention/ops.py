@@ -3,7 +3,8 @@
 Takes the model layout ``q (B, S, Hq, D)``, ``k, v (B, S, Hkv, D)`` and
 hands it to the kernel wrapper, which dispatches on the device: a CUDA
 tensor launches the hand-written kernel of its route (bf16 on the tensor
-cores, float32 on the CUDA cores), a CPU tensor runs the plain version.
+cores, float32 on them too, in split TF32 at float32 accuracy), a CPU tensor
+runs the plain version.
 The reference's GQA fold, kv-head repeat and pad of S to 128 are not done
 here: the kernels read kv head ``h // rep`` in place and mask keys past S,
 which for causal attention gives what the padded Pallas path gives (a

@@ -1,10 +1,13 @@
-"""Plain PyTorch version of flash attention (materializes the logit matrix)."""
+"""Plain PyTorch version of flash attention (materializes the logit matrix),
+and the float32 route's split-TF32 arithmetic on the CPU."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_ref", "fold_gqa", "mha_ref"]
+from ..bsr_spgemm.ref import tf32_split
+
+__all__ = ["attention_ref", "attention_tf32_model", "fold_gqa", "mha_ref"]
 
 NEG_INF = -1e30
 
@@ -56,4 +59,54 @@ def mha_ref(q, k, v, *, scale: float, causal: bool = True, window: int = 0,
     b, s, hq, d = q.shape
     out = attention_ref(*fold_gqa(q, k, v), scale=scale, causal=causal,
                         window=window, softcap=softcap)
+    return out.reshape(b, hq, s, d).permute(0, 2, 1, 3).contiguous()
+
+
+def attention_tf32_model(q, k, v, *, scale: float, block_k: int,
+                         causal: bool = True, window: int = 0,
+                         softcap: float = 0.0):
+    """The ``"fp32"`` kernel's arithmetic in the model layout: q (B, S, Hq,
+    D), k and v (B, S, Hkv, D) float32 -> (B, S, Hq, D) float32.
+
+    q, k and v are split into TF32 hi and lo (``hi = rna_tf32(x)``, ``lo =
+    rna_tf32(x - hi)``, :func:`..bsr_spgemm.ref.tf32_split`, the kernel's
+    split) and per key block of ``block_k`` keys (the kernel's ``BK``):
+    logits lo·hi + hi·lo + hi·hi (lo·lo left out), scale, softcap, mask to
+    -1e30, the online max m and rescale exp(m_old - m_new), l summed from
+    the unsplit p, then p split the same way and the block's PV as p_lo·v_hi
+    + p_hi·v_lo + p_hi·v_hi added to the rescaled accumulator; divide by l
+    (1 where it is 0). Each term's products are exact (TF32 x TF32) and
+    summed here in float64, rounded to float32 per block: the tensor core
+    sums them in fp32 in its own order and truncates below the
+    accumulator's last place, which this model does not reproduce."""
+    b, s, hq, d = q.shape
+    qf, kf, vf = (t.float() for t in fold_gqa(q, k, v))
+    (qh, ql), (kh, kl), (vh, vl) = (
+        tuple(x.double() for x in tf32_split(t)) for t in (qf, kf, vf))
+    rows = torch.arange(s, device=q.device)[:, None]
+    m = torch.full((b * hq, s, 1), NEG_INF, device=q.device)
+    l = torch.zeros(b * hq, s, 1, device=q.device)
+    acc = torch.zeros(b * hq, s, d, device=q.device)
+    for k0 in range(0, s, block_k):
+        blk = slice(k0, k0 + block_k)
+        x = (ql @ kh[:, blk].transpose(1, 2) + qh @ kl[:, blk].transpose(1, 2)
+             + qh @ kh[:, blk].transpose(1, 2)).float() * scale
+        if softcap > 0.0:
+            x = softcap * torch.tanh(x / softcap)
+        cols = torch.arange(k0, k0 + x.shape[2], device=q.device)[None, :]
+        mask = torch.ones(s, x.shape[2], dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= cols <= rows
+        if window > 0:
+            mask &= cols > rows - window
+        x = torch.where(mask, x, NEG_INF)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(mask, torch.exp(x - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        ph, pl = (t.double() for t in tf32_split(p))
+        part = pl @ vh[:, blk] + ph @ vl[:, blk] + ph @ vh[:, blk]
+        acc = acc * alpha + part.float()
+        m = m_new
+    out = acc / torch.where(l == 0.0, 1.0, l)
     return out.reshape(b, hq, s, d).permute(0, 2, 1, 3).contiguous()

@@ -295,9 +295,9 @@ def test_integer_payloads_need_one_pass():
 
 
 def test_tc_source_hashes_the_shared_header():
-    """Every bsr_spgemm source takes the split, the NaN-propagating min and
-    the other rules from ``tile_rules.cuh``, which includes ``hopper.cuh``:
-    both are hashed into each library."""
+    """Every bsr_spgemm source takes the NaN-propagating min and the other
+    rules from ``tile_rules.cuh``, and the split from ``hopper.cuh``, which
+    the rules include: both are hashed into each library."""
     header = (tkernel.SOURCE.parents[3] / "kernels" / "hopper.cuh").resolve()
     rules = tkernel.SOURCE.with_name("tile_rules.cuh").resolve()
     assert tkernel.SOURCES == (tkernel.SOURCE, tkernel.TC_SOURCE,

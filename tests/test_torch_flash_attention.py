@@ -15,14 +15,20 @@
   against the Pallas kernel in interpret mode within the bf16 tolerance
   ``chip_smoke.py`` holds the card to (atol 2e-2 + rtol 1e-2), at head
   dims 128, 160 and 256.
+* The float32 route's split-TF32 arithmetic (``ref.attention_tf32_model``:
+  q, k, v and p split into TF32 hi and lo, lo·hi + hi·lo + hi·hi per key
+  block of the kernel's size) held against the Pallas kernel in interpret
+  mode within the float32 tolerance the card is held to (atol 2e-5 + rtol
+  1e-4), at head dims 16, 64, 128, 160 and 256, S 77 and 200, window,
+  softcap and GQA.
 * ``route`` and the wrapper's argument checks per route: what the prefill
   path hands the kernel on a card passes them (run on CPU tensors, at each
   architecture's published head dim in bf16, and in float32 at each smoke
   config's own head dim and at 160), and what the kernels do not take
-  raises. The float32 route pads the head dim to a multiple of 64 with
-  zero columns; the plain version on zero-padded inputs gives the same
-  output. The CUDA kernels themselves run only on a card
-  (``chip_smoke.py``).
+  raises. The float32 route pads the head dim to a multiple of 32 (224 to
+  256) with zero columns; the plain version on zero-padded inputs gives the
+  same output. The CUDA kernels themselves run only on a card
+  (``chip_smoke.py``); the wrapper counts no launch on CPU tensors.
 * ``cuda_lib.library_path`` names a new library when a header the source
   includes changes.
 """
@@ -43,6 +49,7 @@ from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.flash_attention import kernel as tkernel
 from repro_torch.kernels.flash_attention import multihead_attention
 from repro_torch.kernels.flash_attention.ref import (NEG_INF, attention_ref,
+                                                     attention_tf32_model,
                                                      fold_gqa, mha_ref)
 from repro_torch.models import init_caches, init_params, prefill_step
 
@@ -214,14 +221,15 @@ def test_smoke_config_prefill_hands_the_fp32_route_arguments_it_accepts(
         assert {tkernel.route(c[2], c[0][3]) for c in mine} == {"fp32"}
 
 
-@pytest.mark.parametrize("d", [8, 16, 40, 160, 200])
-def test_fp32_route_zero_padding_changes_nothing(d):
-    """The fp32 kernel runs at D rounded up to 64 with the columns past D
-    read as zeros and never stored; the plain version on inputs padded so
-    gives the unpadded output (float32, within 1e-6: the longer dot
-    products add exact zeros, summed in another blocking)."""
+@pytest.mark.parametrize("d,dp", [(8, 32), (16, 32), (40, 64), (160, 160),
+                                  (200, 256)])
+def test_fp32_route_zero_padding_changes_nothing(d, dp):
+    """The fp32 kernel runs at D rounded up to 32 (224 to 256) with the
+    columns past D read as zeros and never stored; the plain version on
+    inputs padded so gives the unpadded output (float32, within 1e-6: the
+    longer dot products add exact zeros, summed in another blocking)."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(2, 77, 4, 2, d, seed=d))
-    dp = -(-d // 64) * 64
+    assert tkernel.fp32_config(d)["dp"] == dp
     pad = lambda t: torch.nn.functional.pad(t, (0, dp - d))
     kw = dict(scale=d ** -0.5, causal=True, window=32, softcap=30.0)
     got = mha_ref(pad(q), pad(k), pad(v), **kw)
@@ -287,8 +295,8 @@ def test_check_launch_args_accepts(dtype, d):
 
 def test_route_by_dtype_and_head_dim():
     """bf16 takes every multiple of 8 up to 256 on the tensor-core route,
-    float32 the same head dims on the CUDA-core route; anything else
-    raises."""
+    float32 the same head dims on the split-TF32 tensor-core route;
+    anything else raises."""
     for d in range(8, 257, 8):
         assert tkernel.route(torch.bfloat16, d) == "tc"
         assert tkernel.route(torch.float32, d) == "fp32"
@@ -367,6 +375,63 @@ def test_bf16_route_rounding_stays_within_the_chip_tolerance(d, s, window,
     np.testing.assert_allclose(got, plain, atol=2e-2, rtol=1e-2)
 
 
+@pytest.mark.parametrize("window,softcap,hkv", [
+    (0, 0.0, 4), (64, 0.0, 2), (0, 50.0, 2), (64, 50.0, 1)])
+@pytest.mark.parametrize("s", [77, 200])
+@pytest.mark.parametrize("d", [16, 64, 128, 160, 256])
+def test_fp32_route_split_tf32_stays_within_the_chip_tolerance(d, s, window,
+                                                               softcap, hkv):
+    """The float32 route's split-TF32 arithmetic, modelled per key block of
+    the kernel's size on the same float32 inputs, stays within the float32
+    tolerance the card is held to (atol 2e-5 + rtol 1e-4) of the Pallas
+    kernel in interpret mode; GQA 4/4, 4/2 and 4/1. The model sums each
+    term's exact products in float64; the tensor core sums them in fp32 and
+    truncates below the accumulator's last place, which cannot be modelled
+    exactly here, so the card's own grid (``chip_smoke.py``) holds the
+    kernel to the same tolerance."""
+    r = np.random.default_rng(d + s + window + hkv)
+    q, k, v = (r.standard_normal((1, s, h, d)).astype(np.float32)
+               for h in (4, hkv, hkv))
+    kw = dict(scale=d ** -0.5, causal=True, window=window, softcap=softcap)
+    want = np.asarray(r_multihead_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kw["scale"], True,
+        window, softcap, True, True))
+    got = attention_tf32_model(*(torch.from_numpy(a) for a in (q, k, v)),
+                               block_k=tkernel.fp32_config(d)["bk"], **kw)
+    assert got.shape == (1, s, 4, d) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=1e-4)
+
+
+def test_fp32_model_differs_from_one_tf32_pass():
+    """The three-term split is what holds the tolerance: one TF32 pass
+    (hi·hi only, the terms with lo dropped) does not."""
+    r = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(r.standard_normal((1, 200, 4, 128))
+                                .astype(np.float32)) for _ in range(3))
+    kw = dict(scale=128 ** -0.5, causal=True)
+    want = mha_ref(q, k, v, **kw)
+    three = attention_tf32_model(q, k, v, block_k=32, **kw)
+    torch.testing.assert_close(three, want, atol=2e-5, rtol=1e-4)
+    from repro_torch.kernels.bsr_spgemm.ref import tf32_split
+    hi = lambda t: tf32_split(t)[0]
+    one = mha_ref(hi(q), hi(k), hi(v), **kw)
+    assert not torch.allclose(one, want, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_wrapper_counts_no_launch(dtype):
+    """On CPU tensors the wrapper runs the plain version and counts no
+    launch on any route (``fp32`` for float32, ``tc`` for bf16)."""
+    q, k, v = (torch.from_numpy(a).to(dtype)
+               for a in _qkv(1, 40, 4, 2, 16, seed=3))
+    tkernel.reset_launches()
+    got = tkernel.flash_attention(q, k, v, scale=0.25)
+    torch.testing.assert_close(got, mha_ref(q, k, v, scale=0.25), rtol=0,
+                               atol=0)
+    assert tkernel.flash_attention.launches == 0
+    assert tkernel.flash_attention.route_launches == {"tc": 0, "fp32": 0}
+
+
 def test_library_path_hashes_the_included_headers(tmp_path):
     """An edited header names a new library for every source that includes
     it (directly or through another header); an unrelated file does not."""
@@ -393,13 +458,17 @@ def test_library_path_hashes_the_included_headers(tmp_path):
 
 
 def test_every_kernel_source_hashes_its_headers():
-    """The tensor-core sources include the shared PTX header, and their
-    libraries' names cover it."""
+    """The tensor-core sources (attention bf16 and split-TF32, moe_gemm
+    bf16) include the shared PTX header, and their libraries' names cover
+    it; the CUDA-core attention source includes none. ``build`` compiles
+    all three attention sources."""
     header = (Path(cuda_lib.__file__).parent / "hopper.cuh").resolve()
     from repro_torch.kernels.moe_gemm import kernel as mkernel
-    for src in (tkernel.TC_SOURCE, mkernel.TC_SOURCE):
-        assert header in cuda_lib.local_headers(src)
+    for src in (tkernel.TC_SOURCE, tkernel.TF32_SOURCE, mkernel.TC_SOURCE):
+        assert cuda_lib.local_headers(src) == [header], src
     assert cuda_lib.local_headers(tkernel.SOURCE) == []
+    assert tkernel.SOURCES == (tkernel.SOURCE, tkernel.TC_SOURCE,
+                               tkernel.TF32_SOURCE)
 
 
 def test_plain_version_in_the_model_layout():
