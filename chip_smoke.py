@@ -6,7 +6,7 @@
 Needs one CUDA device and ``nvcc``; imports only ``repro_torch``, torch,
 numpy and scipy. Phases (any failure exits non-zero and prints no result):
 
-  1. build     — compile the kernels' eight sources from the repo, one
+  1. build     — compile the kernels' nine sources from the repo, one
                  nvcc each, all started together; report the three
                  bsr_spgemm sources' ptxas lines and the ``tc`` and ``warp``
                  routes' dynamic shared memory
@@ -70,14 +70,16 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  ring, 2D SUMMA and Split-3D side by side
   6. build_lm  — load the flash_attention and moe_gemm libraries (for
                  flash_attention the CUDA-core source and the bf16 and
-                 split-TF32 tensor-core ones; for moe_gemm the fp32
-                 CUDA-core source and the bf16 tensor-core one); ptxas's
-                 registers, spills and shared memory per kernel, and the
-                 tensor-core kernels' dynamic shared memory (flash_attention
-                 bf16 per padded head dim 64 / 128 / 192 / 256; float32 per
-                 padded head dim 32 ... 256 with its query and key block,
-                 held against the host's ``fp32_config`` at every head dim
-                 the route takes)
+                 split-TF32 tensor-core ones; for moe_gemm the CUDA-core
+                 source, the bf16 tensor-core one and the split-TF32 one);
+                 ptxas's registers, spills and shared memory per kernel,
+                 and the tensor-core kernels' dynamic shared memory
+                 (flash_attention bf16 per padded head dim 64 / 128 / 192 /
+                 256; float32 per padded head dim 32 ... 256 with its query
+                 and key block, held against the host's ``fp32_config`` at
+                 every head dim the route takes; moe_gemm float32's
+                 blocking and shared memory, the same at every shape,
+                 held against its host ``fp32_config``)
   7. flash_attention_vs_plain — both routes against ``mha_ref`` on the
                  card, causal, window in {0, 64}, softcap in {0, 50}, Hq = 8
                  with Hkv in {8, 2}: bfloat16 on the tensor-core route at D
@@ -93,12 +95,16 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
   9. moe_gemm_vs_plain — every route of the kernel against
                  ``moe_gemm_ref`` on the card: E in {1, 64}, cap in {8, 16,
                  96, 688} (bf16: the decode route up to 16, the prefill
-                 route above; float32: the CUDA-core route), (d, f) in
+                 route above; float32: the split-TF32 ``fp32`` route at
+                 every cap), (d, f) in
                  {(2048, 1408), (1408, 2048), (640, 72), (200, 72)}; rows
                  None, all cap, all 0, random, and the 128-row tile edges
                  63-65 and 127-129; integer-valued float32 bitwise, float32
                  within atol 1e-4 + rtol 1e-4, bfloat16 within atol 2e-2 +
-                 rtol 1e-2; every bf16 launch repeated, bitwise
+                 rtol 1e-2; inf, NaN and 3e38 planted in float32 x and w
+                 must give the plain version's inf / NaN pattern, the
+                 finite outputs within the float32 tolerance; every launch
+                 repeated, bitwise (a NaN matching any NaN)
   10. lm_serve — qwen2-moe-a2.7b at its full published size (24 layers, 64
                  padded experts, bf16 weights from a seeded generator)
                  through ``ServeEngine.generate``: four prompts of 2048,
@@ -128,8 +134,12 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  model at full width cut to 2 layers in float32 must give
                  the same prefill and decode logits through the kernels as
                  through the plain versions, within 1e-3 of the largest
-                 logit; that float32 run is the fp32 routes' path (their
-                 launches counted, its first grouped GEMM timed)
+                 logit; that float32 run is the fp32 route's path (its
+                 launches counted: 3 a MoE layer in the prefill and 3 in
+                 the decode step; the prefill's up and down GEMMs and the
+                 decode step's up GEMM timed, the bound counted as three
+                 TF32 passes; at the decode GEMM also the CUDA-core kernel
+                 on the live rows, ``cuda_core_rows_ms``)
 
 Every main-path call must run on the kernel: ``fallbacks == 0``,
 ``last_call["engine"] == "cuda"`` and the kernel's launch count grows.
@@ -1155,6 +1165,12 @@ def phase_build_lm(infos):
                     "prefill": mg.tc_smem_bytes("prefill", 2048),
                     **{f"decode_d{d}": mg.tc_smem_bytes("decode", d)
                        for d in (2048, 1408)}}
+            if src == mg.TF32_SOURCE:
+                got, want = mg.fp32_kernel_config(), mg.fp32_config()
+                check(got == want, f"the moe_gemm fp32 kernel blocks as "
+                      f"{got}, the host expects {want}")
+                extra["blocking"] = got
+                extra["dynamic_smem_bytes"] = {"fp32": got["smem_bytes"]}
             emit({"phase": "build_lm", "kernel": src.stem,
                   "seconds": info["seconds"], "built": info["built"],
                   "library": info["path"], "ptxas": ptxas_lines(info["log"]),
@@ -1273,28 +1289,34 @@ def phase_moe_grid(dev):
     from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 
     g = torch.Generator(device=dev).manual_seed(1)
-    cases, errs = 0, {"float32": 0.0, "bfloat16": 0.0}
+    cases, nonfinite, errs = 0, 0, {"float32": 0.0, "bfloat16": 0.0}
     by_route = {}
 
-    def held(x, w, rows, what, exact=False, repeat=False):
-        nonlocal cases
+    def held(x, w, rows, what, exact=False):
+        nonlocal cases, nonfinite
         got, want = moe_gemm(x, w, rows), moe_gemm_ref(x, w, rows)
         torch.cuda.synchronize()
         name = route(x.dtype, x.shape[1])
         label = (f"{name} route {x.dtype} E={x.shape[0]} cap={x.shape[1]} "
                  f"d={x.shape[2]} f={w.shape[2]} rows={what}")
+        fin = torch.isfinite(want)
         if exact:
             check(bitwise(got, want), f"moe_gemm != plain version on "
                   f"integers: {label}")
         else:
-            ok, err = within(got, want, *MOE_TOL[x.dtype])
+            if not bool(fin.all()):       # planted inf / NaN
+                check(all(torch.equal(a(got), a(want)) for a in (
+                    torch.isnan, torch.isposinf, torch.isneginf)),
+                    f"moe_gemm's inf / NaN pattern != the plain version's: "
+                    f"{label}")
+                nonfinite += 1
+            ok, err = within(got[fin], want[fin], *MOE_TOL[x.dtype])
             check(ok, f"moe_gemm != plain version: {label} (max abs err "
                       f"{err})")
             key = str(x.dtype).split(".")[-1]
             errs[key] = max(errs[key], err)
-        if repeat:
-            check(bitwise(moe_gemm(x, w, rows), got),
-                  f"a repeated launch differs: {label}")
+        check(bitwise_or_nan(moe_gemm(x, w, rows), got),
+              f"a repeated launch differs: {label}")
         by_route[name] = by_route.get(name, 0) + 1
         cases += 1
 
@@ -1312,16 +1334,29 @@ def phase_moe_grid(dev):
                 for rows, what in ((None, "None"), (rand, "random")):
                     held(xi, wi, rows, what, exact=True)
                     held(x, w, rows, what)
+                del xi, wi
+                # inf, NaN and a value whose TF32 hi rounds to inf
+                xp, wp = x.clone(), w.clone()
+                xp[:, 0, 3] = float("inf")
+                xp[:, min(2, cap - 1), d - 1] = float("nan")
+                xp[:, min(1, cap - 1), 0] = 3.0e38
+                wp[:, 5, 1] = float("-inf")
+                wp[:, d // 2, f - 1] = float("nan")
+                for rows, what in ((None, "None"), (rand, "random")):
+                    held(xp, wp, rows, f"{what} planted inf/NaN")
+                del xp, wp
                 xb, wb = x.bfloat16(), w.bfloat16()
-                held(xb, wb, None, "None", repeat=True)
+                held(xb, wb, None, "None")
                 for what, rows in moe_rows_cases(g, e, cap, dev):
-                    held(xb, wb, rows, what, repeat=True)
+                    held(xb, wb, rows, what)
     emit({"phase": "moe_gemm_vs_plain", "cases": cases,
-          "cases_by_route": by_route, "max_abs_err": errs,
+          "cases_by_route": by_route, "planted_nonfinite_cases": nonfinite,
+          "max_abs_err": errs,
           "tolerance": {"float32": MOE_TOL[torch.float32],
                         "bfloat16": MOE_TOL[torch.bfloat16],
                         "integer_float32": "bitwise",
-                        "repeat_bf16": "bitwise"}})
+                        "planted_inf_nan": "the plain version's pattern",
+                        "repeat": "bitwise"}})
     return errs
 
 
@@ -1462,12 +1497,14 @@ def host_call_us(fn, n=50):
 
 def time_moe(x, w, rows):
     """The route's kernel, the plain version, ``torch.bmm`` and the earlier
-    fp32 CUDA-core kernel (every slot of every expert, as before ``rows``)
-    on one captured GEMM, each as device time per call; the kernel also as
+    CUDA-core kernel (every slot of every expert, as before ``rows``) on
+    one captured GEMM, each as device time per call; the kernel also as
     CUDA events around back-to-back launches (``events_ms``, which the
     host's enqueue rate bounds from below); the host time of one wrapper
     call (argument checks, output allocation, tensor maps, launch) and of
-    the C launch function alone (tensor maps and launch)."""
+    the C launch function alone (tensor maps and launch). The ``fp32``
+    route's bound counts its three TF32 passes at the tensor-core peak,
+    with the fp32 CUDA-core bound beside it."""
     from repro_torch.kernels.moe_gemm.kernel import (_launch,
                                                      _launch_cuda_core,
                                                      moe_gemm, route)
@@ -1496,13 +1533,15 @@ def time_moe(x, w, rows):
     launch_us = host_call_us(
         lambda: _launch(route(x.dtype, cap), x, w, rows, out))
     el = x.element_size()
+    passes = 3 if route(x.dtype, cap) == "fp32" else 0
     # what this run's data needs: the products of live rows, those x rows,
     # the weights of experts with a live row, y written whole
     entry = timing_entry(ms, plain_ms, library_ms, 2 * slots * d * f,
                          slots * d * el + experts * d * f * el
-                         + e * cap * f * el, x.dtype, err)
+                         + e * cap * f * el, x.dtype, err, passes)
     dense = timing_entry(ms, plain_ms, library_ms, 2 * e * cap * d * f,
-                         nbytes(x, w) + e * cap * f * el, x.dtype, err)
+                         nbytes(x, w) + e * cap * f * el, x.dtype, err,
+                         passes)
     return {"shape": {"x": list(x.shape), "w": list(w.shape),
                       "dtype": str(x.dtype), "route": route(x.dtype, cap),
                       "live_rows": slots, "experts_with_rows": experts},
@@ -1630,8 +1669,11 @@ def f32_plain_check(dev, arch, layers=2, n=256):
     prefill of 4 x n tokens and one decode step through the kernels and
     through the plain versions; the logits must agree within 1e-3 of their
     largest magnitude (float32 kernels agree with the plain versions to
-    ~1e-6 per op). The kernels' run is the fp32 route's path: its launch
-    counts, from 0 just before it, and its first grouped GEMM, timed."""
+    ~1e-6 per op). The kernels' run is the float32 routes' path: their
+    launch counts, from 0 just before it, and the prefill's up and down
+    grouped GEMMs and the decode step's up GEMM, timed; the decode GEMM
+    also on the CUDA-core kernel with its ``rows`` (``cuda_core_rows_ms``),
+    beside which the ``fp32`` route needs no decode kernel of its own."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1647,24 +1689,28 @@ def f32_plain_check(dev, arch, layers=2, n=256):
     g = torch.Generator(device=dev).manual_seed(2)
     toks = torch.randint(0, cfg.vocab, (4, n + 1), generator=g, device=dev)
 
-    def run():
+    def run(cap=None):
         caches = init_caches(cfg, 4, n + 1, device=dev)
+        if cap:
+            cap.phase = "prefill"
         lp, caches = prefill_step(params, cfg, {"tokens": toks[:, :n]},
                                   caches)
+        if cap:
+            cap.phase = "decode"
         ld, _ = decode_step(params, cfg, {"tokens": toks[:, n:]}, caches)
         return lp, ld
 
     mg.reset_launches()
     fa.reset_launches()
     with Capture() as cap:
-        kern = run()
+        kern = run(cap)
     routes = dict(mg.moe_gemm.route_launches)
     attn_routes = dict(fa.flash_attention.route_launches)
     n_moe = sum(1 for k in cfg.pattern if k in "AM") * cfg.n_periods
     n_attn = sum(1 for k in cfg.pattern if k in "aAl") * cfg.n_periods
-    check(routes == {"prefill": 0, "decode": 0, "fp32": 3 * n_moe * 2},
-          f"float32 route launches {routes}, expected {3 * n_moe * 2} on "
-          f"fp32")
+    want = {"prefill": 0, "decode": 0, "fp32": 6 * n_moe}
+    check(routes == want, f"float32 route launches {routes}, expected "
+          f"{want}")
     check(attn_routes == {"tc": 0, "fp32": n_attn},
           f"float32 attention route launches {attn_routes}, expected "
           f"{n_attn} on fp32 (one prefill)")
@@ -1682,9 +1728,14 @@ def f32_plain_check(dev, arch, layers=2, n=256):
               f"plain versions differ by {diff} (max |logit| {scale})")
         out[name] = {"max_abs_logit_diff": diff, "max_abs_logit": scale,
                      "top1_agree": int((a.argmax(-1) == b.argmax(-1)).sum())}
-    x, w, rows = cap.gemm[None][0]
-    out["moe_gemm_fp32"] = {"phase": "prefill", "projection": "up",
-                            **time_moe(x, w, rows)}
+    out["moe_gemm_fp32"] = [
+        {"phase": phase, "projection": name,
+         **time_moe(*cap.gemm[phase][i])}
+        for phase, i, name in (("prefill", 0, "up"), ("prefill", 2, "down"),
+                               ("decode", 0, "up"))]
+    x, w, rows = cap.gemm["decode"][0]
+    out["moe_gemm_fp32"][2]["cuda_core_rows_ms"] = device_ms(
+        lambda: mg._launch_cuda_core(x, w, rows), 20)
     return out
 
 
@@ -1883,14 +1934,15 @@ def main():
                 "events_ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "host_us_per_call", "launch_us_per_call")
 
-    def moe_row(route, timings, err, source):
+    def moe_row(route, timings, err, source, extra=None):
         head = timings[0]
         return kernel_row(
             f"moe_gemm_{route}", moe_pallas, routes[route],
             {**head, "max_abs_err": max([err] + [t["max_abs_err"]
                                                  for t in timings])},
             {"shape": head["shape"], "previous_ms": head["previous_ms"],
-             "shapes": [{k: t[k] for k in moe_keys} for t in timings]},
+             "shapes": [{k: t[k] for k in moe_keys} for t in timings],
+             **(extra or {})},
             source=moe_src + source)
 
     warp = dict(default["timings"][32], library_ms=None,
@@ -1959,7 +2011,11 @@ def main():
                 "moe_gemm_tc.cu"),
         moe_row("decode", gemms[2:], moe_grid_err["bfloat16"],
                 "moe_gemm_tc.cu"),
-        moe_row("fp32", [fp32], moe_grid_err["float32"], "moe_gemm.cu")]})
+        moe_row("fp32", fp32, moe_grid_err["float32"], "moe_gemm_tf32.cu",
+                {"tf32_passes": fp32[0]["tf32_passes"],
+                 "fp32_bound_ms": fp32[0]["fp32_bound_ms"],
+                 "previous_source": moe_src + "moe_gemm.cu",
+                 "decode_cuda_core_rows_ms": fp32[2]["cuda_core_rows_ms"]})]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 // Rules shared by the bsr_spgemm kernels (bsr_spgemm.cu, bsr_spgemm_tc.cu,
-// bsr_spgemm_warp.cu): the test for elements the TF32 split (hopper.cuh's
-// split) cannot carry, and the NaN-propagating min and max.
+// bsr_spgemm_warp.cu): the NaN-propagating min and max. The test for
+// elements the TF32 split cannot carry (wide) is hopper.cuh's, beside the
+// split.
 //
 // Included by relative path; cuda_lib.library_path hashes it into every
 // library that includes it.
@@ -31,13 +32,6 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   float r;
   asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
   return r;
-}
-
-// A magnitude the split cannot carry: NaN, infinity or >= 2^127 (an
-// exponent of 0xFE or 0xFF). Fold magnitudes with max_nan first, so one NaN
-// marks the whole panel.
-__device__ __forceinline__ bool wide(float mag) {
-  return !(mag < __uint_as_float(0x7F000000u));
 }
 
 }  // namespace

@@ -1,7 +1,8 @@
 // PTX helpers shared by the port's Hopper (sm_90a) kernels: mbarriers, TMA
 // tensor loads, wgmma shared-memory descriptors and the wgmma group fences,
-// tf32 rounding and the hi/lo split, the tf32 wgmma shapes (m64nNk8 with
-// both operands in shared memory at N = 16, 32, 64, 128, and with A in
+// tf32 rounding, the hi/lo split (split, split_finite) and the test for
+// values it cannot carry (wide), the tf32 wgmma shapes (m64nNk8 with both
+// operands in shared memory at N = 16, 32, 64, 128, and with A in
 // registers at N = 32, 64, 128), plus the host-side lookup of
 // cuTensorMapEncodeTiled.
 //
@@ -136,6 +137,23 @@ __device__ __forceinline__ void split(float x, float& hi, float& lo) {
     hi = x != x ? __uint_as_float(0x7FC00000u) : x;
     lo = 0.0f;
   }
+}
+
+// split without its non-finite case: the same hi and lo for every finite
+// |x| < 2^127, undefined ones for any other x. For a kernel that sums a
+// panel holding such a value (wide) unsplit anyway and discards its split;
+// it saves the selects that split spends on every element.
+__device__ __forceinline__ void split_finite(float x, float& hi, float& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - hi);
+}
+
+// A magnitude the split cannot carry: NaN, infinity or >= 2^127 (an
+// exponent of 0xFE or 0xFF; past it the hi of an |x| near FLT_MAX rounds to
+// infinity). Fold magnitudes first with a fold that keeps NaN (max.NaN, or
+// an unsigned max of the bits of |x|), so one NaN marks the whole panel.
+__device__ __forceinline__ bool wide(float mag) {
+  return !(mag < __uint_as_float(0x7F000000u));
 }
 
 // Orders this thread's generic-proxy shared-memory writes before later

@@ -1,10 +1,11 @@
-"""Plain PyTorch version of the grouped expert GEMM."""
+"""Plain PyTorch version of the grouped expert GEMM, and the float32
+route's split-TF32 arithmetic on the CPU."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["moe_gemm_ref"]
+__all__ = ["moe_gemm_ref", "moe_gemm_tf32_model"]
 
 
 def moe_gemm_ref(x, w, rows=None):
@@ -18,3 +19,45 @@ def moe_gemm_ref(x, w, rows=None):
         keep = torch.arange(cap, device=x.device)[None, :] < live[:, None]
         y = torch.where(keep[..., None], y, 0.0)
     return y.to(x.dtype)
+
+
+def moe_gemm_tf32_model(x, w, rows=None, block_k=32):
+    """The ``"fp32"`` kernel's arithmetic on the CPU: x (E, cap, d), w
+    (E, d, f) float32 -> (E, cap, f) float32.
+
+    Per k-panel of ``block_k`` (the kernel's ``BK``): x and w split into
+    TF32 hi and lo (:func:`..bsr_spgemm.ref.tf32_split`, the kernel's
+    split), the panel's partial lo·hi + hi·lo + hi·hi (lo·lo left out) with
+    each term's exact products summed in float64 and rounded to float32;
+    the partials added in float32 in panel order; a zero stored as +0.
+    Where the panel of an x row, or the panel of w, holds an infinity, a
+    NaN or an ``|v| >= 2**127``, that row's panel is the float32 product of
+    the unsplit operands instead. Rows ``r >= rows[e]`` are zeros. The
+    kernel decides the unsplit panels for a pair of rows and a 128-column
+    tile at a time and sums each panel's terms in fp32 in its own order,
+    truncating below the accumulator's last place, which this model does
+    not reproduce."""
+    from ..bsr_spgemm.ref import tf32_split
+
+    x, w = x.float(), w.float()
+    e, cap, d = x.shape
+    (xh, xl), (wh, wl) = (tuple(t.double() for t in tf32_split(a))
+                          for a in (x, w))
+    y = torch.zeros(e, cap, w.shape[2], dtype=torch.float32,
+                    device=x.device)
+    for k0 in range(0, d, block_k):
+        k = slice(k0, k0 + block_k)
+        part = (xl[:, :, k] @ wh[:, k] + xh[:, :, k] @ wl[:, k]
+                + xh[:, :, k] @ wh[:, k]).float()
+        wide = (~(x[:, :, k].abs() < 2.0 ** 127)).any(-1, keepdim=True) \
+            | (~(w[:, k].abs() < 2.0 ** 127)).flatten(1).any(-1)[:, None,
+                                                                  None]
+        if bool(wide.any()):
+            part = torch.where(wide, x[:, :, k] @ w[:, k], part)
+        y = part if k0 == 0 else y + part
+    y = y + 0.0
+    if rows is not None:
+        live = rows.to(device=x.device, dtype=torch.long).clamp(0, cap)
+        keep = torch.arange(cap, device=x.device)[None, :] < live[:, None]
+        y = torch.where(keep[..., None], y, 0.0)
+    return y

@@ -12,9 +12,18 @@
   card passes them, ``rows`` included (run on CPU tensors), and what the
   kernels do not take raises. The CUDA kernels themselves run only on a
   card (``chip_smoke.py``); ``rows`` is covered in ``test_torch_moe_rows.py``.
+* The ``"fp32"`` route's split-TF32 arithmetic (``ref.moe_gemm_tf32_model``,
+  per 32-deep k-panel): within atol 1e-4 + rtol 1e-4 of the reference's
+  ``moe_gemm_ref`` (the tolerance the card is held to) at the serving
+  shapes and the grid's narrow ones, with ``rows`` None, random and all 0;
+  bitwise on integer-valued inputs; against the Pallas kernel in interpret
+  mode; a single TF32 pass falls outside that tolerance; planted inf / NaN /
+  |v| near FLT_MAX give the plain version's non-finite pattern. The route's
+  blocking (``fp32_config``) against the kernel source's constants.
 """
 
 import dataclasses
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,8 +35,12 @@ from repro.kernels.moe_gemm import grouped_gemm as r_grouped_gemm
 from repro.kernels.moe_gemm import moe_gemm_ref as r_moe_gemm_ref
 from repro.models.moe import moe_apply as r_moe_apply
 from repro.models.moe import moe_init as r_moe_init
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.bsr_spgemm.ref import tf32_split
 from repro_torch.kernels.moe_gemm import grouped_gemm
 from repro_torch.kernels.moe_gemm import kernel as tkernel
+from repro_torch.kernels.moe_gemm.ref import (moe_gemm_ref,
+                                              moe_gemm_tf32_model)
 from repro_torch.models.moe import _capacity, moe_apply
 from repro_torch.models.convert import _tree_map
 
@@ -174,3 +187,165 @@ def test_check_launch_args_rejects(case):
         out = torch.empty(2, 8, 40)
     with pytest.raises(ValueError):
         tkernel.check_launch_args(x, w, out, rows)
+
+
+TF32_SHAPES = [(2048, 1408), (1408, 2048), (640, 72), (200, 72)]
+TF32_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _tf32_case(d, f, rows, *, ints=False, e=2, cap=24):
+    """Seeded float32 inputs of the ``"fp32"`` route: normal x and w scaled
+    by d^-1/2 (outputs of order 1), or integers in [-4, 4]; ``rows`` None,
+    random in [0, cap + 8] (values past cap are clamped) or all 0."""
+    r = np.random.default_rng(d * 7 + f + (1 if ints else 0))
+    if ints:
+        x = r.integers(-4, 5, (e, cap, d)).astype(np.float32)
+        w = r.integers(-4, 5, (e, d, f)).astype(np.float32)
+    else:
+        x = r.standard_normal((e, cap, d)).astype(np.float32)
+        w = (r.standard_normal((e, d, f)) * d ** -0.5).astype(np.float32)
+    live = {"none": None, "random": r.integers(0, cap + 9, e),
+            "zero": np.zeros(e)}[rows]
+    return x, w, None if live is None else live.astype(np.int32)
+
+
+def _reference(x, w, rows):
+    """The reference's ``moe_gemm_ref`` einsum with rows at and past
+    ``rows[e]`` zeroed."""
+    y = np.array(r_moe_gemm_ref(jnp.asarray(x), jnp.asarray(w)))
+    if rows is not None:
+        y[np.arange(x.shape[1])[None, :] >= np.clip(rows, 0, x.shape[1])
+          [:, None]] = 0.0
+    return y
+
+
+def _model(x, w, rows):
+    bk = tkernel.fp32_config()["bk"]
+    return moe_gemm_tf32_model(
+        torch.from_numpy(x), torch.from_numpy(w),
+        None if rows is None else torch.from_numpy(rows), block_k=bk)
+
+
+@pytest.mark.parametrize("rows", ["none", "random", "zero"])
+@pytest.mark.parametrize("d,f", TF32_SHAPES)
+def test_fp32_route_split_tf32_stays_within_the_chip_tolerance(d, f, rows):
+    """Three TF32 passes a 32-deep panel, the panels added in float32, stay
+    within the float32 tolerance the card holds the route to; rows past
+    ``rows[e]`` are exactly zero."""
+    x, w, live = _tf32_case(d, f, rows)
+    got = _model(x, w, live)
+    assert got.dtype == torch.float32 and got.shape == (2, 24, f)
+    np.testing.assert_allclose(got.numpy(), _reference(x, w, live),
+                               **TF32_TOL)
+    if live is not None:
+        for i, n in enumerate(np.clip(live, 0, 24)):
+            assert not got[i, n:].any()
+
+
+@pytest.mark.parametrize("rows", ["none", "random", "zero"])
+@pytest.mark.parametrize("d,f", TF32_SHAPES)
+def test_fp32_route_is_bitwise_on_integers(d, f, rows):
+    """Integers in [-4, 4] are TF32-exact (no lo part) and every partial
+    sum stays below 2^24, so the split arithmetic gives the reference's
+    result bit for bit."""
+    x, w, live = _tf32_case(d, f, rows, ints=True)
+    got = _model(x, w, live).numpy()
+    want = _reference(x, w, live)
+    assert np.array_equal(got.view(np.int32), (want + 0.0).view(np.int32))
+
+
+@pytest.mark.parametrize("e,cap,d,f", [
+    (2, 64, 64, 128), (4, 96, 200, 72), (3, 8, 512, 136)])
+def test_fp32_route_model_matches_pallas(e, cap, d, f):
+    """The model against the reference's Pallas kernel in interpret mode
+    on the same seeded inputs, where the kernel's padded d is a multiple
+    of 512 (so it contracts all of d)."""
+    r = np.random.default_rng(e + cap + d)
+    x = r.standard_normal((e, cap, d)).astype(np.float32)
+    w = (r.standard_normal((e, d, f)) * d ** -0.5).astype(np.float32)
+    want = np.asarray(r_grouped_gemm(jnp.asarray(x), jnp.asarray(w),
+                                     interpret=True))
+    got = _model(x, w, None).numpy()
+    np.testing.assert_allclose(got, want, **TF32_TOL)
+
+
+@pytest.mark.parametrize("d,f", TF32_SHAPES)
+def test_one_tf32_pass_falls_outside_the_tolerance(d, f):
+    """The three-term split is what holds the tolerance: one TF32 pass
+    (hi·hi only) does not."""
+    x, w, _ = _tf32_case(d, f, "none")
+    hi = lambda a: tf32_split(torch.from_numpy(a))[0]
+    one = moe_gemm_ref(hi(x), hi(w)).numpy()
+    want = _reference(x, w, None)
+    assert not np.allclose(one, want, **TF32_TOL)
+    np.testing.assert_allclose(_model(x, w, None).numpy(), want, **TF32_TOL)
+
+
+def _nonfinite_pattern(y):
+    return np.isnan(y), np.isposinf(y), np.isneginf(y)
+
+
+@pytest.mark.parametrize("rows", ["none", "random"])
+@pytest.mark.parametrize("d,f", [(640, 72), (200, 72)])
+def test_fp32_route_keeps_the_plain_non_finite_pattern(d, f, rows):
+    """inf, NaN and an |x| near FLT_MAX planted in x and w: the panels that
+    hold them are summed unsplit, so inf and NaN land where the plain
+    version puts them (the split alone would turn inf * (hi + lo) into
+    NaN), and every finite output stays within the tolerance."""
+    x, w, live = _tf32_case(d, f, rows)
+    x[:, 0, 3] = np.inf
+    x[:, 2, d - 1] = np.nan
+    x[:, 1, 0] = 3.0e38
+    w[:, 5, 1] = -np.inf
+    w[:, d // 2, f - 1] = np.nan
+    got = _model(x, w, live).numpy()
+    want = _reference(x, w, live)
+    for a, b in zip(_nonfinite_pattern(got), _nonfinite_pattern(want)):
+        assert np.array_equal(a, b)
+    assert np.isnan(want).any() and np.isinf(want).any()
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], **TF32_TOL)
+    # the split of a wide panel is what the rule keeps out
+    xs, ws = (tf32_split(torch.from_numpy(a)) for a in (x, w))
+    naive = sum(a.double() @ b.double() for a, b in (
+        (xs[1], ws[0]), (xs[0], ws[1]), (xs[0], ws[0]))).float().numpy()
+    assert not np.array_equal(np.isnan(naive[:, :2]), np.isnan(want[:, :2]))
+
+
+def test_fp32_config_matches_the_kernel_source():
+    """The host's blocking of the ``"fp32"`` route against the constants of
+    ``csrc/moe_gemm_tf32.cu`` (the card holds it against the built library
+    in ``chip_smoke.py``): 128 x 128 tiles, 32-deep panels, the ring's and
+    the staged stages, and dynamic shared memory within the 227 KB a CTA
+    has."""
+    import re
+    src = tkernel.TF32_SOURCE.read_text()
+    const = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    cfg = tkernel.fp32_config()
+    assert (cfg["bm"], cfg["bn"], cfg["bk"]) == (
+        int(const["BM"]), int(const["BN"]), int(const["BK"])) == (128, 128, 32)
+    assert (cfg["stages"], cfg["w_stages"]) == (
+        int(const["RST"]), int(const["WST"]))
+    assert cfg["smem_bytes"] <= 232448
+
+
+def test_fp32_source_builds_with_the_shared_header():
+    """The split-TF32 source includes the shared PTX header (its library's
+    name covers it) and is one of the sources ``build`` compiles."""
+    header = (Path(cuda_lib.__file__).parent / "hopper.cuh").resolve()
+    assert cuda_lib.local_headers(tkernel.TF32_SOURCE) == [header]
+    assert tkernel.SOURCES == (tkernel.SOURCE, tkernel.TC_SOURCE,
+                               tkernel.TF32_SOURCE)
+    assert cuda_lib.local_headers(tkernel.SOURCE) == []
+
+
+@pytest.mark.parametrize("cap", [8, 88])
+def test_cpu_wrapper_counts_no_fp32_launch(cap):
+    """On CPU tensors the wrapper runs the plain version and counts no
+    launch on the float32 route."""
+    x, w = (torch.from_numpy(a) for a in _xw(2, cap, 64, 32, seed=cap))
+    tkernel.reset_launches()
+    got = tkernel.moe_gemm(x, w)
+    assert torch.equal(got, moe_gemm_ref(x, w))
+    assert tkernel.moe_gemm.launches == 0
+    assert tkernel.moe_gemm.route_launches == dict.fromkeys(tkernel.ROUTES, 0)
