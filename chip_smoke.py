@@ -6,29 +6,36 @@
 Needs one CUDA device and ``nvcc``; imports only ``repro_torch``, torch,
 numpy and scipy. Phases (any failure exits non-zero and prints no result):
 
-  1. build     — compile the kernels' nine sources from the repo, one
-                 nvcc each, all started together; report the three
-                 bsr_spgemm sources' ptxas lines and the ``tc`` and ``warp``
-                 routes' dynamic shared memory
+  1. build     — compile the kernels' ten sources from the repo, one
+                 nvcc each, all started together; report the four
+                 bsr_spgemm sources' ptxas lines and the ``tc``, ``warp``
+                 and ``minplus`` routes' dynamic shared memory
   2. kernel    — the three bsr_spgemm routes against the plain PyTorch
                  version on the card: 3 semirings x bs in {16, 32, 64, 128}
                  through the wrapper (every semiring at bs 16/32 on the
                  ``warp`` route, plus_times and bool_or_and at bs 64/128 on
-                 ``tc``, min_plus at bs 64/128 on ``simt``; the ``simt``
-                 kernel also directly wherever it is not the route), runs
+                 ``tc``, min_plus at bs 64/128 on ``minplus``; the first
+                 kernel, ``simt``, on no route, directly beside each), runs
                  of 1-8 products, a seg_start offset and an empty schedule,
                  min-plus also with NaNs planted (its plain version on the
                  CPU); on ``warp`` and ``tc`` also odd integers in
                  2049-4093 (not TF32-exact; one nonzero per row and column,
                  runs of one product), inf / -inf / NaN / |x| >= 2^127
-                 planted for plus_times and bool_or_and, windows whose runs
+                 planted for plus_times and bool_or_and, products at
+                 overflow magnitudes (nextafter(2^64, 0) squared and
+                 negated, 2e19 squared, a pair whose product is FLT_MAX,
+                 exact products under and over 2^126; one nonzero term an
+                 output element), and for every semiring windows whose runs
                  leave gaps and whose nc runs past the last visited slot
-                 (the output starts as NaN: every slot must be written),
-                 and a window made only of pad products (min-plus too on
-                 ``warp``); integer-valued tiles bitwise, float plus-times
-                 within rtol=1e-5, atol=1e-4 (summation order, the TF32
-                 split), bool / min-plus bitwise (a NaN matching any NaN),
-                 every ``warp`` and ``tc`` launch repeated bitwise
+                 (the output starts as NaN: every slot must be written) and
+                 a window made only of pad products; on ``minplus`` (and
+                 ``simt`` beside it) runs of 1-4 products and one of 80,
+                 which the worker shares cut, +inf and NaN planted, gaps,
+                 pads after the runs and pads only; integer-valued tiles
+                 bitwise, float plus-times within rtol=1e-5, atol=1e-4
+                 (summation order, the TF32 split), bool / min-plus bitwise
+                 (a NaN matching any NaN), every launch on a route repeated
+                 bitwise
   3. main path — laplacian_2d(1024) (1,048,576 rows) A·A through
                  ``SpGEMMSession(device="cuda").matmul(algorithm="1d",
                  nparts=8, bs=128)`` with chunk=None and chunk=2, held
@@ -41,12 +48,20 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  ``previous_ms``, and fp32 ``torch.bmm`` of the gathered
                  products as a yardstick that is not the same function
   4. semirings — banded_clustered(65536, 64, 16.0) with integer weights,
-                 bool_or_and (``tc``) and min_plus (``simt``) at bs=64
+                 bool_or_and (``tc``) and min_plus (``minplus``) at bs=64
                  through the 1D ring (nparts=8, chunk=2), 2D SUMMA (grid
-                 2) and Split-3D (grid 2, 2 layers), each bitwise against
-                 the port's host ``local_spgemm.spgemm``, each on its own
-                 rung; each route's largest launch of the 1D call timed
-                 beside the plain version
+                 2) and Split-3D (grid 2, 2 layers), and min_plus at bs=128
+                 through the 1D ring unchunked, each bitwise against the
+                 port's host ``local_spgemm.spgemm``, each on its own rung;
+                 each 1D call's largest launch timed beside the plain
+                 version and, for min-plus, the ``simt`` kernel with its
+                 fill (``previous_ms``; CUDA events, device time in 11)
+  4a. minplus_main — |laplacian_2d(1024)| (a grid graph's edge weights)
+                 A (x) A in min-plus, one path-doubling step, through the 1D
+                 ring (nparts=8, bs=128, unchunked), every launch on
+                 ``minplus``, bitwise against the host oracle; part 0's
+                 launch (23,228 products) bitwise against the plain version
+                 on the card, repeated, and timed beside it and ``simt``
   4b. default_bs — the session at its default bs (32) and BC's (16), all
                  on the ``warp`` route: laplacian_2d(1024)^2 through the 1D
                  ring with ``bs`` left out, chunk=None and chunk=2, and at
@@ -140,6 +155,12 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  decode step's up GEMM timed, the bound counted as three
                  TF32 passes; at the decode GEMM also the CUDA-core kernel
                  on the live rows, ``cuda_core_rows_ms``)
+  11. minplus_split — the three timed min-plus launches (phases 4 and 4a)
+                 again from host copies of their inputs, under
+                 torch.profiler: the product kernel's and the combine
+                 pass's device time, and the ``simt`` kernel's with its
+                 fill; last, because profiler windows opened before the LM
+                 phases made theirs drop kernel records
 
 Every main-path call must run on the kernel: ``fallbacks == 0``,
 ``last_call["engine"] == "cuda"`` and the kernel's launch count grows.
@@ -202,12 +223,9 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, reps):
-    """Mean device milliseconds per call of ``fn`` over ``reps`` calls after
-    one warm-up: the summed durations of the kernels it launched, from
-    ``torch.profiler``. Unlike CUDA events around back-to-back launches, a
-    host that enqueues more slowly than a short kernel runs does not
-    inflate it."""
+def profiled(fn, reps):
+    """``torch.profiler``'s device events of ``reps`` calls of ``fn`` after
+    one warm-up, summed by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -216,9 +234,35 @@ def device_ms(fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(ev.self_device_time_total for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA) \
-        / 1e3 / reps
+    return [ev for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, reps):
+    """Mean device milliseconds per call of ``fn`` over ``reps`` calls after
+    one warm-up: the summed durations of the kernels it launched, from
+    ``torch.profiler``. Unlike CUDA events around back-to-back launches, a
+    host that enqueues more slowly than a short kernel runs does not
+    inflate it. A profile that recorded no device time (one did on the
+    card) is taken again; a second such profile gives way to CUDA events,
+    as a line of its own says."""
+    for _ in range(2):
+        total = sum(ev.self_device_time_total for ev in profiled(fn, reps))
+        if total > 0:
+            return total / 1e3 / reps
+    emit({"profiler": "recorded no device time twice",
+          "timed_by": "cuda events"})
+    return cuda_ms(fn, reps)
+
+
+def kernel_ms(fn, reps):
+    """Per kernel name, the mean device milliseconds of one launch and the
+    launches the profiler recorded, over ``reps`` calls of ``fn``: a mean
+    over the recorded launches, so a record the profiler drops (one did on
+    the card) does not lower it."""
+    return {ev.key: {"ms": ev.self_device_time_total / 1e3 / ev.count,
+                     "recorded": ev.count}
+            for ev in profiled(fn, reps) if ev.count}
 
 
 def bitwise(x, y):
@@ -240,7 +284,7 @@ def ptxas_lines(log):
 
 
 def phase_build():
-    """Every kernel source built in parallel; the three bsr_spgemm
+    """Every kernel source built in parallel; the four bsr_spgemm
     libraries loaded."""
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.bsr_spgemm import kernel
@@ -251,7 +295,8 @@ def phase_build():
                                       *mg.SOURCES])
     kernel.build()
     smem = {kernel.TC_SOURCE: ("tc", kernel.TC_BS),
-            kernel.WARP_SOURCE: ("warp", kernel.WARP_BS)}
+            kernel.WARP_SOURCE: ("warp", kernel.WARP_BS),
+            kernel.MINPLUS_SOURCE: ("minplus", kernel.TC_BS)}
     for src in kernel.SOURCES:
         info = infos[src]
         extra = ({"dynamic_smem_bytes": {
@@ -302,15 +347,45 @@ def odd_tiles(rng, n, bs):
     return vals
 
 
+# operand pairs at overflow magnitudes (C3): x = nextafter(2**64, 0), whose
+# TF32 hi rounds up to 2**64, so the split's hi.hi overflows where x * x
+# does not; 2e19 squared, past FLT_MAX either way; 2**63 times
+# nextafter(2**65, 0) = FLT_MAX; exact products below 2**127 under and over
+# the kernels' 2**126 pair bound
+_X = float(np.nextafter(np.float32(2.0 ** 64), np.float32(0)))
+OVERFLOW_PAIRS = [(_X, _X), (-_X, _X), (2e19, 2e19),
+                  (2.0 ** 63, float(np.nextafter(np.float32(2.0 ** 65),
+                                                 np.float32(0)))),
+                  (2.0 ** 100, 2.0 ** 20), (3 * 2.0 ** 62, 2.0 ** 63)]
+
+
+def overflow_tiles(rng, bs):
+    """One diagonal A and B tile per pair of ``OVERFLOW_PAIRS``: small
+    nonzero integers, the pair at one place (a different k-panel from tile
+    to tile); product t is A tile t times B tile t, so every output element
+    has one nonzero term."""
+    n = len(OVERFLOW_PAIRS)
+    a = np.zeros((n, bs, bs), np.float32)
+    b = np.zeros((n, bs, bs), np.float32)
+    for t, (x, y) in enumerate(OVERFLOW_PAIRS):
+        d = (37 * t + 5) % bs
+        for m in (a, b):
+            m[t, np.arange(bs), np.arange(bs)] = rng.choice(
+                [-3, -2, -1, 1, 2, 3], size=bs)
+        a[t, d, d], b[t, d, d] = x, y
+    return a, b
+
+
 class RouteCheck:
-    """Holds bsr_spgemm launches against the plain version, per route:
-    integer-valued and bool / min-plus results bitwise (a NaN matching any
-    NaN), float plus-times within rtol=1e-5, atol=1e-4; a ``tc`` launch
-    repeated must be bitwise equal."""
+    """Holds bsr_spgemm launches against the plain version, per route (and
+    the first kernel, ``simt``, on no route): integer-valued and bool /
+    min-plus results bitwise (a NaN matching any NaN), float plus-times
+    within rtol=1e-5, atol=1e-4; a launch given ``repeat`` repeated must be
+    bitwise equal."""
 
     def __init__(self):
-        self.cases = {"tc": 0, "warp": 0, "simt": 0}
-        self.max_err = {"tc": 0.0, "warp": 0.0, "simt": 0.0}
+        self.cases = {"tc": 0, "warp": 0, "minplus": 0, "simt": 0}
+        self.max_err = dict.fromkeys(self.cases, 0.0)
 
     def __call__(self, name, got, want, exact, label, repeat=None):
         torch.cuda.synchronize()
@@ -409,8 +484,7 @@ def phase_kernel(dev):
                              kind != "float" or srname != "plus_times",
                              f"{srname} bs={bs} {kind} "
                              f"window=({seg_start}, {nprod})",
-                             repeat=(launch if name in ("tc", "warp")
-                                     else None))
+                             repeat=(launch if name != "simt" else None))
 
     # the tensor-core routes' own cases: warp at bs 16 and 32, tc at 64 and
     # 128
@@ -462,11 +536,34 @@ def phase_kernel(dev):
             held(name, launch(), want, True,
                  f"{srname}: inf / NaN / huge among {kind} integers bs={bs}",
                  repeat=launch)
-        # gapped windows and pad-only windows: min-plus too on the warp
-        # route, whose kernel fills the identity (+inf) itself
-        for srname in ("plus_times", "bool_or_and") + (
-                ("min_plus",) if name == "warp" else ()):
+        # products at overflow magnitudes (C3), runs of one product: where
+        # the split's hi.hi overflows the kernel sums the panel unsplit, as
+        # the plain version does; bool booleanizes first
+        a, b = overflow_tiles(rng, bs)
+        n = len(OVERFLOW_PAIRS)
+        tiles = [put(a), put(b)]
+        o_c = np.sort(rng.choice(n + 2, size=n, replace=False)).astype(
+            np.int32)
+        o_slots = [put(np.arange(n, dtype=np.int32)),
+                   put(np.arange(n, dtype=np.int32)), put(o_c)]
+        o_rs = put(kernel.run_starts_from_flags(flags_from_c_slot(o_c), 0, n))
+        for srname in ("plus_times", "bool_or_and"):
             sr = by_name(srname)
+            want = bsr_spgemm_ref(*tiles, *o_slots, nc=n + 3, semiring=sr)
+            if srname == "plus_times":
+                diag = want[:, torch.arange(bs), torch.arange(bs)]
+                check(bool((diag == float(np.finfo(np.float32).max)).any())
+                      and bool(torch.isposinf(diag).any()),
+                      f"overflow case bs={bs} lacks FLT_MAX or inf")
+            launch = lambda: run(name, tiles, o_slots, o_rs, n, n + 3, bs, sr)
+            held(name, launch(), want, True,
+                 f"{srname}: products at overflow magnitudes bs={bs}",
+                 repeat=launch)
+        # gapped windows and pad-only windows, every semiring on its route
+        # (each kernel fills the identity itself)
+        for srname in SEMIRINGS:
+            sr = by_name(srname)
+            name = kernel.route(sr, bs)
             # runs on a sorted subset of the slots, nc past the last one
             nruns, nc = 30, 3 * 30 + 7
             a_slot, b_slot, c_slot, flags, starts = random_schedule(
@@ -514,12 +611,83 @@ def phase_kernel(dev):
                 held(name, launch(), want, True,
                      f"pad products {srname} bs={bs} window=({seg_start}, "
                      f"{nprod}), {real} real", repeat=launch)
+    phase_minplus_kernel(dev, rng, held, put, run)
     emit({"phase": "kernel_vs_plain", "cases": held.cases,
           "max_abs_err_float_plus_times": held.max_err,
           "tolerance": {"integer_bool_min_plus": "bitwise, NaN as any NaN",
                         "float_plus_times": {"rtol": 1e-5, "atol": 1e-4},
-                        "repeat_tc_warp": "bitwise"}})
+                        "repeat_routes": "bitwise"}})
     return held.max_err
+
+
+def phase_minplus_kernel(dev, rng, held, put, run):
+    """The ``minplus`` route's own cases at bs 64 and 128, ``simt`` beside
+    it: runs of 1-4 products and one of 80, which the worker shares cut, on
+    a sorted subset of the slots (gaps, nc past the last), integer tiles
+    with +inf and a NaN planted in every third tile; the whole window, a
+    seg_start offset, pad products after the runs and a window of pads only
+    (every slot +inf); the output prefilled with NaN, each launch repeated
+    bitwise, the plain version on the CPU (its NaN rules are the
+    reference's)."""
+    from repro_torch.core.blocksparse import flags_from_c_slot
+    from repro_torch.core.semiring import MIN_PLUS
+    from repro_torch.kernels.bsr_spgemm import kernel
+    from repro_torch.kernels.bsr_spgemm.ref import bsr_spgemm_ref
+
+    na = nb = 24
+    for bs in kernel.TC_BS:
+        name = kernel.route(MIN_PLUS, bs)
+        check(name == "minplus", f"min_plus at bs {bs} is routed to {name}")
+        nruns, nc = 60, 3 * 60 + 7
+        lens = rng.integers(1, 5, size=nruns)
+        lens[17] = 80
+        a_slot, b_slot, c_slot, flags, starts = random_schedule(
+            rng, na, nb, nruns, lens=lens, nc=nc - 6)
+        tiles = []
+        for n in (na, nb):
+            vals = rng.integers(-3, 4, size=(n, bs, bs)).astype(np.float32)
+            vals[rng.random((n, bs, bs)) < 0.3] = np.inf
+            vals[::3] = plant(rng, vals[::3], [np.nan])
+            tiles.append(vals)
+        npad = 5
+        pad_c = np.concatenate([c_slot, np.full(npad, nc - 1, np.int32)])
+        slots = [np.concatenate([a_slot, a_slot[:npad]]),
+                 np.concatenate([b_slot, b_slot[:npad]]), pad_c]
+        pad_flags = flags_from_c_slot(pad_c)
+        on_card = [put(t) for t in tiles + slots]
+        workers = kernel.minplus_workers(bs, dev)
+        for label, seg_start, nprod, fl in (
+                ("whole", 0, len(c_slot), flags),
+                ("offset", int(starts[4]), int(starts[50] - starts[4]), flags),
+                ("pads after", 0, len(pad_c), pad_flags),
+                ("pads only", len(c_slot), npad, pad_flags)):
+            rs_np = kernel.run_starts_from_flags(fl, seg_start, nprod)
+            if pad_c[rs_np[-2]] == nc - 1:
+                rs_np = rs_np[:-1]
+            rs = put(rs_np)
+            real = int(rs_np[-1] - seg_start)
+            if real:
+                want = bsr_spgemm_ref(
+                    *map(torch.from_numpy, tiles + slots), nc=nc,
+                    semiring=MIN_PLUS, seg_start=seg_start,
+                    seg_len=real).to(dev)
+            else:
+                want = torch.full((nc, bs, bs), float("inf"), device=dev)
+            cut = int((kernel.minplus_shares(rs_np, workers, bs)[1]
+                       >= 0).sum())
+            if label == "whole":
+                check(cut > 0 and bool(torch.isnan(want).any())
+                      and bool(torch.isfinite(want).any()),
+                      f"minplus case bs={bs} cuts no run or lacks NaN or "
+                      f"finite outputs")
+            for route in (name, "simt"):
+                launch = lambda route=route: run(route, on_card[:2],
+                                                 on_card[2:], rs, nprod, nc,
+                                                 bs, MIN_PLUS, seg_start)
+                held(route, launch(), want, True,
+                     f"min_plus {label} bs={bs} window=({seg_start}, "
+                     f"{nprod}), {real} real, {cut} cut runs",
+                     repeat=launch)
 
 
 def session_call(sess, kernel, a, b, **kw):
@@ -845,6 +1013,9 @@ def time_semiring_launch(kernel, args, kw):
         check(bitwise(previous(), plain()),
               f"{sr.name} launch on simt != plain version")
         extra["previous_ms"] = cuda_ms(previous, 5)
+    if name == "minplus":
+        extra.update(minplus_stats(kernel, f"bs{bs}", tiles, slots, rs, nc,
+                                   bs))
     moved, read = launch_bytes(slots[0], slots[1], rs, nc, bs)
     if sr.name != "min_plus":   # bool: booleanized operands, one TF32 pass
         bd = bounds(moved, 2 * real * bs ** 3, tc_pass_panels(
@@ -863,15 +1034,75 @@ def time_semiring_launch(kernel, args, kw):
             "bounds": bd, **extra}
 
 
+# host copies of the timed minplus launches' inputs, by launch: profiled
+# last (phase_minplus_split)
+MINPLUS_INPUTS = {}
+
+
+def minplus_stats(kernel, label, tiles, slots, rs, nc, bs):
+    """A ``minplus`` launch's shape: its runs, its longest run, its workers
+    and the runs their shares cut. Its inputs are kept on the host for
+    :func:`phase_minplus_split`."""
+    rs_np = rs.cpu().numpy()
+    workers = kernel.minplus_workers(bs, rs.device)
+    heads = kernel.minplus_shares(rs_np, workers, bs)[1]
+    MINPLUS_INPUTS[label] = ([t.cpu() for t in (*tiles, *slots, rs)], nc,
+                             bs)
+    return {"runs": len(rs_np) - 1,
+            "longest_run": int(np.diff(rs_np).max(initial=0)),
+            "workers": workers, "cut_runs": int(np.unique(heads[heads >= 0])
+                                                .size)}
+
+
+def phase_minplus_split(dev):
+    """The timed minplus launches again, from their kept inputs, under
+    ``torch.profiler``: the mean duration of each of the route's two
+    kernels, the product and the combine pass, and their sum; and the sum
+    of the ``simt`` kernel's and its fill's (device time, which the host's
+    enqueue rate cannot inflate). It runs after the LM phases, so that
+    their profiler windows are the process's first: on the card, windows
+    opened earlier left later ones dropping kernel records."""
+    from repro_torch.core.semiring import MIN_PLUS
+    from repro_torch.kernels.bsr_spgemm import kernel
+
+    split = {}
+    for label, (ts, nc, bs) in MINPLUS_INPUTS.items():
+        a, b, a_slot, b_slot, c_slot, rs = (t.to(dev) for t in ts)
+        out = torch.empty((nc, bs, bs), dtype=torch.float32, device=dev)
+        reps = 20 if nc * bs * bs < 2 ** 26 else 5
+        by_kernel, previous = (kernel_ms(lambda route=route: kernel._launch(
+            route, a, b, a_slot, b_slot, c_slot, rs, out, bs=bs,
+            semiring=MIN_PLUS), reps) for route in ("minplus", "simt"))
+        main = [v for k, v in by_kernel.items() if "minplus_kernel" in k]
+        combine = [v for k, v in by_kernel.items() if "minplus_combine" in k]
+        check(len(main) == 1 and len(combine) == 1,
+              f"the minplus launch ran other kernels: {sorted(by_kernel)}")
+        split[label] = {"main_ms": main[0]["ms"],
+                        "combine_ms": combine[0]["ms"],
+                        "device_ms": main[0]["ms"] + combine[0]["ms"],
+                        "previous_device_ms": sum(v["ms"] for v in
+                                                  previous.values()),
+                        "profiled_launches": {"main": main[0]["recorded"],
+                                              "combine":
+                                                  combine[0]["recorded"],
+                                              "calls": reps}}
+        del a, b, a_slot, b_slot, c_slot, rs, out
+    MINPLUS_INPUTS.clear()
+    emit({"phase": "minplus_split", **split})
+    return split
+
+
 SEMIRING_CALLS = (("1d", dict(nparts=8, chunk=2)), ("2d", dict(grid=2)),
                   ("3d", dict(grid=2, layers=2)))
 
 
 def phase_semirings(dev, sess, n=65536):
-    """bool_or_and (``tc``) and min_plus (``simt``) at scale through the
-    1D ring, 2D SUMMA and Split-3D, against the host oracle; the 1D call's
-    largest launch timed on its route. Launches are counted per call (reset
-    just before, read just after) and summed per semiring."""
+    """bool_or_and (``tc``) and min_plus (``minplus``) at scale through the
+    1D ring, 2D SUMMA and Split-3D at bs 64, against the host oracle; the
+    1D call's largest launch timed on its route (launch (a) for min-plus);
+    then min_plus at bs 128 through the 1D ring, unchunked, its largest
+    launch timed (launch (b)). Launches are counted per call (reset just
+    before, read just after) and summed per semiring."""
     from repro_torch.core import banded_clustered, by_name
     from repro_torch.core.device_common import REQUIRED_STATS
     from repro_torch.core.local_spgemm import spgemm
@@ -882,7 +1113,8 @@ def phase_semirings(dev, sess, n=65536):
     a.data[a.data == 0] = 1.0
     a = a.astype(np.float32)
     timings = {}
-    for srname, want_route in (("bool_or_and", "tc"), ("min_plus", "simt")):
+    for srname, want_route in (("bool_or_and", "tc"),
+                               ("min_plus", "minplus")):
         sr = by_name(srname)
         want = spgemm(a, a, sr)
         launches = 0
@@ -922,7 +1154,99 @@ def phase_semirings(dev, sess, n=65536):
                 timings[srname] = row["largest_launch"] = t
             emit(row)
         timings[srname]["launches"] = launches
+    # launch (b): min-plus at bs 128, the 1D ring unchunked, against the
+    # loop's last oracle (min-plus)
+    check(sr.name == "min_plus", "launch (b) is not min-plus")
+    kernel.reset_launches()
+    c, wall = session_call(sess, kernel, a, a, algorithm="1d", bs=128,
+                           semiring=sr, nparts=8, chunk=None)
+    routes = dict(kernel.bsr_spgemm.route_launches)
+    check(routes["minplus"] > 0 and sum(routes.values()) == routes["minplus"],
+          f"min_plus 1d at bs 128 ran off the minplus route: {routes}")
+    same_csc(c, want, "min_plus 1d bs 128")
+    entry = next(reversed(sess._cache.values()))
+    t = time_semiring_launch(kernel, *largest_launch(
+        kernel, lambda: entry.fn(*entry.args)))
+    t["launches"] = routes["minplus"]
+    timings["min_plus_bs128"] = t
+    emit({"phase": "semiring", "semiring": "min_plus", "algorithm": "1d",
+          "matrix": f"banded_clustered({n}, 64, 16.0, seed=0)", "bs": 128,
+          "nparts": 8, "chunk": None, "wall_s": wall,
+          "execute_ms": cuda_ms(lambda: entry.fn(*entry.args), 3),
+          "route_launches": routes, "largest_launch": t})
     return timings
+
+
+def phase_minplus_main(dev, side=1024):
+    """Launch (c): laplacian_2d(side) with |values| as a grid graph's edge
+    weights, A (x) A in min-plus (one path-doubling step) through
+    ``SpGEMMSession`` on the 1D ring (nparts=8, bs=128, unchunked), every
+    launch on ``minplus``, bitwise against the host oracle; then part 0's
+    launch held bitwise against the plain version on the card and timed
+    beside it and the ``simt`` kernel with its fill."""
+    from repro_torch.core import MIN_PLUS, laplacian_2d
+    from repro_torch.core.local_spgemm import spgemm
+    from repro_torch.core.session import SpGEMMSession
+    from repro_torch.kernels.bsr_spgemm import kernel
+    from repro_torch.kernels.bsr_spgemm.ref import bsr_spgemm_ref
+
+    a = laplacian_2d(side).astype(np.float32)
+    a.data[:] = np.abs(a.data)
+    t0 = time.perf_counter()
+    want = spgemm(a, a, MIN_PLUS)
+    oracle_s = time.perf_counter() - t0
+    sess = SpGEMMSession(device=dev)
+    kernel.reset_launches()
+    c, wall = session_call(sess, kernel, a, a, algorithm="1d", nparts=8,
+                           bs=128, semiring=MIN_PLUS, chunk=None)
+    routes = dict(kernel.bsr_spgemm.route_launches)
+    check(routes["minplus"] > 0 and sum(routes.values()) == routes["minplus"],
+          f"min-plus Laplacian ran off the minplus route: {routes}")
+    same_csc(c, want, "min-plus laplacian 1d bs 128")
+    entry = next(reversed(sess._cache.values()))
+    plan, bs = entry.plan, 128
+    tiles, slots, starts = part0_inputs(dev, plan, entry.args)
+    nc, real = plan.nc_max + 1, int(starts[-1] - starts[0])
+    rs = torch.from_numpy(starts).to(dev)
+    out = torch.empty((nc, bs, bs), dtype=torch.float32, device=dev)
+
+    def launch(route="minplus"):
+        kernel._launch(route, *tiles, *slots, rs, out, bs=bs,
+                       semiring=MIN_PLUS)
+        return out
+
+    def plain():
+        return bsr_spgemm_ref(*tiles, *slots, nc=nc, semiring=MIN_PLUS,
+                              seg_len=real)
+
+    ref = plain()
+    check(bitwise(launch(), ref), "min-plus part 0 on minplus != plain")
+    check(bitwise(launch("simt"), ref), "min-plus part 0 on simt != plain")
+    check(bitwise(launch(), ref), "a repeated minplus launch differs")
+    del ref
+    ms = cuda_ms(launch, 5)
+    previous_ms = cuda_ms(lambda: launch("simt"), 3)
+    plain_ms = cuda_ms(plain, 1)
+    moved, read = launch_bytes(slots[0], slots[1], rs, nc, bs)
+    bd = bounds(moved, 4 * real * bs ** 3, 0, bs)
+    t = {"ms": ms, "previous_ms": previous_ms, "plain_ms": plain_ms,
+         "library_ms": None, "bound_ms": max(bd["fp32_ops_ms"],
+                                             bd["bytes_ms"]),
+         "bound_by": ("operations" if bd["fp32_ops_ms"] >= bd["bytes_ms"]
+                      else "bytes"),
+         "route": "minplus", "bs": bs, "tile_products": real,
+         "output_tiles": nc, "bytes": moved, "tiles_read": read,
+         "bounds": bd, "launches": routes["minplus"],
+         **minplus_stats(kernel, "laplacian", tiles, slots, rs, nc, bs)}
+    emit({"phase": "minplus_main", "matrix": f"|laplacian_2d({side})|",
+          "semiring": "min_plus", "nparts": 8, "bs": bs, "chunk": None,
+          "wall_s": wall, "oracle_s": oracle_s, "nnz_c": want.nnz,
+          "execute_ms": cuda_ms(lambda: entry.fn(*entry.args), 3),
+          "route_launches": routes, "part0_launch": t})
+    del entry, plan, tiles, slots, out
+    sess.clear()
+    torch.cuda.empty_cache()
+    return t
 
 
 def phase_default_bs(dev, case, ring_ms, n=65536):
@@ -1900,6 +2224,7 @@ def main():
         semirings = phase_semirings(dev, sess)
         del sess, plan, args      # the SpGEMM session's cached entries
         torch.cuda.empty_cache()
+        minplus_main = phase_minplus_main(dev)
         default = phase_default_bs(dev, case, ring_ms)
         summa_launches = phase_summa(dev, case, ring)
         del case
@@ -1909,6 +2234,7 @@ def main():
         moe_grid_err = phase_moe_grid(dev)
         (routes, attn_routes, flash, flash_fp32, gemms,
          fp32) = phase_lm_serve(dev)
+        split = phase_minplus_split(dev)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -1919,7 +2245,19 @@ def main():
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     timing["library_ms"] = None
     timing["max_abs_err"] = max(grid_err["tc"], timing["err"])
-    simt = dict(semirings["min_plus"], max_abs_err=grid_err["simt"])
+    # minplus launches: device time first, CUDA events beside it
+    mp, mp_b, mp_c = (dict(t, **split[label], events_ms=t["ms"],
+                           previous_events_ms=t["previous_ms"],
+                           ms=split[label]["device_ms"],
+                           previous_ms=split[label]["previous_device_ms"])
+                      for t, label in ((semirings["min_plus"], "bs64"),
+                                       (semirings["min_plus_bs128"], "bs128"),
+                                       (minplus_main, "laplacian")))
+    mp["max_abs_err"] = grid_err["minplus"]
+    mp_keys = ("ms", "main_ms", "combine_ms", "events_ms", "previous_ms",
+               "previous_events_ms", "plain_ms", "bound_ms", "bound_by",
+               "tile_products", "runs", "longest_run", "workers", "cut_runs",
+               "launches")
     bsr_src = "src/repro_torch/kernels/bsr_spgemm/csrc/"
     bsr_pallas = "src/repro/kernels/bsr_spgemm/kernel.py:92"
     flash["max_abs_err"] = max(flash_grid_err["bfloat16"],
@@ -1983,13 +2321,25 @@ def main():
                     "bmm_products_ms": timing["bmm_products_ms"],
                     "bool_bs64": semirings["bool_or_and"]},
                    source=bsr_src + "bsr_spgemm_tc.cu"),
-        kernel_row("bsr_spgemm_simt", bsr_pallas, simt["launches"], simt,
-                   {"kernel_route": "simt", "serves": "min_plus at bs 64 "
+        kernel_row("bsr_spgemm_minplus", bsr_pallas,
+                   mp["launches"] + mp_b["launches"] + mp_c["launches"], mp,
+                   {"kernel_route": "minplus", "serves": "min_plus at bs 64 "
                     "and 128", "launches_on":
-                    "the min-plus path (banded_clustered, bs 64): 1D "
-                    "(chunk 2), 2D and 3D",
-                    "main_path_ms": timing["previous_ms"]},
-                   source=bsr_src + "bsr_spgemm.cu"),
+                    "the min-plus paths: banded_clustered at bs 64 through "
+                    "1D (chunk 2), 2D and 3D (launch a, the 1D call's "
+                    "largest), at bs 128 through 1D unchunked (launch b), "
+                    "and |laplacian_2d(1024)| at bs 128 through 1D "
+                    "unchunked (launch c, part 0)",
+                    "bs": 64, "ms_is": "profiler device time of the "
+                    "product and the combine pass (previous_ms: of the "
+                    "simt kernel and its fill); events_ms: CUDA events "
+                    "around back-to-back calls, the host's enqueue in it",
+                    "previous_ms": mp["previous_ms"],
+                    "previous_source": bsr_src + "bsr_spgemm.cu",
+                    "launch_a": {k: mp[k] for k in mp_keys},
+                    "launch_b": {k: mp_b[k] for k in mp_keys},
+                    "launch_c": {k: mp_c[k] for k in mp_keys}},
+                   source=bsr_src + "bsr_spgemm_minplus.cu"),
         kernel_row("flash_attention_bf16", fa_pallas, attn_routes["tc"],
                    flash, {"shape": flash["shape"],
                            "previous_ms": flash["previous_ms"],

@@ -28,11 +28,14 @@
 // makes the decision uniform, and only a flagged operand is split. Integer
 // payloads such as the Laplacian's run one pass. The split breaks IEEE's
 // non-finite rules: inf * (hi + lo) is NaN where hi and lo differ in sign,
-// and an |x| >= 2^127 may round its hi to infinity. So the first pass also
-// looks for an element with an exponent of 0xFE or 0xFF (|x| >= 2^127,
-// infinity or NaN) in either operand; such a panel is not split but summed
-// on the CUDA cores in IEEE fp32 from the panel as it landed, and inf and
-// NaN propagate as in the plain version.
+// and an |x| >= 2^127 may round its hi to infinity; hi may also round up by
+// up to 2^-11 of x, so hi.hi of two finite operands can overflow where
+// their fp32 product does not. So the first pass also takes the largest
+// magnitude of each operand's panel; a panel where either holds an element
+// with an exponent of 0xFE or 0xFF (|x| >= 2^127, infinity or NaN), or where
+// the two largest magnitudes multiply to 2^126 or more (tile_rules.cuh's
+// unsplit_panel), is not split but summed on the CUDA cores in IEEE fp32
+// from the panel as it landed, as the plain version sums it.
 // bool_or_and booleanizes while staging (x != 0 -> 1, as _bool_matmul), runs
 // the hi.hi pass only, and clips min(acc, 1) at the end of the run: every
 // term is >= 0, so sum-then-clip equals the plain version's clip-then-max.
@@ -68,9 +71,9 @@
 //  * A run's epilogue stores its tile straight from the accumulator
 //    fragments, 16 bytes a lane after one shuffle with the neighbour lane,
 //    streaming past L2, while the producer loads the next run's panels.
-//  * Before its runs each CTA fills its share of [0, nc) with the identity
-//    wherever no run writes (a binary search of the run slots per slot),
-//    so a chunked window that visits few slots costs no whole-output fill.
+//  * Before its runs each consumer warp fills its share of [0, nc) with the
+//    identity wherever no run writes (tile_rules.cuh's fill_gaps), so a
+//    chunked window that visits few slots costs no whole-output fill.
 //
 // Requirements: tile stacks contiguous float32, 16-byte aligned, slots and
 // run starts int32 (checked by the wrapper); and, as the schedule builds
@@ -116,8 +119,11 @@ struct Cfg {
   // 1024 of slack aligns the buffers to the swizzle's 1024-byte atoms:
   //   bs 128: 4 x 32 KB ring + 2 x 48 KB operands = 224 KB, 1 CTA an SM
   //   bs  64: 3 x 16 KB ring + 2 x 24 KB operands =  96 KB, 2 CTAs an SM
+  // a vote set: per consumer warp its flags and the bits of its largest A
+  // and B magnitudes (stage_finish)
+  static constexpr int VOTES = 3 * (NCONS / 32);
   static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * OPS
-                              + 2 * STAGES * 8 + 2 * (NCONS / 32) * 4;
+                              + 2 * STAGES * 8 + 2 * VOTES * 4;
   static_assert(SMEM <= 232448, "shared memory past the 227 KB a CTA has");
 };
 
@@ -205,18 +211,19 @@ struct Panel {
 // First pass over a landed panel. bool: booleanize A in place and B into
 // B^T, done. plus_times: copy B into B^T, which is its hi wherever B is
 // TF32-exact, and report which operand holds an element that is not (low
-// 13 bits set): bit 1 for A, 2 for B; and bit 4 where either holds an
-// element past the split's reach (wide()). A TF32-exact operand is its own
+// 13 bits set): bit 1 for A, 2 for B; and this thread's largest magnitude
+// of each (a_mag, b_mag, NaN if it saw one). A TF32-exact operand is its own
 // hi and has no lo, so integer panels need nothing more.
 template <int BS, bool BOOL>
 __device__ __forceinline__ uint32_t stage_copy(uint8_t* raw, uint8_t* ops,
                                                uint64_t* full,
-                                               uint32_t parity, int tid) {
+                                               uint32_t parity, float& a_mag,
+                                               float& b_mag, int tid) {
   using C = Cfg<BS>;
   mbar_wait(full, parity);
   const Panel<BS> pn(raw, ops);
   uint32_t a_bits = 0, b_bits = 0;
-  float mag = 0.0f;
+  a_mag = b_mag = 0.0f;
 #pragma unroll
   for (int j = 0; j < C::CHUNKS / C::NCONS; ++j) {
     const int i = tid + j * C::NCONS;
@@ -225,7 +232,7 @@ __device__ __forceinline__ uint32_t stage_copy(uint8_t* raw, uint8_t* ops,
       pn.a[i] = booleanize(v);
     } else {
       a_bits |= bits_of(v);
-      mag = mag_of(mag, v);
+      a_mag = mag_of(a_mag, v);
     }
   }
 #pragma unroll
@@ -238,12 +245,11 @@ __device__ __forceinline__ uint32_t stage_copy(uint8_t* raw, uint8_t* ops,
     } else {
       pn.bt_hi[Panel<BS>::bt_at(n, kc)] = v;
       b_bits |= bits_of(v);
-      mag = mag_of(mag, v);
+      b_mag = mag_of(b_mag, v);
     }
   }
   return ((a_bits & kTf32LowBits) ? 1u : 0u)
-         | ((b_bits & kTf32LowBits) ? 2u : 0u)
-         | (wide(mag) ? 4u : 0u);
+         | ((b_bits & kTf32LowBits) ? 2u : 0u);
 }
 
 // Second pass, for the operands `flags` names only: split every element
@@ -284,30 +290,44 @@ __device__ __forceinline__ void consumer_sync(int count) {
 
 // Finish staging a panel whose first pass every consumer has done: make
 // the pass's writes visible to wgmma and agree on the flags behind one
-// barrier (each warp ORs its lanes' flags into its word of `votes`, and
-// every consumer ORs the words after the barrier), then run the split pass
-// where a flag is set. Returns the uniform flags: which lo passes the
-// panel's MMAs need, or 4 for a panel that goes to the CUDA cores unsplit
-// (fma_panel). Alternate panels use alternate vote sets: a set is written
-// again two panels on, past the next panel's barrier, so after every
-// consumer has read it.
+// barrier (each warp ORs its lanes' flags into its words of `votes` and
+// takes its lanes' largest magnitudes, whose bits order as their values, a
+// NaN's above infinity's; every consumer folds the words after the
+// barrier), then run the split pass where a flag is set. Returns the
+// uniform flags: which lo passes the panel's MMAs need, or 4 for a panel
+// that goes to the CUDA cores unsplit (fma_panel, where unsplit_panel holds
+// for the panel's largest A and B magnitudes). Alternate panels use
+// alternate vote sets: a set is written again two panels on, past the next
+// panel's barrier, so after every consumer has read it.
 template <int BS, bool BOOL>
 __device__ __forceinline__ uint32_t stage_finish(uint8_t* raw, uint8_t* ops,
                                                  uint32_t* votes,
-                                                 uint32_t mine, int tid) {
+                                                 uint32_t mine, float a_mag,
+                                                 float b_mag, int tid) {
   constexpr int NCONS = Cfg<BS>::NCONS;
   fence_proxy_async();
   if constexpr (BOOL) {
     consumer_sync(NCONS);
     return 0u;
   }
-  const uint32_t warp = __reduce_or_sync(0xffffffffu, mine);
-  if (tid % 32 == 0) votes[tid / 32] = warp;
+  const uint32_t warp = __reduce_or_sync(FULL, mine);
+  const uint32_t a_max = __reduce_max_sync(FULL, __float_as_uint(a_mag));
+  const uint32_t b_max = __reduce_max_sync(FULL, __float_as_uint(b_mag));
+  if (tid % 32 == 0) {
+    votes[3 * (tid / 32)] = warp;
+    votes[3 * (tid / 32) + 1] = a_max;
+    votes[3 * (tid / 32) + 2] = b_max;
+  }
   consumer_sync(NCONS);
-  uint32_t flags = 0;
+  uint32_t flags = 0, a_bits = 0, b_bits = 0;
 #pragma unroll
-  for (int w = 0; w < NCONS / 32; ++w) flags |= votes[w];
-  if (flags & 4u) return 4u;
+  for (int w = 0; w < NCONS / 32; ++w) {
+    flags |= votes[3 * w];
+    a_bits = max(a_bits, votes[3 * w + 1]);
+    b_bits = max(b_bits, votes[3 * w + 2]);
+  }
+  if (unsplit_panel(__uint_as_float(a_bits), __uint_as_float(b_bits)))
+    return 4u;
   if (flags) {
     stage_split<BS>(raw, ops, flags, tid);
     fence_proxy_async();
@@ -422,41 +442,6 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BS / 2],
   }
 }
 
-// The identity (0) into every slot of this CTA's share of [0, nc) that no
-// run writes: each lane looks one slot up among the runs' slots (strictly
-// increasing), and the warp fills the misses together.
-template <int BS, int NCONS>
-__device__ void fill_gaps(float* out, const int* c_slot,
-                          const int* run_starts, int nruns, int nc,
-                          int tid) {
-  const int grid = static_cast<int>(gridDim.x);
-  const int per = (nc + grid - 1) / grid;
-  const int lo = static_cast<int>(blockIdx.x) * per;
-  const int hi = min(nc, lo + per);
-  const int lane = tid % 32;
-  for (int base = lo + (tid / 32) * 32; base < hi; base += NCONS) {
-    const int s = base + lane;
-    bool gap = false;
-    if (s < hi) {
-      int l = 0, h = nruns;               // first run whose slot is >= s
-      while (l < h) {
-        const int m = (l + h) >> 1;
-        if (c_slot[run_starts[m]] < s) l = m + 1; else h = m;
-      }
-      gap = l == nruns || c_slot[run_starts[l]] != s;
-    }
-    unsigned todo = __ballot_sync(0xffffffffu, gap);
-    while (todo) {
-      const int i = __ffs(todo) - 1;
-      todo &= todo - 1;
-      float4* t =
-          reinterpret_cast<float4*>(out + (size_t)(base + i) * BS * BS);
-      for (int e = lane; e < BS * BS / 4; e += 32)
-        __stcs(t + e, make_float4(0.0f, 0.0f, 0.0f, 0.0f));
-    }
-  }
-}
-
 template <int BS, bool BOOL>
 __global__ void __launch_bounds__(Cfg<BS>::THREADS, Cfg<BS>::MIN_BLOCKS)
 bsr_spgemm_tc_kernel(const __grid_constant__ CUtensorMap amap,
@@ -474,7 +459,7 @@ bsr_spgemm_tc_kernel(const __grid_constant__ CUtensorMap amap,
   uint8_t* opbuf = ring + C::STAGES * C::STAGE;      // two operand sets
   uint64_t* full = reinterpret_cast<uint64_t*>(opbuf + 2 * C::OPS);
   uint64_t* empty = full + C::STAGES;
-  // two sets of a flag word per consumer warp (stage_finish)
+  // two vote sets (stage_finish)
   uint32_t* votes = reinterpret_cast<uint32_t*>(empty + C::STAGES);
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -516,7 +501,9 @@ bsr_spgemm_tc_kernel(const __grid_constant__ CUtensorMap amap,
   const int wg = tid / 128;
   const int lane = tid % 32;
   const int row0 = wg * 64 + ((tid % 128) / 32) * 16;
-  fill_gaps<BS, C::NCONS>(out, c_slot, run_starts, nruns, nc, tid);
+  fill_gaps<BS>(out, c_slot, run_starts, nruns, nc, 0.0f,
+                static_cast<int>(blockIdx.x) * (C::NCONS / 32) + tid / 32,
+                static_cast<int>(gridDim.x) * (C::NCONS / 32), lane);
 
   Cursor cur;
   if (!first_panel<KP>(cur, run_starts, nruns)) return;
@@ -524,9 +511,11 @@ bsr_spgemm_tc_kernel(const __grid_constant__ CUtensorMap amap,
   float acc[BS / 2];                    // the run so far
 #pragma unroll
   for (int i = 0; i < BS / 2; ++i) part[i] = acc[i] = 0.0f;
-  uint32_t flags = stage_finish<BS, BOOL>(
-      ring, opbuf, votes,
-      stage_copy<BS, BOOL>(ring, opbuf, &full[0], 0, tid), tid);
+  float a_mag, b_mag;
+  uint32_t flags = stage_copy<BS, BOOL>(ring, opbuf, &full[0], 0, a_mag,
+                                        b_mag, tid);
+  flags = stage_finish<BS, BOOL>(ring, opbuf, votes, flags, a_mag, b_mag,
+                                 tid);
   for (int it = 0;; ++it) {
     // panel `it` is staged: its MMAs run while the next panel is staged
     // into the other operand set
@@ -544,12 +533,15 @@ bsr_spgemm_tc_kernel(const __grid_constant__ CUtensorMap amap,
     uint8_t* next_raw = ring + (n % C::STAGES) * C::STAGE;
     uint8_t* next_ops = opbuf + (n & 1) * C::OPS;
     uint32_t next_flags = 0;
-    if (more)
-      next_flags = stage_finish<BS, BOOL>(
-          next_raw, next_ops, votes + (n & 1) * (C::NCONS / 32),
-          stage_copy<BS, BOOL>(next_raw, next_ops, &full[n % C::STAGES],
-                               (n / C::STAGES) & 1, tid),
-          tid);
+    if (more) {
+      next_flags = stage_copy<BS, BOOL>(next_raw, next_ops,
+                                        &full[n % C::STAGES],
+                                        (n / C::STAGES) & 1, a_mag, b_mag,
+                                        tid);
+      next_flags = stage_finish<BS, BOOL>(next_raw, next_ops,
+                                          votes + (n & 1) * C::VOTES,
+                                          next_flags, a_mag, b_mag, tid);
+    }
     wgmma_wait<0>();
     fence_acc(part);
     if (tid % 128 == 0) mbar_arrive(&empty[s]);  // this WG is done with s

@@ -51,8 +51,10 @@
 //    TF32-exact (13 low bits set somewhere) is split into hi + lo in
 //    registers and its lo passes run, lo terms before hi.hi; integer payloads
 //    run one pass and stay bitwise equal to the plain version. A product
-//    holding an infinity, a NaN or an |x| >= 2^127 is summed unsplit in IEEE
-//    fp32 on the CUDA cores, so those propagate as in the plain version. The
+//    holding an infinity, a NaN or an |x| >= 2^127, or whose largest A and
+//    B magnitudes multiply to 2^126 or more (where hi.hi could overflow and
+//    the fp32 product would not; tile_rules.cuh's unsplit_panel), is summed
+//    unsplit in IEEE fp32 on the CUDA cores, as in the plain version. The
 //    tensor core truncates its accumulate, so each product sums into a fresh
 //    accumulator and the run adds its products in IEEE fp32, starting from
 //    its first (no literal identity is added); a zero result is stored as
@@ -68,8 +70,8 @@
 //  * The identity fill in the kernel: each warp takes an equal share of the
 //    slots [0, nc), finds its first run by a 32-way search over the run
 //    slots and writes the identity into every slot of its share that no run
-//    writes, while its first products load. A window of pad products only
-//    (no run) gets every slot filled.
+//    writes, while its first products load (tile_rules.cuh's fill_gaps). A
+//    window of pad products only (no run) gets every slot filled.
 //
 // Requirements: tile stacks contiguous float32, 16-byte aligned, slots and
 // run starts int32 (checked by the wrapper); and, as the schedule builds
@@ -89,7 +91,6 @@ namespace {
 
 constexpr int WARPS = 8;               // warps a CTA
 constexpr int THREADS = WARPS * 32;
-constexpr unsigned FULL = 0xffffffffu;
 
 // Warps that share one run, each its BS / SPLIT rows of the output: two for
 // min-plus at bs 32 (the header's design notes), one elsewhere.
@@ -129,18 +130,6 @@ __device__ __forceinline__ int at(int r, int c) {
   else
     x = BS == 32 ? r & 7 : (r >> 1) & 3;
   return r * BS + (((c >> 2) ^ x) << 2) + (c & 3);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-               :: "r"(smem_u32(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
 }
 
 // One product's B tile and the rows [row0, row0 + BS / SPLIT) of its A
@@ -184,59 +173,6 @@ __device__ __forceinline__ bool start(Walk& w, int warp, const int* run_starts,
   w.r = warp - stride;
   w.p0 = w.p = w.p1 = 0;
   return step(w, run_starts, nruns, stride);
-}
-
-// The first run whose slot is >= s (nruns if none): a 32-way search, each
-// lane probing one point of [l, h) a round.
-__device__ int first_run_at(const int* c_slot, const int* run_starts,
-                            int nruns, int s, int lane) {
-  int l = 0, h = nruns;
-  while (l < h) {
-    const long long n = h - l;
-    const int q = l + static_cast<int>((n * lane) >> 5);
-    const unsigned ge = __ballot_sync(FULL, c_slot[run_starts[q]] >= s);
-    if (!ge) {
-      l += static_cast<int>((n * 31) >> 5) + 1;
-      continue;
-    }
-    const int j = __ffs(ge) - 1;
-    h = l + static_cast<int>((n * j) >> 5);
-    if (j) l += static_cast<int>((n * (j - 1)) >> 5) + 1;
-    else l = h;
-  }
-  return l;
-}
-
-// `zero` into every slot of this warp's share of [0, nc) that no run
-// writes: 32 slots a round, each lane reading the slot of one run.
-template <int BS>
-__device__ void fill_gaps(float* out, const int* c_slot,
-                          const int* run_starts, int nruns, int nc,
-                          float zero, int warp, int nwarps, int lane) {
-  const int per = (nc + nwarps - 1) / nwarps;
-  const int lo = warp * per;
-  const int hi = min(nc, lo + per);
-  if (lo >= hi) return;
-  int l = first_run_at(c_slot, run_starts, nruns, lo, lane);
-  const float4 z = make_float4(zero, zero, zero, zero);
-  for (int base = lo; base < hi; base += 32) {
-    const int i = l + lane;
-    const int s = i < nruns ? c_slot[run_starts[i]] : INT_MAX;
-    const bool here = s < base + 32 && s < hi;   // runs are >= base here
-    const unsigned written = __reduce_or_sync(FULL, here ? 1u << (s - base)
-                                                         : 0u);
-    l += __popc(__ballot_sync(FULL, here));
-    const int n = min(32, hi - base);
-    unsigned todo = ~written & (n == 32 ? FULL : (1u << n) - 1u);
-    while (todo) {
-      const int j = __ffs(todo) - 1;
-      todo &= todo - 1;
-      float4* t =
-          reinterpret_cast<float4*>(out + (size_t)(base + j) * BS * BS);
-#pragma unroll
-      for (int e = 0; e < BS * BS / 128; ++e) __stcs(t + lane + 32 * e, z);
-    }
-  }
 }
 
 // d (16 x 8) += A (16 x 8) * B (8 x 8), tf32 in, fp32 accumulate: each
@@ -335,8 +271,8 @@ __device__ __forceinline__ void tc_product(float (&acc)[Cfg<BS>::NACC],
       for (int e = 0; e < 2; ++e)
         b[nt][ks][e] = bs[at<BS, true>(8 * ks + t + 4 * e, 8 * nt + g)];
 
-  // which operand is not TF32-exact (1: A, 2: B), or 4 where either holds
-  // an element past the split's reach; uniform over the warp
+  // which operand is not TF32-exact (1: A, 2: B), or 4 for a product the
+  // split must not take (unsplit_panel); uniform over the warp
   uint32_t flags = 0;
   if constexpr (BOOL) {
 #pragma unroll
@@ -355,7 +291,7 @@ __device__ __forceinline__ void tc_product(float (&acc)[Cfg<BS>::NACC],
           b[nt][ks][e] = b[nt][ks][e] != 0.0f ? 1.0f : 0.0f;
   } else {
     uint32_t a_bits = 0, b_bits = 0;
-    float mag = 0.0f;
+    float a_mag = 0.0f, b_mag = 0.0f;
 #pragma unroll
     for (int mt = 0; mt < C::MT; ++mt)
 #pragma unroll
@@ -363,7 +299,7 @@ __device__ __forceinline__ void tc_product(float (&acc)[Cfg<BS>::NACC],
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           a_bits |= __float_as_uint(a[mt][ks][e]);
-          mag = max_nan(mag, fabsf(a[mt][ks][e]));
+          a_mag = max_nan(a_mag, fabsf(a[mt][ks][e]));
         }
 #pragma unroll
     for (int nt = 0; nt < C::NT; ++nt)
@@ -372,11 +308,16 @@ __device__ __forceinline__ void tc_product(float (&acc)[Cfg<BS>::NACC],
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           b_bits |= __float_as_uint(b[nt][ks][e]);
-          mag = max_nan(mag, fabsf(b[nt][ks][e]));
+          b_mag = max_nan(b_mag, fabsf(b[nt][ks][e]));
         }
+    // the warp's largest magnitudes: the bits of a magnitude order as its
+    // value, a NaN's above infinity's
+    a_mag = __uint_as_float(__reduce_max_sync(FULL, __float_as_uint(a_mag)));
+    b_mag = __uint_as_float(__reduce_max_sync(FULL, __float_as_uint(b_mag)));
     flags = ((a_bits & kTf32LowBits) ? 1u : 0u)
-            | ((b_bits & kTf32LowBits) ? 2u : 0u) | (wide(mag) ? 4u : 0u);
-    flags = __reduce_or_sync(FULL, flags);
+            | ((b_bits & kTf32LowBits) ? 2u : 0u);
+    flags = __reduce_or_sync(FULL, flags)
+            | (unsplit_panel(a_mag, b_mag) ? 4u : 0u);
   }
 
   float d[C::MT][C::NT][4];

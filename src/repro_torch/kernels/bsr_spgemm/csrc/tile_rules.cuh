@@ -1,7 +1,8 @@
 // Rules shared by the bsr_spgemm kernels (bsr_spgemm.cu, bsr_spgemm_tc.cu,
-// bsr_spgemm_warp.cu): the NaN-propagating min and max. The test for
-// elements the TF32 split cannot carry (wide) is hopper.cuh's, beside the
-// split.
+// bsr_spgemm_warp.cu, bsr_spgemm_minplus.cu): the NaN-propagating min and
+// max, the test for a k-panel the TF32 split must not take, cp.async, and
+// the identity fill of the output slots no run writes. The test for elements
+// the split cannot carry (wide) is hopper.cuh's, beside the split.
 //
 // Included by relative path; cuda_lib.library_path hashes it into every
 // library that includes it.
@@ -9,11 +10,14 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "../../hopper.cuh"
 
 namespace {
+
+constexpr unsigned FULL = 0xffffffffu;
 
 // The 13 mantissa bits a tf32 read drops: a word with any of them set is not
 // TF32-exact and needs a lo part.
@@ -32,6 +36,93 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   float r;
   asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
   return r;
+}
+
+// Whether a plus-times k-panel must be summed unsplit by fp32 FMAs, from
+// the largest magnitude of its A part and of its B part (each folded with
+// max.NaN, so a NaN marks the panel): either part holds an element the
+// split cannot carry (wide), or a product of the two could overflow in
+// hi.hi where the fp32 product does not. TF32's hi is x rounded to 11
+// significant bits, so |hi| <= |x| (1 + 2^-11); where the fp32 product of
+// the two largest magnitudes is below 2^126, every |a b| is too, and every
+// |hi_a hi_b| < 2^126 (1 + 2^-11)^2 < 2^127, a factor of 2 below FLT_MAX.
+// An infinity times 0 is NaN, which fails the compare as well.
+__device__ __forceinline__ bool unsplit_panel(float a_mag, float b_mag) {
+  return wide(a_mag) || wide(b_mag)
+         || !(a_mag * b_mag < __uint_as_float(0x7E800000u));   // 2^126
+}
+
+// 16 bytes from global to shared memory, past L1 (.cg), asynchronously;
+// the copies a thread issued since its last commit form one group, and
+// cp_async_wait<N> returns once at most N of its groups are in flight.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// The first q in [0, n) whose key(q) >= s, or n if none, for keys
+// nondecreasing in q: a 32-way search, each lane probing one point of
+// [l, h) a round. Every lane of the warp calls it with the same arguments.
+template <class Key>
+__device__ int warp_lower_bound(Key key, int n, int s, int lane) {
+  int l = 0, h = n;
+  while (l < h) {
+    const long long m = h - l;
+    const int q = l + static_cast<int>((m * lane) >> 5);
+    const unsigned ge = __ballot_sync(FULL, key(q) >= s);
+    if (!ge) {
+      l += static_cast<int>((m * 31) >> 5) + 1;
+      continue;
+    }
+    const int j = __ffs(ge) - 1;
+    h = l + static_cast<int>((m * j) >> 5);
+    if (j) l += static_cast<int>((m * (j - 1)) >> 5) + 1;
+    else l = h;
+  }
+  return l;
+}
+
+// `zero` into every slot of this warp's share of [0, nc) that no run
+// writes (warp `warp` of `nwarps`, each an equal share): the first run of
+// the share by a 32-way search over the run slots, then 32 slots a round,
+// each lane reading the slot of one run. Run slots (c_slot at each run
+// start) are strictly increasing.
+template <int BS>
+__device__ void fill_gaps(float* out, const int* c_slot,
+                          const int* run_starts, int nruns, int nc,
+                          float zero, int warp, int nwarps, int lane) {
+  const int per = (nc + nwarps - 1) / nwarps;
+  const int lo = warp * per;
+  const int hi = min(nc, lo + per);
+  if (lo >= hi) return;
+  int l = warp_lower_bound(
+      [&](int q) { return c_slot[run_starts[q]]; }, nruns, lo, lane);
+  const float4 z = make_float4(zero, zero, zero, zero);
+  for (int base = lo; base < hi; base += 32) {
+    const int i = l + lane;
+    const int s = i < nruns ? c_slot[run_starts[i]] : INT_MAX;
+    const bool here = s < base + 32 && s < hi;   // runs are >= base here
+    const unsigned written = __reduce_or_sync(FULL, here ? 1u << (s - base)
+                                                         : 0u);
+    l += __popc(__ballot_sync(FULL, here));
+    const int n = min(32, hi - base);
+    unsigned todo = ~written & (n == 32 ? FULL : (1u << n) - 1u);
+    while (todo) {
+      const int j = __ffs(todo) - 1;
+      todo &= todo - 1;
+      float4* t =
+          reinterpret_cast<float4*>(out + (size_t)(base + j) * BS * BS);
+#pragma unroll
+      for (int e = 0; e < BS * BS / 128; ++e) __stcs(t + lane + 32 * e, z);
+    }
+  }
 }
 
 }  // namespace

@@ -22,14 +22,25 @@ routes, chosen by :func:`route` from the semiring and bs alone:
   and stay bitwise equal to the plain version; general floats run up to
   four (``ref.bsr_spgemm_tc_model`` is this arithmetic on the CPU, for
   both tensor-core routes). A k-panel holding an infinity, a NaN or an
-  ``|x| >= 2**127``, which the split cannot carry, is summed unsplit on
-  the CUDA cores in fp32, so those propagate as in the plain version. The
-  kernel also writes the identity into every output slot no run writes.
-* ``"simt"`` — min_plus at bs 64 and 128, ``csrc/bsr_spgemm.cu``: one CTA
-  per run, fp32 on the CUDA cores (min-plus has no tensor-core form). The
-  wrapper fills the output with the identity before it launches.
+  ``|x| >= 2**127``, which the split cannot carry, or whose A and B parts'
+  largest magnitudes multiply to ``2**126`` or more, where the split's
+  hi·hi could overflow and the fp32 product would not, is summed unsplit
+  on the CUDA cores in fp32, as the plain version sums it. The kernel also
+  writes the identity into every output slot no run writes.
+* ``"minplus"`` — min_plus at bs 64 and 128,
+  ``csrc/bsr_spgemm_minplus.cu``: fp32 on the CUDA cores (min-plus has no
+  tensor-core form) in the NaN-propagating min. Persistent CTAs take equal
+  shares of the window's 32-deep k-panels (:func:`minplus_shares`); a run
+  cut between shares is combined by min in a second small kernel, exact
+  in any order. The kernel writes the identity (+inf) into every output
+  slot no run writes.
 
-Build and binding: ``..cuda_lib`` compiles the three sources for
+``csrc/bsr_spgemm.cu`` (one CTA per run on the CUDA cores, after an
+identity fill of the whole output by the wrapper) is the routes' first
+kernel and is on no route: ``_launch("simt", ...)`` reaches it, so timings
+can set it beside the others.
+
+Build and binding: ``..cuda_lib`` compiles the four sources for
 ``sm_90a`` at first use, one ``nvcc`` each, and ``ctypes`` loads them. The
 ``"tc"`` library encodes its TMA tensor maps per launch with the CUDA
 driver API's ``cuTensorMapEncodeTiled``, reached through
@@ -54,29 +65,32 @@ import torch
 
 from ...core.semiring import PLUS_TIMES, Semiring
 from ..cuda_lib import check_tensor, compile_sources
-from .ref import bsr_spgemm_ref
+from .ref import PANEL, bsr_spgemm_ref
 
 __all__ = ["bsr_spgemm", "run_starts_from_flags", "check_launch_args",
-           "build", "route", "reset_launches", "smem_bytes", "KERNEL_BS",
-           "TC_BS", "TC_SEMIRINGS", "WARP_BS", "ROUTES", "SOURCE",
-           "TC_SOURCE", "WARP_SOURCE", "SOURCES"]
+           "build", "route", "reset_launches", "smem_bytes",
+           "minplus_workers", "minplus_shares", "KERNEL_BS", "TC_BS",
+           "TC_SEMIRINGS", "WARP_BS", "ROUTES", "SOURCE", "TC_SOURCE",
+           "WARP_SOURCE", "MINPLUS_SOURCE", "SOURCES", "PANEL"]
 
 KERNEL_BS = (16, 32, 64, 128)
 TC_BS = (64, 128)
 TC_SEMIRINGS = ("plus_times", "bool_or_and")
 WARP_BS = (16, 32)
-ROUTES = ("tc", "warp", "simt")
+ROUTES = ("tc", "warp", "minplus")
 SOURCE = Path(__file__).resolve().parent / "csrc" / "bsr_spgemm.cu"
 TC_SOURCE = SOURCE.with_name("bsr_spgemm_tc.cu")
 WARP_SOURCE = SOURCE.with_name("bsr_spgemm_warp.cu")
-SOURCES = (SOURCE, TC_SOURCE, WARP_SOURCE)
+MINPLUS_SOURCE = SOURCE.with_name("bsr_spgemm_minplus.cu")
+SOURCES = (SOURCE, TC_SOURCE, WARP_SOURCE, MINPLUS_SOURCE)
 _SEMIRING_CODE = {"plus_times": 0, "bool_or_and": 1, "min_plus": 2}
 
 _lib: Optional[Dict[str, ctypes.CDLL]] = None
+_workers: Dict[tuple, int] = {}
 
 
 def build() -> dict:
-    """Compile (if not yet built) and load the three kernel libraries;
+    """Compile (if not yet built) and load the four kernel libraries;
     returns ``{source: {"path", "seconds", "built", "log"}}`` as
     ``cuda_lib.compile_sources`` does. A failing build raises
     ``RuntimeError`` with nvcc's output."""
@@ -103,26 +117,79 @@ def build() -> dict:
         warp.bsr_spgemm_warp_launch.restype = ctypes.c_int
         warp.bsr_spgemm_warp_smem_bytes.argtypes = [ctypes.c_int]
         warp.bsr_spgemm_warp_smem_bytes.restype = ctypes.c_int
-        _lib = {"simt": simt, "tc": tc, "warp": warp}
+        mp = ctypes.CDLL(infos[MINPLUS_SOURCE]["path"])
+        mp.bsr_spgemm_minplus_launch.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 6
+            + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+        mp.bsr_spgemm_minplus_launch.restype = ctypes.c_int
+        for fn in (mp.bsr_spgemm_minplus_workers,
+                   mp.bsr_spgemm_minplus_smem_bytes):
+            fn.argtypes = [ctypes.c_int]
+            fn.restype = ctypes.c_int
+        _lib = {"simt": simt, "tc": tc, "warp": warp, "minplus": mp}
     return infos
 
 
 def route(semiring: Semiring, bs: int) -> str:
     """The kernel a card runs for ``semiring`` at tile size ``bs``:
     ``"warp"`` for every semiring at bs in :data:`WARP_BS`, ``"tc"`` for
-    plus_times and bool_or_and at bs in :data:`TC_BS`, ``"simt"`` for
+    plus_times and bool_or_and at bs in :data:`TC_BS`, ``"minplus"`` for
     min_plus at bs in :data:`TC_BS`."""
     if bs in WARP_BS:
         return "warp"
-    return "tc" if semiring.name in TC_SEMIRINGS else "simt"
+    return "tc" if semiring.name in TC_SEMIRINGS else "minplus"
 
 
 def smem_bytes(name: str, bs: int) -> int:
-    """Dynamic shared memory of one launch of route ``name`` (``"tc"`` or
-    ``"warp"``) at ``bs`` (ptxas reports only static shared memory)."""
+    """Dynamic shared memory of one launch of route ``name`` (``"tc"``,
+    ``"warp"`` or ``"minplus"``) at ``bs`` (ptxas reports only static shared
+    memory)."""
     if _lib is None:
         build()
     return getattr(_lib[name], f"bsr_spgemm_{name}_smem_bytes")(bs)
+
+
+def minplus_workers(bs: int, device: torch.device) -> int:
+    """The ``"minplus"`` kernel's persistent CTAs on ``device`` at ``bs``:
+    as many as fit an SM, at most the kernel's own count, times the SMs.
+    Asked of the built library once per device and bs."""
+    key = (device.index, bs)
+    if key not in _workers:
+        if _lib is None:
+            build()
+        with torch.cuda.device(device):
+            n = _lib["minplus"].bsr_spgemm_minplus_workers(bs)
+        if n <= 0:
+            raise RuntimeError(f"bsr_spgemm minplus: no workers at bs {bs} "
+                               f"(error {-n})")
+        _workers[key] = n
+    return _workers[key]
+
+
+def minplus_shares(run_starts: np.ndarray, workers: int, bs: int):
+    """The ``"minplus"`` kernel's split of a window among ``workers``, as
+    the kernel computes it on the card. The window's real products
+    (``run_starts[0]`` to ``run_starts[-1]``) are ``bs // PANEL`` k-panels
+    each, ``U`` in all; of ``n = min(workers, U)``, worker w takes panels
+    ``[w U // n, (w + 1) U // n)`` and the rest none, so no two shares
+    differ by more than one panel and a run's pieces lie in consecutive
+    shares. Returns ``(bounds, heads)``: the ``workers + 1`` share bounds in
+    panels (int64), and per worker the run whose first panel lies before
+    its share but which its share continues (the piece the kernel leaves
+    for its combine pass), or -1. Only a run that some share bound cuts has
+    heads."""
+    rs = np.asarray(run_starts, dtype=np.int64)
+    kp = bs // PANEL
+    total = (rs[-1] - rs[0]) * kp
+    n = min(workers, total)
+    bounds = np.full(workers + 1, total, dtype=np.int64)
+    bounds[:n + 1] = np.arange(n + 1) * total // max(n, 1)
+    first = bounds[:-1]
+    run = np.searchsorted(rs[:-1], rs[0] + first // kp, side="right") - 1
+    starts = (rs[np.clip(run, 0, None)] - rs[0]) * kp
+    heads = np.where((first < bounds[1:]) & (starts < first), run, -1)
+    return bounds, heads
 
 
 def run_starts_from_flags(flags: np.ndarray, seg_start: int,
@@ -182,13 +249,15 @@ def check_launch_args(a_tiles, b_tiles, a_slot, b_slot, c_slot, run_starts,
 
 def _launch(name: str, a_tiles, b_tiles, a_slot, b_slot, c_slot,
             run_starts, out, *, bs: int, semiring: Semiring) -> bool:
-    """One launch of route ``name``'s kernel over the runs in
-    ``run_starts``, counted nowhere (timings call it directly); returns
-    whether a kernel was launched. The ``"tc"`` and ``"warp"`` kernels
-    write every slot of ``out`` themselves, also for a window with no run
-    (only pad products). The ``"simt"`` route gets the identity fill of
-    ``out`` first, and launches nothing for such a window. Raises on a
-    refused launch."""
+    """One launch of route ``name``'s kernel (or of the first kernel,
+    ``"simt"``, on no route) over the runs in ``run_starts``, counted
+    nowhere (timings call it directly); returns whether a kernel was
+    launched. The ``"tc"``, ``"warp"`` and ``"minplus"`` kernels write every
+    slot of ``out`` themselves, also for a window with no run (only pad
+    products); ``"minplus"`` gets its scratch (a partial tile and a run
+    index per worker) here. ``"simt"`` gets the identity fill of ``out``
+    first, and launches nothing for such a window. Raises on a refused
+    launch."""
     nruns = run_starts.shape[0] - 1
     if name == "simt":
         out.fill_(semiring.zero)
@@ -204,6 +273,16 @@ def _launch(name: str, a_tiles, b_tiles, a_slot, b_slot, c_slot,
             b_tiles.data_ptr(), b_tiles.shape[0], a_slot.data_ptr(),
             b_slot.data_ptr(), c_slot.data_ptr(), run_starts.data_ptr(),
             nruns, out.data_ptr(), out.shape[0], stream)
+    elif name == "minplus":
+        workers = minplus_workers(bs, out.device)
+        partials = torch.empty((workers, bs, bs), dtype=torch.float32,
+                               device=out.device)
+        heads = torch.empty(workers, dtype=torch.int32, device=out.device)
+        err = _lib["minplus"].bsr_spgemm_minplus_launch(
+            bs, a_tiles.data_ptr(), b_tiles.data_ptr(), a_slot.data_ptr(),
+            b_slot.data_ptr(), c_slot.data_ptr(), run_starts.data_ptr(),
+            nruns, out.data_ptr(), out.shape[0], partials.data_ptr(),
+            heads.data_ptr(), workers, stream)
     elif name == "warp":
         err = _lib["warp"].bsr_spgemm_warp_launch(
             code, bs, a_tiles.data_ptr(), b_tiles.data_ptr(),
@@ -237,8 +316,8 @@ def bsr_spgemm(a_tiles: torch.Tensor, b_tiles: torch.Tensor,
         on the same device (the plain version does not read it)
     out : optional ``(nc, bs, bs)`` float32 destination
 
-    Slots no product visits hold ``semiring.zero`` (the ``"tc"`` and
-    ``"warp"`` kernels write them; ``"simt"``'s are filled first).
+    Slots no product visits hold ``semiring.zero``: every route's kernel
+    writes them itself, so the output is never filled first.
     ``nprod == 0`` returns a ``(max(nc, 1), bs, bs)`` identity fill.
     """
     if nprod == 0 or not a_tiles.is_cuda:

@@ -1,16 +1,20 @@
 """Plain PyTorch version of the scheduled block-sparse product kernel, and
-a CPU model of the tensor-core route's arithmetic (tests only)."""
+CPU models of the tensor-core routes' arithmetic and of the min-plus
+route's split into worker shares (tests only)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ...core.semiring import PLUS_TIMES, Semiring
+from ...core.semiring import MIN_PLUS, PLUS_TIMES, Semiring
 
-__all__ = ["bsr_spgemm_ref", "tf32_split", "bsr_spgemm_tc_model"]
+__all__ = ["bsr_spgemm_ref", "tf32_split", "bsr_spgemm_tc_model",
+           "bsr_spgemm_minplus_model"]
 
-# depth of the tensor-core kernel's k-panels (csrc/bsr_spgemm_tc.cu: BK)
-TC_PANEL = 32
+# depth of the k-panels of the bs-64/128 kernels (csrc/bsr_spgemm_tc.cu,
+# bsr_spgemm_minplus.cu: BK)
+PANEL = 32
 
 
 def bsr_spgemm_ref(a_tiles, b_tiles, a_slot, b_slot, c_slot,
@@ -60,7 +64,8 @@ def tf32_split(x: torch.Tensor):
     lo. The split does not keep IEEE's non-finite rules (``inf * hi + inf *
     lo`` is NaN where hi and lo differ in sign, and an ``|x|`` near FLT_MAX
     rounds its hi to infinity), so the kernel never splits a panel that
-    holds such an element (:func:`_wide`)."""
+    holds such an element (:func:`_wide`), nor one where hi·hi could
+    overflow (:func:`_unsplit`)."""
     x = x.float()
     finite = torch.isfinite(x)
     hi = torch.where(finite, _rna_tf32(x),
@@ -76,20 +81,34 @@ def _wide(t: torch.Tensor) -> bool:
     return bool((~(t.abs() < 2.0 ** 127)).any())
 
 
+def _unsplit(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the kernels sum the k-panel ``a @ b`` unsplit
+    (``csrc/tile_rules.cuh::unsplit_panel``): either part is :func:`_wide`,
+    or the float32 product of the two parts' largest magnitudes is NaN or
+    at least ``2**126``. A TF32 hi is at most ``|x| (1 + 2**-11)``, so below
+    that bound every ``hi_a hi_b`` stays under ``2**127``; at or above it
+    hi·hi could overflow where the float32 product does not."""
+    if _wide(a) or _wide(b):
+        return True
+    largest = a.abs().max() * b.abs().max()       # float32, as the kernels
+    return not bool(largest < 2.0 ** 126)
+
+
 def bsr_spgemm_tc_model(a_tiles, b_tiles, a_slot, b_slot, c_slot, *,
                         nc: int, semiring: Semiring = PLUS_TIMES,
                         seg_start: int = 0, seg_len: int = None,
                         terms: int = 4):
     """The tensor-core route's arithmetic on the CPU, product by product
-    and k-panel by k-panel (``TC_PANEL`` deep), in float32:
+    and k-panel by k-panel (``PANEL`` deep), in float32:
 
     * plus_times: both operands split by :func:`tf32_split`; a panel sums
       lo·lo unless its A lo or B lo is all zero, lo·hi unless its A lo is,
       hi·lo unless its B lo is, then hi·hi (``terms=3`` drops lo·lo
       everywhere, ``terms=1`` keeps hi·hi only); a panel whose A or B part
-      holds an infinity, a NaN or an ``|x| >= 2**127`` is not split but
-      multiplied as it is in float32 (the kernel's CUDA-core panel); a zero
-      result is +0;
+      holds an infinity, a NaN or an ``|x| >= 2**127``, or whose parts'
+      largest magnitudes multiply to ``2**126`` or more (:func:`_unsplit`),
+      is not split but multiplied as it is in float32 (the kernel's
+      CUDA-core panel); a zero result is +0;
     * bool_or_and: both operands booleanized (``x != 0``), the hi·hi pass
       only, the run's sum clipped to 1 at its end.
 
@@ -118,12 +137,11 @@ def bsr_spgemm_tc_model(a_tiles, b_tiles, a_slot, b_slot, c_slot, *,
         a, b = a_tiles[int(a_slot[s])].float(), b_tiles[int(b_slot[s])].float()
         ah, al = parts(a)
         bh, bl = parts(b)
-        for k0 in range(0, bs, TC_PANEL):
-            k = slice(k0, k0 + TC_PANEL)
+        for k0 in range(0, bs, PANEL):
+            k = slice(k0, k0 + PANEL)
             a_lo, b_lo = bool(al[:, k].any()), bool(bl[k].any())
             panel = torch.zeros(bs, bs, dtype=torch.float32)
-            if semiring.name == "plus_times" and (_wide(a[:, k])
-                                                  or _wide(b[k])):
+            if semiring.name == "plus_times" and _unsplit(a[:, k], b[k]):
                 panel += a[:, k] @ b[k]
                 acc = panel if acc is None else acc + panel
                 continue
@@ -140,4 +158,54 @@ def bsr_spgemm_tc_model(a_tiles, b_tiles, a_slot, b_slot, c_slot, *,
             out[c] = (acc.clamp(max=1.0) if semiring.name == "bool_or_and"
                       else acc + 0.0)
             acc = None
+    return out
+
+
+def bsr_spgemm_minplus_model(a_tiles, b_tiles, a_slot, b_slot, c_slot,
+                             run_starts, *, nc: int, workers: int):
+    """The ``"minplus"`` route's split of a window, on the CPU, with the
+    plain version doing the arithmetic: the window's real products
+    (``run_starts[0]`` to ``run_starts[-1]``) as 32-deep k-panels, shared
+    among ``workers`` as the kernel shares them (``kernel.minplus_shares``);
+    each share's piece of a run reduced by :func:`bsr_spgemm_ref` over
+    k-sliced tiles, the piece holding a run's first panel written to the
+    output, every later piece (a share's head) kept apart; then each head
+    min-combined into its run's output (the combine pass). Slots no run
+    writes hold +inf. Min-plus is exact in any order, so this equals
+    :func:`bsr_spgemm_ref` over the window bitwise, a NaN as any NaN."""
+    from .kernel import minplus_shares
+
+    bs = a_tiles.shape[-1]
+    kp = bs // PANEL
+    # panel k of tile t is row t * kp + k of these stacks
+    a_pan = a_tiles.float().reshape(-1, bs, kp, PANEL).transpose(1, 2) \
+        .reshape(-1, bs, PANEL)
+    b_pan = b_tiles.float().reshape(-1, kp, PANEL, bs).reshape(-1, PANEL, bs)
+    rs = np.asarray(run_starts, dtype=np.int64)
+    a_slot, b_slot, c_slot = (np.asarray(t, dtype=np.int64)
+                              for t in (a_slot, b_slot, c_slot))
+    bounds, heads = minplus_shares(rs, workers, bs)
+    u = np.arange(bounds[-1])
+    prod = rs[0] + u // kp
+    pa = torch.from_numpy(a_slot[prod] * kp + u % kp)
+    pb = torch.from_numpy(b_slot[prod] * kp + u % kp)
+    run = np.searchsorted(rs[:-1], prod, side="right") - 1
+    slot = torch.from_numpy(c_slot[rs[:-1]][run])
+    out = torch.full((nc, bs, bs), float("inf"))
+    pieces = []
+    for w in range(workers):
+        share = np.arange(bounds[w], bounds[w + 1])
+        head = run[share] == heads[w]
+        for sel, into in ((share[~head], None), (share[head], w)):
+            if len(sel) == 0:
+                continue
+            part = bsr_spgemm_ref(a_pan, b_pan, pa[sel], pb[sel], slot[sel],
+                                  nc=nc, semiring=MIN_PLUS)
+            visited = torch.unique(slot[sel])
+            if into is None:
+                out[visited] = part[visited]
+            else:
+                pieces.append((int(visited[0]), part[visited[0]]))
+    for c, piece in pieces:
+        out[c] = torch.minimum(out[c], piece)
     return out

@@ -80,12 +80,12 @@ def _compare(got, want, exact):
 def test_route_table(srname, bs):
     """The route depends on (semiring, bs) alone: every semiring at bs
     16/32 on the warp-per-run kernel, plus-times and bool at bs 64/128 on
-    the warpgroup tensor-core kernel, min-plus at bs 64/128 on the CUDA-core
-    kernel."""
+    the warpgroup tensor-core kernel, min-plus at bs 64/128 on the
+    CUDA-core kernel that shares k-panels among persistent CTAs."""
     want = ("warp" if bs in (16, 32) else
-            "tc" if srname in TC_SEMIRINGS else "simt")
+            "tc" if srname in TC_SEMIRINGS else "minplus")
     assert tkernel.route(tsr.by_name(srname), bs) == want
-    assert tkernel.ROUTES == ("tc", "warp", "simt")
+    assert tkernel.ROUTES == ("tc", "warp", "minplus")
 
 
 def test_tf32_split_is_exact_on_integers_below_2_22():
@@ -263,6 +263,74 @@ def test_nonfinite_and_huge_values_propagate_as_the_plain_version(bs, kind):
     _same_or_nan(got[c_slot], want[c_slot])
 
 
+# operand pairs at overflow magnitudes: x = nextafter(2**64, 0), whose TF32
+# hi rounds up to 2**64, so hi.hi = 2**128 overflows where x * x does not;
+# 2e19 squared, past FLT_MAX in both; 2**63 times nextafter(2**65, 0), whose
+# product is FLT_MAX; two exact products below 2**127, one under the
+# kernels' 2**126 pair bound and one over it
+_X = float(np.nextafter(np.float32(2.0 ** 64), np.float32(0)))
+OVERFLOW_PAIRS = [(_X, _X), (-_X, _X), (2e19, 2e19),
+                  (2.0 ** 63, float(np.nextafter(np.float32(2.0 ** 65),
+                                                 np.float32(0)))),
+                  (2.0 ** 100, 2.0 ** 20), (3 * 2.0 ** 62, 2.0 ** 63)]
+
+
+def overflow_case(bs):
+    """One A and one B tile per pair of :data:`OVERFLOW_PAIRS`, each
+    diagonal: small nonzero integers, and the pair at one place of the
+    diagonal (a different k-panel from tile to tile). Products ``t`` of A
+    tile t and B tile t, runs of one product, so every output element has
+    one nonzero term and a fused multiply-add and a rounded product agree.
+    Returns the tiles, the slots and the output slot count."""
+    rng = np.random.default_rng(bs)
+    n = len(OVERFLOW_PAIRS)
+    a = np.zeros((n, bs, bs), np.float32)
+    b = np.zeros((n, bs, bs), np.float32)
+    for t, (x, y) in enumerate(OVERFLOW_PAIRS):
+        d = (37 * t + 5) % bs
+        a[t, np.arange(bs), np.arange(bs)] = rng.choice([-3, -2, -1, 1, 2, 3],
+                                                        size=bs)
+        b[t, np.arange(bs), np.arange(bs)] = rng.choice([-3, -2, -1, 1, 2, 3],
+                                                        size=bs)
+        a[t, d, d], b[t, d, d] = x, y
+    nc = n + 3
+    c_slot = np.sort(rng.choice(nc - 1, size=n, replace=False)).astype(
+        np.int32)
+    slots = np.arange(n, dtype=np.int32)
+    return a, b, slots, slots.copy(), c_slot, nc
+
+
+@pytest.mark.parametrize("bs", [16, 32, 64, 128])
+@pytest.mark.parametrize("srname", TC_SEMIRINGS)
+def test_products_near_overflow_match_the_plain_version(srname, bs):
+    """A panel whose largest A and B magnitudes multiply to 2**126 or more
+    is summed unsplit, as the kernels sum it: where the split's hi.hi
+    overflows (x * x, -x * x, 2**63 * nextafter(2**65, 0) = FLT_MAX) the
+    model gives the finite float32 product, bitwise equal to the plain
+    version and to the Pallas kernel; where both overflow (2e19 squared) it
+    gives infinity; exact products below 2**127 stay exact on either side
+    of the bound. bool booleanizes first and cannot overflow."""
+    a, b, a_slot, b_slot, c_slot, nc = overflow_case(bs)
+    ts = tsr.by_name(srname)
+    T = torch.from_numpy
+    args = (T(a), T(b), T(a_slot), T(b_slot), T(c_slot))
+    port = bsr_spgemm_ref(*args, nc=nc, semiring=ts).numpy()
+    got = bsr_spgemm_tc_model(*args, nc=nc, semiring=ts).numpy()
+    _same_or_nan(got, port)
+    want = _pallas(a, b, a_slot, b_slot, c_slot, srname, nc, bs, 0,
+                   len(c_slot))
+    _same_or_nan(got[c_slot], want[c_slot])
+    if srname == "plus_times":
+        diag = port[c_slot][:, np.arange(bs), np.arange(bs)]
+        fmax = np.finfo(np.float32).max
+        with np.errstate(over="ignore"):       # 2e19 squared is inf
+            for t, (x, y) in enumerate(OVERFLOW_PAIRS):
+                assert np.float32(x) * np.float32(y) in diag[t], (t, x, y)
+        assert fmax in diag and -np.float32(_X) ** 2 in diag
+        assert np.isposinf(diag).sum() == 1
+        assert np.isfinite(port[c_slot][~np.isposinf(port[c_slot])]).all()
+
+
 def test_bool_sum_then_clip_equals_clip_then_max():
     """Runs of up to 8 products: the kernel sums the booleanized products
     over the run and clips once; the plain version clips each product and
@@ -301,7 +369,7 @@ def test_tc_source_hashes_the_shared_header():
     header = (tkernel.SOURCE.parents[3] / "kernels" / "hopper.cuh").resolve()
     rules = tkernel.SOURCE.with_name("tile_rules.cuh").resolve()
     assert tkernel.SOURCES == (tkernel.SOURCE, tkernel.TC_SOURCE,
-                               tkernel.WARP_SOURCE)
+                               tkernel.WARP_SOURCE, tkernel.MINPLUS_SOURCE)
     for src in tkernel.SOURCES:
         assert set(cuda_lib.local_headers(src)) == {header, rules}, src
 
