@@ -83,6 +83,29 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  stack), the executable's time (CUDA events), the plan and
                  decode seconds, and the planned / padded bytes of the 1D
                  ring, 2D SUMMA and Split-3D side by side
+  5a. apps     — the paper's applications through ``repro_torch.apps``,
+                 each on its own ``SpGEMMSession(device="cuda")`` at its
+                 default bs, every launch on ``warp``, no profiler window:
+                 (a) AMG ``galerkin_product`` of laplacian_2d(1024) with
+                 ``restriction_operator(a, 100)`` (8 parts, bs 32), cold
+                 then two hits, bitwise against scipy's RᵀAR; (b) a
+                 CountSketch stream (dim 256, A·Sᵀ) over four integer value
+                 sets on the Laplacian's structure: one cold call and three
+                 repacks, bitwise against scipy; (c) ``mcl`` of
+                 block_diagonal_noise(262144, 4096, 8, 0.05), on the kernel,
+                 on the plain version (clusters and iterations equal,
+                 operators within rtol 1e-4, atol 1e-6) and again on the
+                 kernel's session (all hits, bitwise); (d) ``bc_batch`` of a
+                 symmetrized block_diagonal_noise(262144, 1024, 5, 0.3), 128
+                 seeded sources, bs 16, on the kernel and on the plain
+                 version (depths and call counts equal, scores within rtol
+                 1e-5), every backward call a hit with a repack; (e) MCL
+                 killed by an injected execute fault in its fourth
+                 iteration and BC by a fault on its first backward call,
+                 each resumed from its snapshots, bitwise. Per run: calls,
+                 hits, repacks, wall, planning, repack, decode and app host
+                 seconds, execute ms (CUDA events), launches by route, peak
+                 device memory, the largest deviation from the reference
   6. build_lm  — load the flash_attention and moe_gemm libraries (for
                  flash_attention the CUDA-core source and the bf16 and
                  split-TF32 tensor-core ones; for moe_gemm the CUDA-core
@@ -171,6 +194,7 @@ card's name and power limit, and last ``{"ok": true, "device": ...}``.
 """
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -1429,6 +1453,431 @@ def phase_summa(dev, case, ring):
     return launches
 
 
+class AppClock:
+    """Where one app's time goes, read off its session: host seconds inside
+    ``matmul``; of those, planning (``last_call["plan_seconds"]``: the plan
+    and the executable's build), values-only repacks and decodes (host
+    clock; a decode is timed once the device has finished), and the
+    executables' device time (CUDA events around each run). Wraps the
+    session's stage hooks, so cached entries keep them."""
+
+    def __init__(self, sess):
+        self.reset()
+        plan, build, matmul = sess._plan, sess._compile, sess.matmul
+
+        def timed(key, fn):
+            def run(*args, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    self.seconds[key] += time.perf_counter() - t0
+            return run
+
+        def planned(*args, **kw):
+            p, decode, repack = plan(*args, **kw)
+            decode = timed("decode_s", decode)
+
+            def synced_decode(*a):
+                torch.cuda.synchronize()
+                return decode(*a)
+            return p, synced_decode, timed("repack_s", repack)
+
+        def built(*args, **kw):
+            fn, dev_args = build(*args, **kw)
+
+            def run(*xs):
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+                out = fn(*xs)
+                e1.record()
+                self.events.append((e0, e1))
+                return out
+            return run, dev_args
+
+        def call(*args, **kw):
+            c = timed("matmul_s", matmul)(*args, **kw)
+            self.calls.append(dict(sess.last_call))
+            return c
+
+        sess._plan, sess._compile, sess.matmul = planned, built, call
+
+    def reset(self):
+        self.seconds = dict.fromkeys(("matmul_s", "repack_s", "decode_s"),
+                                     0.0)
+        self.events, self.calls = [], []
+
+    def report(self):
+        torch.cuda.synchronize()
+        ex = sum(e0.elapsed_time(e1) for e0, e1 in self.events)
+        plan_s = sum(c["plan_seconds"] for c in self.calls)
+        s = self.seconds
+        return {"calls": len(self.calls),
+                "hits": sum(c["cache_hit"] for c in self.calls),
+                "misses": sum(not c["cache_hit"] for c in self.calls),
+                "repacks": sum(c["repacked"] for c in self.calls),
+                "plan_seconds": plan_s, "repack_s": s["repack_s"],
+                "decode_s": s["decode_s"], "execute_ms": ex,
+                "session_other_s": s["matmul_s"] - plan_s - s["repack_s"]
+                - s["decode_s"] - ex / 1e3,
+                "comm_bytes_planned": sum(c["comm_bytes_planned"]
+                                          for c in self.calls)}
+
+
+def app_run(kernel, clock, fn, plain=False):
+    """``fn()`` once, counted: the kernel's launches by route (set to 0
+    just before, read just after), the wall, the peak device memory and the
+    session's split (``clock``). A kernel run must launch only on
+    ``warp`` and serve every call on the cuda engine; a plain run
+    (``engine="torch"``) must launch nothing."""
+    clock.reset()
+    kernel.reset_launches()
+    # an AppClock ties its session into a reference cycle: collect the
+    # sessions of earlier runs, so their buffers do not count in this peak
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    wall = time.perf_counter() - t0
+    routes = dict(kernel.bsr_spgemm.route_launches)
+    row = dict(wall_s=wall, **clock.report(),
+               host_app_s=wall - clock.seconds["matmul_s"],
+               launches=kernel.bsr_spgemm.launches, route_launches=routes,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    engines = {c["engine"] for c in clock.calls}
+    if plain:
+        check(row["launches"] == 0 and engines <= {"torch"},
+              f"the plain run launched the kernel: {routes}, {engines}")
+    else:
+        check(routes["warp"] == row["launches"] > 0 and engines == {"cuda"},
+              f"app launches off the warp route: {routes}, {engines}")
+        check(not any(c["degraded"] for c in clock.calls),
+              "an app call was served by another rung")
+    return out, row
+
+
+def scipy_csc(mat):
+    import scipy.sparse as sp
+
+    return sp.csc_matrix((mat.data.astype(np.float64), mat.indices,
+                          mat.indptr), shape=mat.shape)
+
+
+def port_csc(s):
+    from repro_torch.core import CSC
+
+    s = s.tocsc()
+    s.eliminate_zeros()
+    s.sort_indices()
+    return CSC(s.indptr.astype(np.int64), s.indices.astype(np.int64),
+               s.data, s.shape)
+
+
+def max_dev(got, want):
+    """Largest |got - want| over the union of both patterns."""
+    d = abs(scipy_csc(got) - scipy_csc(want))
+    return float(d.max()) if d.nnz else 0.0
+
+
+def apps_amg(dev, kernel, side):
+    """(a) RᵀAR of laplacian_2d(side) with restriction_operator(a, 100),
+    cold then again on the same session (two hits, no planning), bitwise
+    against scipy in float64."""
+    from repro_torch.apps import galerkin_product
+    from repro_torch.core import laplacian_2d, restriction_operator
+    from repro_torch.core.session import SpGEMMSession
+
+    t0 = time.perf_counter()
+    a = laplacian_2d(side)
+    r = restriction_operator(a, coarsening=100)
+    ref = port_csc(scipy_csc(r).T @ scipy_csc(a) @ scipy_csc(r))
+    setup = time.perf_counter() - t0
+    sess = SpGEMMSession(device=dev)
+    clock = AppClock(sess)
+    rows = {}
+    for label in ("cold", "hit"):
+        res, rows[label] = app_run(kernel, clock, lambda: galerkin_product(
+            a, r, backend="device", nparts=8, bs=32, session=sess))
+        same_csc(res.coarse, ref, f"amg {label}")
+        rows[label]["max_abs_dev"] = max_dev(res.coarse, ref)
+    check(rows["hit"]["hits"] == 2 and rows["hit"]["plan_seconds"] == 0.0,
+          f"amg repeat: {rows['hit']['hits']} hits")
+    emit({"phase": "apps", "app": "amg_galerkin",
+          "matrix": f"laplacian_2d({side})", "a_shape": a.shape,
+          "a_nnz": a.nnz, "r_shape": r.shape, "r_nnz": r.nnz,
+          "coarse_nnz": ref.nnz, "nparts": 8, "bs": 32,
+          "setup_s": setup, "runs": rows})
+    del sess, clock
+    torch.cuda.empty_cache()
+    return rows["cold"]["launches"] + rows["hit"]["launches"]
+
+
+def apps_sketch(dev, kernel, side, dim=256):
+    """(b) four value sets (integers in ±{1..4}) on laplacian_2d(side)'s
+    structure through one CountSketch, A·Sᵀ: one cold call and three
+    values-only repacks, each bitwise against scipy."""
+    from repro_torch.apps import sketch_stream
+    from repro_torch.core import CSC, laplacian_2d
+    from repro_torch.core.session import SpGEMMSession
+
+    a = laplacian_2d(side)
+    rng = np.random.default_rng(0)
+    mats = [CSC(a.indptr, a.indices,
+                rng.integers(1, 5, size=a.nnz)
+                * rng.choice(np.array([-1.0, 1.0]), size=a.nnz), a.shape)
+            for _ in range(4)]
+    sess = SpGEMMSession(device=dev)
+    clock = AppClock(sess)
+    outs, row = app_run(kernel, clock, lambda: sketch_stream(
+        mats, dim=dim, seed=0, side="right", session=sess, nparts=8,
+        bs=32))
+    check([o.cache_hit for o in outs] == [False, True, True, True]
+          and sess.stats["payload_repacks"] == 3,
+          f"sketch stream: hits {[o.cache_hit for o in outs]}, repacks "
+          f"{sess.stats['payload_repacks']}")
+    st = scipy_csc(outs[0].sketch).T
+    dev_max = 0.0
+    for i, (m, o) in enumerate(zip(mats, outs)):
+        want = port_csc(scipy_csc(m) @ st)
+        same_csc(o.sketched, want, f"sketch {i}")
+        dev_max = max(dev_max, max_dev(o.sketched, want))
+    row["max_abs_dev"] = dev_max
+    emit({"phase": "apps", "app": "count_sketch_stream",
+          "matrix": f"laplacian_2d({side}) x 4 value sets",
+          "a_shape": a.shape, "a_nnz": a.nnz, "dim": dim, "side": "right",
+          "out_nnz": [o.sketched.nnz for o in outs], "nparts": 8, "bs": 32,
+          **row})
+    del sess, clock, outs
+    torch.cuda.empty_cache()
+    return row["launches"]
+
+
+MCL_KW = dict(inflation=2.0, prune_threshold=1e-3, max_iter=32, nparts=8,
+              bs=32)
+
+
+def same_mcl(res, want, what):
+    """Bitwise the same MCL result: operator (float64), clusters,
+    iterations, chaos and bytes."""
+    m, w = res.matrix, want.matrix
+    check(m.shape == w.shape and np.array_equal(m.indptr, w.indptr)
+          and np.array_equal(m.indices, w.indices)
+          and m.data.dtype == w.data.dtype
+          and m.data.tobytes() == w.data.tobytes(),
+          f"{what}: the operator differs")
+    check(np.array_equal(res.clusters, want.clusters)
+          and res.iterations == want.iterations
+          and res.converged == want.converged
+          and res.chaos == want.chaos
+          and res.comm_bytes == want.comm_bytes, f"{what}: differs")
+
+
+def apps_mcl(dev, kernel, n):
+    """(c) Markov clustering of block_diagonal_noise(n, n / 64, 8, 0.05)
+    (|w| + 0.5): on the kernel, on the plain version (clusters and
+    iterations equal, operators within rtol 1e-4, atol 1e-6), and again on
+    the kernel's session (hits, bitwise). (e) the run killed by an injected
+    execute fault in its fourth iteration resumes from its snapshots on a
+    fresh session, bitwise."""
+    import tempfile
+
+    from repro_torch.apps import mcl
+    from repro_torch.core import block_diagonal_noise
+    from repro_torch.core.session import SpGEMMSession
+    from repro_torch.core.validate import SpGEMMError
+    from repro_torch.runtime import FaultInjector, RetryPolicy
+
+    g = block_diagonal_noise(n, n // 64, d_in=8.0, d_out=0.05, seed=7)
+    g.data = np.abs(g.data) + 0.5
+    rows = {}
+    sess = SpGEMMSession(device=dev)
+    clock = AppClock(sess)
+    res, rows["kernel"] = app_run(kernel, clock,
+                                  lambda: mcl(g, session=sess, **MCL_KW))
+    first = list(clock.calls)
+    again, rows["kernel_again"] = app_run(
+        kernel, clock, lambda: mcl(g, session=sess, **MCL_KW))
+    same_mcl(again, res, "mcl again on its session")
+    check(rows["kernel_again"]["hits"] == again.iterations,
+          f"mcl again: {rows['kernel_again']['hits']} hits in "
+          f"{again.iterations} iterations")
+    plain_sess = SpGEMMSession(device=dev)
+    pclock = AppClock(plain_sess)
+    plain, rows["plain"] = app_run(kernel, pclock, lambda: mcl(
+        g, session=plain_sess, engine="torch", **MCL_KW), plain=True)
+    del plain_sess, pclock
+    check(np.array_equal(res.clusters, plain.clusters)
+          and res.iterations == plain.iterations,
+          f"mcl clusters or iterations differ from the plain run "
+          f"({res.iterations} vs {plain.iterations})")
+    diff = abs(scipy_csc(res.matrix) - scipy_csc(plain.matrix))
+    slack = diff - 1e-4 * abs(scipy_csc(plain.matrix))
+    check(not slack.nnz or slack.max() <= 1e-6,
+          "mcl operator beyond rtol 1e-4, atol 1e-6 of the plain run")
+    dev_max = float(diff.max()) if diff.nnz else 0.0
+
+    # (e) kill the fourth iteration: a cold call fires plan, compile and
+    # execute, a hit with new values repack and execute, a plain hit
+    # execute alone
+    check(res.iterations >= 4, f"mcl ran {res.iterations} iterations")
+    arm = sum(1 if c["cache_hit"] and not c["repacked"] else
+              2 if c["cache_hit"] else 3 for c in first[:3])
+    with tempfile.TemporaryDirectory() as ckpt:
+        inj = FaultInjector(rates={"execute": 1.0}, arm_after=arm)
+        broken = SpGEMMSession(device=dev, fault_injector=inj,
+                               retry_policy=RetryPolicy(max_retries=0))
+
+        def killed():
+            try:
+                mcl(g, session=broken, checkpoint_dir=ckpt, **MCL_KW)
+            except SpGEMMError as e:
+                return type(e).__name__
+            return None
+
+        fault, killed_row = app_run(kernel, AppClock(broken), killed)
+        check(fault is not None and inj.total_injected == 1,
+              "the injected fault did not surface")
+        del broken
+        from repro_torch.checkpoint import latest_step
+        snap = latest_step(ckpt)
+        check(snap == 3, f"mcl snapshot at step {snap}, not 3")
+        fresh = SpGEMMSession(device=dev)
+        fclock = AppClock(fresh)
+        resumed, row = app_run(kernel, fclock, lambda: mcl(
+            g, session=fresh, checkpoint_dir=ckpt, **MCL_KW))
+        same_mcl(resumed, res, "mcl resumed")
+        del fresh, fclock
+    emit({"phase": "apps", "app": "mcl",
+          "matrix": f"block_diagonal_noise({n}, {n // 64}, 8.0, 0.05, "
+                    "seed=7), |w| + 0.5", "nnz": g.nnz,
+          "iterations": res.iterations, "converged": res.converged,
+          "clusters": int(len(np.unique(res.clusters))),
+          "final_nnz": res.matrix.nnz, "max_abs_dev_plain": dev_max,
+          **MCL_KW, "runs": rows})
+    emit({"phase": "apps", "app": "mcl_resume", "fault": fault,
+          "arm_after": arm, "resumed_from": snap,
+          "runs": {"killed": killed_row, "resumed": row}})
+    del sess, clock
+    torch.cuda.empty_cache()
+    return (rows["kernel"]["launches"] + rows["kernel_again"]["launches"]
+            + killed_row["launches"] + row["launches"])
+
+
+def apps_bc(dev, kernel, n, nsources):
+    """(d) batched betweenness centrality of symmetrize(
+    block_diagonal_noise(n, n / 256, 5, 0.3)), unit weights, from
+    ``nsources`` seeded sources at bs 16: on the kernel, then on the plain
+    version (depths and call counts equal, scores within rtol 1e-5).
+    (e) the kernel run again with its first backward call failing, then
+    resumed from its snapshots: scores bitwise."""
+    import tempfile
+
+    from repro_torch.apps import bc_batch, device_spgemm_fn
+    from repro_torch.core import block_diagonal_noise, symmetrize
+    from repro_torch.core.session import SpGEMMSession
+    from repro_torch.core.validate import DeviceExecError
+
+    a = symmetrize(block_diagonal_noise(n, n // 256, d_in=5.0, d_out=0.3,
+                                        seed=2))
+    a.data[:] = 1
+    sources = np.sort(np.random.default_rng(0).choice(n, nsources,
+                                                      replace=False))
+    rows = {}
+    sess = SpGEMMSession(device=dev)
+    clock = AppClock(sess)
+    fn = device_spgemm_fn(nparts=8, bs=16, session=sess)
+    res, rows["kernel"] = app_run(kernel, clock,
+                                  lambda: bc_batch(a, sources, spgemm_fn=fn))
+    calls = clock.calls
+    fwd, bwd = calls[:res.fwd_spgemm_calls], calls[res.fwd_spgemm_calls:]
+    check(all(c["cache_hit"] and c["repacked"] for c in bwd),
+          "a backward call missed the forward levels' entries")
+    plain_sess = SpGEMMSession(device=dev)
+    pclock = AppClock(plain_sess)
+    plain, rows["plain"] = app_run(kernel, pclock, lambda: bc_batch(
+        a, sources, spgemm_fn=device_spgemm_fn(
+            nparts=8, bs=16, engine="torch", session=plain_sess)),
+        plain=True)
+    del plain_sess, pclock
+    check(res.depths == plain.depths
+          and res.fwd_spgemm_calls == plain.fwd_spgemm_calls
+          and res.bwd_spgemm_calls == plain.bwd_spgemm_calls,
+          "bc depths or call counts differ from the plain run")
+    rel = np.abs(res.scores - plain.scores) / np.maximum(
+        np.abs(plain.scores), 1e-300)
+    check(np.allclose(res.scores, plain.scores, rtol=1e-5, atol=0.0),
+          f"bc scores beyond rtol 1e-5 of the plain run: {rel.max()}")
+
+    def failing(at):
+        count = {"n": 0}
+
+        def wrapped(x, y, semiring):
+            count["n"] += 1
+            if count["n"] == at:
+                raise DeviceExecError("injected on the first backward call",
+                                      stage="execute")
+            return fn(x, y, semiring)
+        return wrapped
+
+    with tempfile.TemporaryDirectory() as ckpt:
+
+        def killed():
+            try:
+                bc_batch(a, sources,
+                         spgemm_fn=failing(res.fwd_spgemm_calls + 1),
+                         checkpoint_dir=ckpt)
+            except DeviceExecError as e:
+                return type(e).__name__
+            return None
+
+        fault, killed_row = app_run(kernel, clock, killed)
+        check(fault is not None, "the injected fault did not surface")
+        resumed, row = app_run(kernel, clock, lambda: bc_batch(
+            a, sources, spgemm_fn=failing(None), checkpoint_dir=ckpt))
+    check(resumed.scores.tobytes() == res.scores.tobytes()
+          and resumed.depths == res.depths
+          and resumed.fwd_spgemm_calls == res.fwd_spgemm_calls
+          and resumed.bwd_spgemm_calls == res.bwd_spgemm_calls
+          and resumed.comm_bytes == res.comm_bytes,
+          "bc resumed differs from the uninterrupted run")
+    emit({"phase": "apps", "app": "bc_batch",
+          "matrix": f"symmetrize(block_diagonal_noise({n}, {n // 256}, 5.0, "
+                    "0.3, seed=2)), unit weights", "nnz": a.nnz,
+          "sources": nsources, "nparts": 8, "bs": 16, "depths": res.depths,
+          "fwd_calls": res.fwd_spgemm_calls,
+          "bwd_calls": res.bwd_spgemm_calls,
+          "fwd_hits": sum(c["cache_hit"] for c in fwd),
+          "bwd_hits": sum(c["cache_hit"] for c in bwd),
+          "max_rel_dev_plain": float(rel.max()), "runs": rows})
+    emit({"phase": "apps", "app": "bc_resume", "fault": fault,
+          "runs": {"killed": killed_row, "resumed": row}})
+    del sess, clock, fn
+    torch.cuda.empty_cache()
+    return rows["kernel"]["launches"] + killed_row["launches"] + \
+        row["launches"]
+
+
+def phase_apps(dev, side=1024, n_mcl=262144, n_bc=262144, nsources=128):
+    """The paper's applications through their entry points, each on its
+    own session at its default bs (every launch on ``warp``): (a) AMG
+    Galerkin, (b) a CountSketch stream, (c) Markov clustering, (d) batched
+    betweenness centrality, (e) MCL and BC resumed after a fault."""
+    from repro_torch.kernels.bsr_spgemm import kernel
+
+    launches = {}
+    t0 = time.perf_counter()
+    launches["amg"] = apps_amg(dev, kernel, side)
+    launches["sketch"] = apps_sketch(dev, kernel, side)
+    launches["mcl"] = apps_mcl(dev, kernel, n_mcl)
+    launches["bc"] = apps_bc(dev, kernel, n_bc, nsources)
+    emit({"phase": "apps_done", "seconds": time.perf_counter() - t0,
+          "warp_launches": launches})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def timing_entry(ms, plain_ms, library_ms, flop, moved, dtype, err,
                  tf32_passes=0):
     """A kernel's timing beside its bound: max(flop / peak, bytes / HBM),
@@ -2228,6 +2677,8 @@ def main():
         default = phase_default_bs(dev, case, ring_ms)
         summa_launches = phase_summa(dev, case, ring)
         del case
+        torch.cuda.empty_cache()
+        app_launches = phase_apps(dev)
         phase_build_lm(infos)
         flash_grid_err = phase_flash_grid(dev)
         phase_serve_smoke()
@@ -2288,12 +2739,17 @@ def main():
                                 *(t["err"] for t in
                                   default["timings"].values())))
     emit({"kernels": [
-        kernel_row("bsr_spgemm_warp", bsr_pallas, default["launches"], warp,
+        kernel_row("bsr_spgemm_warp", bsr_pallas,
+                   default["launches"] + sum(app_launches.values()), warp,
                    {"kernel_route": "warp", "launches_on":
                     "the session at its default bs: laplacian_2d(1024) "
                     "through the 1D ring at bs 32 (chunk None and 2) and 16 "
                     "(chunk None), cold and hit each; bool_or_and at bs 16 "
-                    "and min_plus at bs 32 on banded_clustered (chunk 2)",
+                    "and min_plus at bs 32 on banded_clustered (chunk 2); "
+                    "the apps' kernel runs (AMG, the sketch stream, MCL, "
+                    "BC and their resumes)",
+                    "launches_by_path": {"default_bs": default["launches"],
+                                         "apps": app_launches},
                     "bs": 32, "previous_ms": warp["previous_ms"],
                     "previous_fill_ms": warp["previous_fill_ms"],
                     "float_ms": warp["float_ms"],

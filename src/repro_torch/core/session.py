@@ -65,8 +65,9 @@ from .validate import (DeviceExecError, SpGEMMError,
                        ValidationError, validate_matmul_operands,
                        wrap_stage_error)
 
-__all__ = ["SpGEMMSession", "as_payload_dtype", "structure_fingerprint",
-           "values_fingerprint", "ALGORITHMS", "DOWNGRADE"]
+__all__ = ["SpGEMMSession", "session_or_new", "as_payload_dtype",
+           "structure_fingerprint", "values_fingerprint", "ALGORITHMS",
+           "DOWNGRADE"]
 
 ALGORITHMS = ("1d", "2d", "3d")
 
@@ -113,6 +114,24 @@ def as_payload_dtype(mat: CSC, dtype=np.float32) -> CSC:
     if np.dtype(mat.data.dtype) == np.dtype(dtype):
         return mat
     return mat.astype(dtype)
+
+
+def session_or_new(session: Optional["SpGEMMSession"],
+                   device=None) -> "SpGEMMSession":
+    """App-facing helper: create a session on ``device``, or pass an
+    existing one through. ``device=None`` means the session's own default,
+    ``"cuda"``, which raises without a CUDA device. A supplied session
+    already fixed its device at construction, so combining it with an
+    explicit ``device`` would be silently ignored — refuse instead."""
+    if session is None:
+        return SpGEMMSession() if device is None else \
+            SpGEMMSession(device=device)
+    if device is not None:
+        raise ValueError(
+            "device is fixed when the session is created; construct "
+            "SpGEMMSession(device=...) instead of passing device "
+            "alongside an existing session")
+    return session
 
 
 class _Entry:
