@@ -106,6 +106,30 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  hits, repacks, wall, planning, repack, decode and app host
                  seconds, execute ms (CUDA events), launches by route, peak
                  device memory, the largest deviation from the reference
+  5b. service  — the multi-tenant SpGEMM service: (a) the serving CLI,
+                 ``launch.serve_spgemm.main(["--n", "131072", "--tenants",
+                 "4", "--requests", "4", "--waves", "2"])`` on the card
+                 (banded_clustered(131072, 3276, 6.0), integer values, bs 32:
+                 every launch on ``warp``): a prefetch, then per wave one
+                 coalesced group of the shared graph and one per tenant of
+                 its reweighted twin; every group hits the prefetched plan,
+                 every twin group repacks, every result bitwise against
+                 scipy's A·A; (d) one tenant's 2D SUMMA request (grid 2, bs
+                 128) through the same service, every launch on ``tc``,
+                 bitwise; (b) on banded_clustered(16384, ...) graphs: a
+                 tenant quota of 2 over three structures evicts only that
+                 tenant, the survivors hit, and ``memory_allocated`` falls
+                 across the eviction by at least the evicted entry's bytes;
+                 a ``max_bytes`` of
+                 one entry keeps only the newest; after every drain of the
+                 phase ``bytes_cached == cached_bytes()`` == the bytes the
+                 cached entries hold; (c) a tenant at bs 48
+                 (refused at ingress) opens its breaker, is rejected at
+                 admission while two others are served bitwise, and
+                 recovers once the injectable clock passes the cooldown.
+                 Per run: requests, groups, hits, repacks, evictions by
+                 tenant, p50/p99 latency, planning, repack, decode and
+                 execute (CUDA events) seconds, launches by route, peak GB
   6. build_lm  — load the flash_attention and moe_gemm libraries (for
                  flash_attention the CUDA-core source and the bf16 and
                  split-TF32 tensor-core ones; for moe_gemm the CUDA-core
@@ -126,7 +150,14 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  the output); float32 on the split-TF32 route at D in {16,
                  64, 96, 128, 160, 192, 256} and S in {77, 128, 1000},
                  within atol 2e-5 + rtol 1e-4; each launch repeated,
-                 bitwise
+                 bitwise; float32 at overflow magnitudes (C3's pairs:
+                 nextafter(2^64, 0) squared and negated, 2e19 squared, a
+                 pair whose product is FLT_MAX, exact products under and
+                 over 2^126, and x·x - x·x a TF32 k-step apart) planted as
+                 one q row's and one key's only nonzero at D 16 and 128,
+                 causal and not: the plain version's NaN / inf pattern, the
+                 rest within the float32 tolerance, every case's reading
+                 printed before the check
   8. serve_smoke — ``python -m repro_torch.launch.serve --arch
                  qwen2-moe-a2.7b --smoke`` on the card in a process of its
                  own (float32, head dim 16): must exit 0
@@ -142,7 +173,9 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  rtol 1e-2; inf, NaN and 3e38 planted in float32 x and w
                  must give the plain version's inf / NaN pattern, the
                  finite outputs within the float32 tolerance; every launch
-                 repeated, bitwise (a NaN matching any NaN)
+                 repeated, bitwise (a NaN matching any NaN); C3's pairs at
+                 overflow magnitudes (as in 7) planted one term an output
+                 element at cap 8, 96 and 200, held the same way
   10. lm_serve — qwen2-moe-a2.7b at its full published size (24 layers, 64
                  padded experts, bf16 weights from a seeded generator)
                  through ``ServeEngine.generate``: four prompts of 2048,
@@ -195,12 +228,14 @@ card's name and power limit, and last ``{"ok": true, "device": ...}``.
 
 import contextlib
 import gc
+import io
 import json
 import subprocess
 import sys
 import time
 import traceback
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -1878,6 +1913,320 @@ def phase_apps(dev, side=1024, n_mcl=262144, n_bc=262144, nsources=128):
     return launches
 
 
+# the service phase's graph size: banded_clustered(n, n / 40, 6.0), the
+# serving CLI's graph, whose band grows with n, so its tiles grow as n^2:
+# at 131,072 the phase takes ~90 s of its 120 s on an H100, the CLI ~70 s
+SERVICE_N = 131072
+
+
+def service_oracle(cache, mat):
+    """scipy's A·A in float64 for ``mat``, once per value set."""
+    from repro_torch.core.session import values_fingerprint
+
+    key = values_fingerprint(mat)
+    if key not in cache:
+        s = scipy_csc(mat)
+        cache[key] = port_csc(s @ s)
+    return cache[key]
+
+
+def service_start(kernel):
+    """Counts to 0 just before a service run drives the kernel: launches
+    by route and the peak device memory; returns the host clock's start."""
+    kernel.reset_launches()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    return time.perf_counter()
+
+
+def service_ledger(sess, what):
+    """The session's byte ledger after a drain: ``bytes_cached ==
+    cached_bytes()`` and equal to the bytes its cached entries hold."""
+    held = sum(e.nbytes for e in sess._cache.values())
+    check(sess.stats["bytes_cached"] == sess.cached_bytes() == held,
+          f"{what}: bytes_cached {sess.stats['bytes_cached']}, entries "
+          f"hold {held}")
+
+
+def service_row(svc, clock, kernel, wall):
+    """What one service run printed per run: requests and groups, hits,
+    repacks, evictions by tenant, latency percentiles (host clock), the
+    session's split (planning, repack, decode, execute by CUDA events), the
+    kernel's launches by route and the peak device memory."""
+    st = svc.stats()
+    rep = clock.report()
+    return {"requests": st["requests"], "served": st["served"],
+            "failed": st["failed"], "rejected": st["rejected_breaker"],
+            "groups": rep["calls"], "hits": rep["hits"],
+            "misses": rep["misses"], "repacks": rep["repacks"],
+            "coalesced": st["coalesced"],
+            "evictions_by_tenant": st["evictions_by_tenant"],
+            "latency_p50_s": st["latency_p50_s"],
+            "latency_p99_s": st["latency_p99_s"], "wall_s": wall,
+            "plan_seconds": rep["plan_seconds"], "repack_s": rep["repack_s"],
+            "decode_s": rep["decode_s"], "execute_ms": rep["execute_ms"],
+            "launches": kernel.bsr_spgemm.launches,
+            "route_launches": dict(kernel.bsr_spgemm.route_launches),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def service_cli(dev, kernel, n, oracle):
+    """(a) ``launch.serve_spgemm.main`` on the card at 4 tenants x 4
+    requests x 2 waves, bs 32 (``warp``): a prefetch, then per wave one
+    group of the shared graph (every tenant's even requests) and one group
+    per tenant of its reweighted twin. Every group hits the prefetched
+    plan, every twin group repacks, every request rides a coalesced group,
+    and every result is bitwise scipy's A·A of its operand."""
+    from repro_torch.launch import serve_spgemm
+
+    seen = {"requests": {}, "waves": []}
+
+    class Recording(serve_spgemm.SpGEMMService):
+        """The CLI's service, recording each ticket's request and checking
+        the session's byte ledger after each drain."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            seen["svc"], seen["clock"] = self, AppClock(self.session)
+
+        def submit(self, req):
+            t = super().submit(req)
+            seen["requests"][t] = req
+            return t
+
+        def run_pending(self):
+            done = super().run_pending()
+            service_ledger(self.session, f"wave {len(seen['waves'])}")
+            seen["waves"].append(done)
+            return done
+
+    out = io.StringIO()
+    t0 = service_start(kernel)
+    with contextlib.redirect_stdout(out), mock.patch.object(
+            serve_spgemm, "SpGEMMService", Recording):
+        rc = serve_spgemm.main(["--n", str(n), "--tenants", "4",
+                                "--requests", "4", "--waves", "2"])
+    wall = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    check(rc == 0, f"serve_spgemm exited {rc}: {lines}")
+    svc, clock = seen["svc"], seen["clock"]
+    waves = seen["waves"]
+    row = service_row(svc, clock, kernel, wall)
+    check(row["route_launches"]["warp"] == row["launches"] > 0,
+          f"service launches off the warp route: {row['route_launches']}")
+    check(svc.session.stats["fallbacks"] == 0
+          and {c["engine"] for c in clock.calls} == {"cuda"}
+          and not any(c["degraded"] for c in clock.calls),
+          "a service call left the kernel's rung")
+    check(row["misses"] == 1 and row["hits"] == row["groups"] - 1,
+          f"the prefetched plan did not serve every group: {row}")
+    repacks = 0
+    for w, done in enumerate(waves):
+        check(len(done) == 4 * 4, f"wave {w}: {len(done)} results")
+        groups = {}
+        for t, r in done.items():
+            req = seen["requests"][t]
+            check(r.ok and r.coalesced and r.cache_hit,
+                  f"wave {w} ticket {t}: {r}")
+            same_csc(r.value, service_oracle(oracle, req.a),
+                     f"service wave {w} ticket {t}")
+            groups.setdefault(id(r.value), []).append(r)
+        check(len(groups) == 5, f"wave {w}: {len(groups)} groups, not 5")
+        for k, members in enumerate(groups.values()):
+            lead = [r for r in members if r.leader]
+            check(len(lead) == 1, f"wave {w}: a group led {len(lead)} times")
+            repacked = lead[0].call_stats["repacked"]
+            # the shared graph's group comes first: in wave 0 it finds the
+            # prefetched values, later it repacks back from the last twin;
+            # every twin group repacks
+            check(repacked == (k > 0 or w > 0),
+                  f"wave {w} group {k}: repacked {repacked}")
+            repacks += repacked
+    check(repacks == row["repacks"] == 2 * 5 - 1,
+          f"repacks {repacks} / {row['repacks']}, not 9")
+    row.update(cli_output=lines, prefetched=svc.stats()["prefetched"])
+    return svc, row
+
+
+def service_budgets(dev, kernel, n):
+    """(b) tenant ``q``'s quota of 2 over three distinct structures beside
+    tenant ``o``'s one entry: only ``q`` is evicted, the survivors hit, and
+    ``torch.cuda.memory_allocated``, read just before the session's
+    ``_evict`` and just after it, falls by at least the evicted entry's
+    bytes; then a ``max_bytes`` that holds one entry: only the newest
+    stays. The byte ledger is checked after every drain."""
+    from repro_torch.core.session import SpGEMMSession
+    from repro_torch.serve import (ServicePolicy, SpGEMMRequest,
+                                   SpGEMMService)
+
+    graphs = [service_graph(n, seed=s) for s in (11, 12, 13, 14)]
+    freed = []
+
+    def drain(svc, tenant, g):
+        r = svc.serve([SpGEMMRequest(tenant=tenant, a=g, b=g)])[0]
+        check(r.ok, f"budget request failed: {r.error}")
+        service_ledger(svc.session, f"budgets, tenant {tenant}")
+        return r
+
+    sess = SpGEMMSession(device=dev, tenant_quota=2)
+    evict = sess._evict
+
+    def measured(key):
+        """The session's eviction, with the device memory allocated read
+        just before it and just after its ``release()``."""
+        entry = sess._cache[key]
+        freed.append({"owner": entry.owner, "nbytes": entry.nbytes,
+                      "allocated": torch.cuda.memory_allocated()})
+        del entry
+        evict(key)
+        freed[-1]["after"] = torch.cuda.memory_allocated()
+
+    sess._evict = measured
+    svc = SpGEMMService(session=sess)
+    clock = AppClock(sess)
+    t0 = service_start(kernel)
+    drain(svc, "o", graphs[3])
+    for g in graphs[:3]:
+        drain(svc, "q", g)
+    check(svc.stats()["evictions_by_tenant"] == {"q": 1}
+          and sess.cached_entries("q") == 2 and sess.cached_entries("o") == 1,
+          f"quota: {svc.stats()['evictions_by_tenant']}")
+    ev = freed[0]
+    check(ev["allocated"] - ev["after"] >= ev["nbytes"] > 0,
+          f"eviction returned {ev['allocated'] - ev['after']} bytes of "
+          f"{ev['nbytes']}")
+    hits = [drain(svc, t, g).cache_hit
+            for t, g in (("q", graphs[2]), ("q", graphs[1]),
+                         ("o", graphs[3]))]
+    check(all(hits), f"the survivors did not hit: {hits}")
+    quota = service_row(svc, clock, kernel, time.perf_counter() - t0)
+    quota.update(evicted_bytes=ev["nbytes"],
+                 memory_returned_bytes=ev["allocated"] - ev["after"])
+    del svc, sess, clock
+    gc.collect()
+
+    budget = max(e["nbytes"] for e in freed) + 1
+    svc = SpGEMMService(device=dev, policy=ServicePolicy(max_bytes=budget))
+    clock = AppClock(svc.session)
+    t0 = service_start(kernel)
+    for g in graphs:
+        drain(svc, "m", g)
+        check(svc.session.cached_entries() == 1,
+              f"max_bytes kept {svc.session.cached_entries()} entries")
+    newest = drain(svc, "m", graphs[-1])
+    check(newest.cache_hit, "the newest entry did not stay")
+    max_bytes = service_row(svc, clock, kernel, time.perf_counter() - t0)
+    max_bytes["max_bytes"] = budget
+    check(sum(max_bytes["evictions_by_tenant"].values()) == len(graphs) - 1,
+          f"max_bytes evictions {max_bytes['evictions_by_tenant']}")
+    return {"quota": quota, "max_bytes": max_bytes}
+
+
+def service_failures(dev, kernel, n, oracle):
+    """(c) tenant ``bad`` asks at bs 48, which the kernel refuses
+    (``ValidationError`` at ingress): two failures open its breaker, its
+    next request is rejected at admission while ``good0`` and ``good1`` are
+    served bitwise; once the injectable clock passes the cooldown, ``bad``
+    is served and its breaker closes. No wall-clock sleep."""
+    from repro_torch.core.validate import ValidationError
+    from repro_torch.serve import (ServicePolicy, SpGEMMRequest,
+                                   SpGEMMService, TenantOverloadError)
+
+    now = [0.0]                      # the service's clock, moved by hand
+    svc = SpGEMMService(device=dev, clock=lambda: now[0],
+                        policy=ServicePolicy(breaker_threshold=2,
+                                             breaker_cooldown_s=30.0))
+    clock = AppClock(svc.session)
+    g = service_graph(n, seed=21)
+    t0 = service_start(kernel)
+    for _ in range(2):
+        r = svc.serve([SpGEMMRequest(tenant="bad", a=g, b=g, bs=48)])[0]
+        check(not r.ok and isinstance(r.error, ValidationError),
+              f"bs 48 was not refused at ingress: {r.error}")
+    check(svc.breaker_state("bad") == "open", "the bad breaker is not open")
+    out = svc.serve([SpGEMMRequest(tenant=t, a=g, b=g)
+                     for t in ("bad", "good0", "good1")])
+    check(out[0].rejected and isinstance(out[0].error, TenantOverloadError)
+          and out[0].error.stage == "admit", f"not rejected: {out[0]}")
+    for r in out[1:]:
+        check(r.ok, f"a good tenant failed: {r.error}")
+        same_csc(r.value, service_oracle(oracle, g), "service good tenant")
+    check(svc.breaker_state("good0") == svc.breaker_state("good1")
+          == "closed", "a good tenant's breaker moved")
+    now[0] += 30.0
+    check(svc.breaker_state("bad") == "half_open", "no half-open")
+    r = svc.serve([SpGEMMRequest(tenant="bad", a=g, b=g)])[0]
+    check(r.ok and svc.breaker_state("bad") == "closed",
+          "bad did not recover")
+    service_ledger(svc.session, "failures")
+    same_csc(r.value, service_oracle(oracle, g), "service recovered tenant")
+    return service_row(svc, clock, kernel, time.perf_counter() - t0)
+
+
+def service_tc(svc, kernel, oracle, mat):
+    """(d) one tenant's 2D SUMMA request (grid 2, bs 128) on the CLI's
+    graph through the CLI's service: every launch on ``tc``, bitwise."""
+    from repro_torch.serve import SpGEMMRequest
+
+    clock = AppClock(svc.session)
+    t0 = service_start(kernel)
+    r = svc.serve([SpGEMMRequest(tenant="tenant0", a=mat, b=mat,
+                                 algorithm="2d", grid=2, bs=128)])[0]
+    wall = time.perf_counter() - t0
+    check(r.ok and r.call_stats["algorithm"] == "2d"
+          and not r.call_stats["degraded"], f"2d request: {r}")
+    service_ledger(svc.session, "2d group")
+    same_csc(r.value, service_oracle(oracle, mat), "service 2d tc")
+    row = service_row(svc, clock, kernel, wall)
+    check(row["route_launches"]["tc"] == row["launches"] > 0,
+          f"2d launches off the tc route: {row['route_launches']}")
+    return row
+
+
+def service_graph(n, seed=0):
+    """The serving CLI's graph: banded_clustered(n, n / 40, 6.0) with
+    integer values (2 x the normal draw, rounded; 0 -> 1), float32."""
+    from repro_torch.core.sparse import banded_clustered
+
+    g = banded_clustered(n, max(n // 40, 8), 6.0, seed=seed)
+    g.data[:] = np.rint(2 * g.data)
+    g.data[g.data == 0] = 1.0
+    return g.astype(np.float32)
+
+
+def phase_service(dev, n=SERVICE_N, budget_n=16384):
+    """The multi-tenant SpGEMM service on the card: (a) the serving CLI,
+    (b) budgets, (c) failure routing, (d) one ``tc`` group."""
+    from repro_torch.kernels.bsr_spgemm import kernel
+
+    t0 = time.perf_counter()
+    oracle = {}
+    svc, cli = service_cli(dev, kernel, n, oracle)
+    emit({"phase": "service", "part": "cli", "n": n, "tenants": 4,
+          "requests_per_tenant_per_wave": 4, "waves": 2, "bs": 32, **cli})
+    tc = service_tc(svc, kernel, oracle, service_graph(n))
+    emit({"phase": "service", "part": "tc_group", "n": n, "algorithm": "2d",
+          "grid": 2, "bs": 128, **tc})
+    del svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    budgets = service_budgets(dev, kernel, budget_n)
+    emit({"phase": "service", "part": "budgets", "n": budget_n, **budgets})
+    failures = service_failures(dev, kernel, budget_n, oracle)
+    emit({"phase": "service", "part": "failures", "n": budget_n,
+          **failures})
+    seconds = time.perf_counter() - t0
+    launches = {"cli": cli["launches"], "tc_group": tc["launches"],
+                "budgets": budgets["quota"]["launches"]
+                + budgets["max_bytes"]["launches"],
+                "failures": failures["launches"]}
+    emit({"phase": "service_done", "seconds": seconds,
+          "launches": launches})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def timing_entry(ms, plain_ms, library_ms, flop, moved, dtype, err,
                  tf32_passes=0):
     """A kernel's timing beside its bound: max(flop / peak, bytes / HBM),
@@ -2027,6 +2376,8 @@ def phase_flash_grid(dev):
                             by_route[name] = by_route.get(name, 0) + 1
                             errs[key] = max(errs[key], err)
                             cases[key] += 1
+    cases["float32_overflow"] = f32_overflow(
+        "flash_attention", flash_overflow_cases(dev))
     emit({"phase": "flash_attention_vs_plain", "cases": cases,
           "cases_by_route": by_route, "max_abs_err": errs,
           "tolerance": {"float32": TOL[torch.float32],
@@ -2122,7 +2473,9 @@ def phase_moe_grid(dev):
                 held(xb, wb, None, "None")
                 for what, rows in moe_rows_cases(g, e, cap, dev):
                     held(xb, wb, rows, what)
+    overflow = f32_overflow("moe_gemm", moe_overflow_cases(dev))
     emit({"phase": "moe_gemm_vs_plain", "cases": cases,
+          "float32_overflow_cases": overflow,
           "cases_by_route": by_route, "planted_nonfinite_cases": nonfinite,
           "max_abs_err": errs,
           "tolerance": {"float32": MOE_TOL[torch.float32],
@@ -2131,6 +2484,117 @@ def phase_moe_grid(dev):
                         "planted_inf_nan": "the plain version's pattern",
                         "repeat": "bitwise"}})
     return errs
+
+
+def f32_overflow(kind, cases):
+    """Runs ``cases`` (label, kernel, plain, where) of one float32 route at
+    C3's overflow magnitudes and holds each kernel output against the plain
+    version on the card: the same NaN / +inf / -inf pattern, the finite
+    elements within the float32 tolerance. Emits every case's reading (the
+    planted element's plain and kernel values, which pattern matched) on a
+    line of its own before it checks, so a failing run still reports what
+    the kernel gave."""
+    readings, failed = [], []
+    for label, kernel, plain, where in cases:
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a(got), a(want)) for a in (
+            torch.isnan, torch.isposinf, torch.isneginf))
+        fin = torch.isfinite(want) & torch.isfinite(got)
+        ok, err = within(got[fin], want[fin], *TOL[torch.float32])
+        readings.append({"case": label, "plain": repr(float(want[where])),
+                         "kernel": repr(float(got[where])),
+                         "nonfinite_pattern_equal": same,
+                         "finite_max_abs_err": err,
+                         "bitwise": bitwise_or_nan(got, want)})
+        if not (same and ok):
+            failed.append(label)
+    emit({"phase": f"{kind}_overflow", "cases": len(readings),
+          "failed": failed, "tolerance": {
+              "nonfinite": "the plain version's NaN / +inf / -inf pattern",
+              "finite": TOL[torch.float32]}, "readings": readings})
+    check(not failed, f"{kind} float32 at overflow magnitudes != the plain "
+          f"version: {failed}")
+    return len(readings)
+
+
+def moe_overflow_cases(dev, caps=(8, 96, 200), d=256, f=256):
+    """``OVERFLOW_PAIRS`` planted in float32 moe_gemm, one expert a pair:
+    x[t] holds small nonzero integers at (r, (r + o) % d) and w[t] on its
+    diagonal, so every output element has one nonzero term; pair t sits at
+    x[t, r, k], w[t, k, k] with k = (r + o) % d, o = 37 t + 5 (another
+    k-panel and column tile from pair to pair), r = (13 t + 3) % cap. Then
+    one expert more whose y[r, k] is x x - x x for x = nextafter(2**64, 0):
+    -x at x[r, k ^ 1] (the same k-panel, another TF32 k-step) and x at
+    w[k ^ 1, k]; the plain version gives 0, a split whose hi.hi terms sum
+    to 2**128 between k-steps does not. caps 8 (a decode step's) and 96 and
+    200 (a prefill's: one tile of more than 64 rows, and two tiles)."""
+    from repro_torch.kernels.moe_gemm.kernel import moe_gemm
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+
+    rng = np.random.default_rng(7)
+    n = len(OVERFLOW_PAIRS)
+    cases = []
+    for cap in caps:
+        x = np.zeros((n + 1, cap, d), np.float32)
+        w = np.zeros((n + 1, d, f), np.float32)
+        small = [-3, -2, -1, 1, 2, 3]
+        rows = np.arange(cap)
+        for t, (a, b) in enumerate(OVERFLOW_PAIRS + [(_X, _X)]):
+            o = 37 * t + 5
+            x[t, rows, (rows + o) % d] = rng.choice(small, size=cap)
+            w[t, np.arange(d), np.arange(d)] = rng.choice(small, size=d)
+            r = (13 * t + 3) % cap
+            k = (r + o) % d
+            x[t, r, k], w[t, k, k] = a, b
+            label = f"pair={t} ({a!r} x {b!r})"
+            if t == n:
+                x[t, r, k ^ 1], w[t, k ^ 1, k] = -a, b
+                label = f"cancel ({a!r} x {b!r} - {a!r} x {b!r})"
+            xt, wt = (torch.from_numpy(v).to(dev) for v in (x, w))
+            cases.append((f"cap={cap} {label}",
+                          lambda xt=xt, wt=wt: moe_gemm(xt, wt),
+                          lambda xt=xt, wt=wt: moe_gemm_ref(xt, wt),
+                          (t, r, k)))
+    return cases
+
+
+def flash_overflow_cases(dev, dims=(16, 128), s=256):
+    """``OVERFLOW_PAIRS`` planted in float32 attention: q (1, S, 2, D) and
+    k, v (1, S, 1, D) seeded normals x 0.5; pair t's first value is the one
+    nonzero of q row r = 250 - 9 t (head 0), its second the one nonzero of
+    key c = 10 + 13 t (c <= r), both in coordinate j = (5 t + 3) % D, so
+    the logit (r, c) has one nonzero term; then a case more whose logit (r,
+    c) is x x - x x for x = nextafter(2**64, 0) (-x at q[r, j ^ 8], another
+    TF32 k-step, and x at k[c, j ^ 8]): 0 in the plain version. Causal and
+    not, scale D^-0.5. The element read out is output row r's first
+    column."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    cases = []
+    for d in dims:
+        for t, (a, b) in enumerate(OVERFLOW_PAIRS + [(_X, _X)]):
+            q = torch.randn(1, s, 2, d, generator=g, device=dev) * 0.5
+            k = torch.randn(1, s, 1, d, generator=g, device=dev) * 0.5
+            v = torch.randn(1, s, 1, d, generator=g, device=dev)
+            r, c, j = 250 - 9 * t, 10 + 13 * t, (5 * t + 3) % d
+            q[0, r, 0], k[0, c, 0] = 0.0, 0.0
+            q[0, r, 0, j], k[0, c, 0, j] = a, b
+            label = f"pair={t} ({a!r} x {b!r})"
+            if t == len(OVERFLOW_PAIRS):
+                q[0, r, 0, j ^ 8], k[0, c, 0, j ^ 8] = -a, b
+                label = f"cancel ({a!r} x {b!r} - {a!r} x {b!r})"
+            for causal in (True, False):
+                kw = dict(scale=d ** -0.5, causal=causal)
+                cases.append((f"D={d} causal={causal} {label}",
+                              lambda q=q, k=k, v=v, kw=kw:
+                              flash_attention(q, k, v, **kw),
+                              lambda q=q, k=k, v=v, kw=kw:
+                              mha_ref(q, k, v, **kw),
+                              (0, r, 0, 0)))
+    return cases
 
 
 class Capture:
@@ -2679,6 +3143,7 @@ def main():
         del case
         torch.cuda.empty_cache()
         app_launches = phase_apps(dev)
+        service_launches = phase_service(dev)
         phase_build_lm(infos)
         flash_grid_err = phase_flash_grid(dev)
         phase_serve_smoke()
@@ -2734,22 +3199,27 @@ def main():
              **(extra or {})},
             source=moe_src + source)
 
+    service_warp = sum(v for k, v in service_launches.items()
+                       if k != "tc_group")
     warp = dict(default["timings"][32], library_ms=None,
                 max_abs_err=max(grid_err["warp"],
                                 *(t["err"] for t in
                                   default["timings"].values())))
     emit({"kernels": [
         kernel_row("bsr_spgemm_warp", bsr_pallas,
-                   default["launches"] + sum(app_launches.values()), warp,
+                   default["launches"] + sum(app_launches.values())
+                   + service_warp, warp,
                    {"kernel_route": "warp", "launches_on":
                     "the session at its default bs: laplacian_2d(1024) "
                     "through the 1D ring at bs 32 (chunk None and 2) and 16 "
                     "(chunk None), cold and hit each; bool_or_and at bs 16 "
                     "and min_plus at bs 32 on banded_clustered (chunk 2); "
                     "the apps' kernel runs (AMG, the sketch stream, MCL, "
-                    "BC and their resumes)",
+                    "BC and their resumes); the SpGEMM service's 1D "
+                    "requests (the serving CLI, budgets, failure routing)",
                     "launches_by_path": {"default_bs": default["launches"],
-                                         "apps": app_launches},
+                                         "apps": app_launches,
+                                         "service": service_warp},
                     "bs": 32, "previous_ms": warp["previous_ms"],
                     "previous_fill_ms": warp["previous_fill_ms"],
                     "float_ms": warp["float_ms"],
@@ -2762,14 +3232,18 @@ def main():
                     "bool_bs16": default["semirings"]["bool_or_and"],
                     "min_plus_bs32": default["semirings"]["min_plus"]},
                    source=bsr_src + "bsr_spgemm_warp.cu"),
-        kernel_row("bsr_spgemm_tc", bsr_pallas, launches + summa_launches,
+        kernel_row("bsr_spgemm_tc", bsr_pallas,
+                   launches + summa_launches + service_launches["tc_group"],
                    timing,
                    {"kernel_route": "tc", "launches_on":
                     "the main path (laplacian_2d(1024), bs 128): the 1D "
                     "ring (chunk None and 2) and 2D / 3D SUMMA, cold, hit "
-                    "and repack each",
+                    "and repack each; the SpGEMM service's 2D group "
+                    "(bs 128)",
                     "launches_by_path": {"1d": launches,
-                                         "2d_3d": summa_launches},
+                                         "2d_3d": summa_launches,
+                                         "service": service_launches[
+                                             "tc_group"]},
                     "previous_ms": timing["previous_ms"],
                     "float_ms": timing["float_ms"],
                     "float_bound_ms": timing["float_bound_ms"],

@@ -44,6 +44,20 @@ plain version never stands in for it on the card (an algorithm downgrade
 still may, and ``last_call["degraded"]`` says so). The kernel is built
 before the ladder and a bs the kernel does not take is rejected at
 ingress, so neither reaches a rung.
+
+Serving budgets (the multi-tenant surface ``serve/spgemm_service.py``
+drives): a global byte budget, and per tenant an entry quota and a byte
+budget over the entries that tenant created; eviction is LRU-first, fires
+the ``on_evict`` hook and releases the entry's device tensors. The bytes
+counted are the port's own: an entry's ``nbytes`` sums the device tensors
+its executable was built with (the payload and schedule stacks, the gather
+indices or slot remaps, the run boundaries). The reference counts its own
+argument stacks, which differ in layout (it also pins a flag array and a
+count the port does not build), so the same multiply charges a budget a
+few hundred bytes less here than there: 31,392 against 31,620 bytes for
+``erdos_renyi(50, 50, 4.0)`` squared at bs 16, 1D, one part. A budget
+bounds the device memory it names, so the port keeps its own count rather
+than padding it to the reference's.
 """
 
 from __future__ import annotations
@@ -137,22 +151,26 @@ def session_or_new(session: Optional["SpGEMMSession"],
 class _Entry:
     """One cached (plan, executable, device args) triple.
 
-    ``nbytes`` is the device footprint of the entry's argument stacks,
-    fixed when the executable is built (values-only repacks swap same-shape
-    payloads).
+    ``owner`` is the tenant that planned the entry (None outside the
+    serving layer) — budgets charge the creator even when other tenants'
+    structure-identical requests later hit the same entry. ``nbytes`` is
+    the device footprint of the entry's argument tensors, fixed when the
+    executable is built (values-only repacks swap same-shape payloads).
     """
 
     __slots__ = ("plan", "fn", "args", "decode", "repack", "val_fp",
-                 "nbytes")
+                 "owner", "nbytes")
 
     def __init__(self, plan, fn, args: List, decode: Callable,
-                 repack: Callable, val_fp: Tuple[bytes, bytes]):
+                 repack: Callable, val_fp: Tuple[bytes, bytes],
+                 owner: Optional[str] = None):
         self.plan = plan
         self.fn = fn
         self.args = args
         self.decode = decode
         self.repack = repack
         self.val_fp = val_fp
+        self.owner = owner
         self.nbytes = sum(int(getattr(x, "nbytes", 0)) for x in args)
 
     def release(self) -> None:
@@ -200,6 +218,22 @@ class SpGEMMSession:
                           tier-1 tests never wall-clock-sleep.
     ``breaker_threshold`` — consecutive failures of one cache key before
                           its circuit opens and the rung fails fast.
+
+    Serving knobs (the multi-tenant budget surface the serving layer in
+    ``serve/spgemm_service.py`` drives; all default off):
+
+    ``max_bytes``         — global LRU byte budget over cached entries'
+                          device argument tensors (``stats["bytes_cached"]``
+                          is the tracked quantity); oldest entries are
+                          evicted until the budget holds, keeping at least
+                          the newest so an oversized multiply still serves.
+    ``tenant_quota``      — max cached entries *created by* any one tenant
+                          (``matmul(tenant=...)`` tags entries).
+    ``tenant_max_bytes``  — per-tenant LRU byte budget over the entries a
+                          tenant created.
+    ``on_evict``          — ``hook(owner, key, nbytes)`` fired on every
+                          budget/LRU eviction (not quarantine), so the
+                          serving layer can attribute evictions per tenant.
     """
 
     def __init__(self, maxsize: int = 32, device="cuda", *,
@@ -208,13 +242,26 @@ class SpGEMMSession:
                  retry_policy: Optional[RetryPolicy] = None,
                  retry_sleep: Callable[[float], None] = time.sleep,
                  retry_rng: Optional[np.random.Generator] = None,
-                 breaker_threshold: int = 3):
+                 breaker_threshold: int = 3,
+                 max_bytes: Optional[int] = None,
+                 tenant_quota: Optional[int] = None,
+                 tenant_max_bytes: Optional[int] = None,
+                 on_evict: Optional[Callable] = None):
         if maxsize < 1:
             raise ValueError(f"maxsize must be >= 1, got {maxsize}")
         if breaker_threshold < 1:
             raise ValueError(f"breaker_threshold must be >= 1, "
                              f"got {breaker_threshold}")
+        for nm, v in (("max_bytes", max_bytes),
+                      ("tenant_quota", tenant_quota),
+                      ("tenant_max_bytes", tenant_max_bytes)):
+            if v is not None and v < 1:
+                raise ValueError(f"{nm} must be >= 1 or None, got {v}")
         self.maxsize = maxsize
+        self.max_bytes = max_bytes
+        self.tenant_quota = tenant_quota
+        self.tenant_max_bytes = tenant_max_bytes
+        self.on_evict = on_evict
         self.device = resolve_device(device)
         self._kernel_built = False
         self.validate = validate
@@ -272,14 +319,43 @@ class SpGEMMSession:
             entry.release()
             self.stats["quarantined"] += 1
 
-    def _evict_lru(self) -> None:
-        """Evict least-recently-used entries until ``maxsize`` holds,
-        releasing their device buffers and settling the byte ledger."""
+    def _evict(self, key: tuple) -> None:
+        """Evict one cached entry: release device buffers, settle the byte
+        ledger, and fire the serving layer's attribution hook."""
+        entry = self._cache.pop(key)
+        self.stats["evictions"] += 1
+        self.stats["bytes_cached"] -= entry.nbytes
+        if self.on_evict is not None:
+            self.on_evict(entry.owner, key, entry.nbytes)
+        entry.release()
+
+    def _enforce_budgets(self, owner: Optional[str]) -> None:
+        """Evict LRU-first until every configured budget holds.
+
+        Order: global entry count, global bytes, then the inserting
+        tenant's quota/bytes. Byte budgets always keep the newest entry —
+        a single multiply larger than the budget still serves (and is
+        evicted by whatever lands next), it just can't pin neighbours.
+        """
         while len(self._cache) > self.maxsize:
-            entry = self._cache.pop(next(iter(self._cache)))
-            self.stats["evictions"] += 1
-            self.stats["bytes_cached"] -= entry.nbytes
-            entry.release()
+            self._evict(next(iter(self._cache)))
+        if self.max_bytes is not None:
+            while self.stats["bytes_cached"] > self.max_bytes \
+                    and len(self._cache) > 1:
+                self._evict(next(iter(self._cache)))
+        if owner is None or (self.tenant_quota is None
+                             and self.tenant_max_bytes is None):
+            return
+        owned = [k for k, e in self._cache.items() if e.owner == owner]
+        if self.tenant_quota is not None:
+            while len(owned) > self.tenant_quota:
+                self._evict(owned.pop(0))
+        if self.tenant_max_bytes is not None:
+            obytes = sum(self._cache[k].nbytes for k in owned)
+            while len(owned) > 1 and obytes > self.tenant_max_bytes:
+                k = owned.pop(0)
+                obytes -= self._cache[k].nbytes
+                self._evict(k)
 
     def _plan(self, a: CSC, b: CSC, algorithm: str, nparts: int, grid: int,
               layers: int, bs: int, nblocks: Optional[int],
@@ -342,8 +418,15 @@ class SpGEMMSession:
                semiring: Semiring = PLUS_TIMES,
                engine: str = "auto",
                dtype=np.float32,
-               chunk: Optional[int] = None) -> CSC:
+               chunk: Optional[int] = None,
+               tenant: Optional[str] = None) -> CSC:
         """C = A ⊗ B on the device path, cached by structure.
+
+        ``tenant`` tags the cache entry a cold call creates with its
+        owner for the per-tenant budget/eviction accounting (serving
+        layer); it is deliberately NOT part of the cache key, so
+        structure-identical requests from different tenants share one
+        plan and one executable.
 
         ``algorithm`` selects the engine, each run as logical parts on the
         session's device: ``"1d"`` (the sparsity-aware ring, geometry
@@ -404,7 +487,7 @@ class SpGEMMSession:
             try:
                 c, info = self._run_rung(a, b, alg_r, eng_r, algorithm,
                                          nparts, grid, layers, bs, nblocks,
-                                         semiring, dtype, chunk)
+                                         semiring, dtype, chunk, tenant)
             except ValidationError:
                 # an ingress rejection (e.g. a dtype-mismatched values-only
                 # repack) is deterministic: every rung would refuse it the
@@ -433,7 +516,8 @@ class SpGEMMSession:
     def _run_rung(self, a: CSC, b: CSC, algorithm: str, engine: str,
                   requested: str, nparts: int, grid: int, layers: int,
                   bs: int, nblocks: Optional[int], semiring: Semiring,
-                  dtype, chunk: Optional[int] = None) -> Tuple[CSC, dict]:
+                  dtype, chunk: Optional[int] = None,
+                  tenant: Optional[str] = None) -> Tuple[CSC, dict]:
         """One rung of the ladder: serve the multiply with a fixed
         (algorithm, engine), all four stages under retry + typed wrapping.
 
@@ -535,7 +619,7 @@ class SpGEMMSession:
                 plan_seconds = time.perf_counter() - t0
                 entry = _Entry(plan, fn, args, decode, repack,
                                (values_fingerprint(a),
-                                values_fingerprint(b)))
+                                values_fingerprint(b)), owner=tenant)
 
             def do_execute():
                 return entry.decode(entry.plan, entry.fn(*entry.args))
@@ -556,7 +640,7 @@ class SpGEMMSession:
             self.stats["plan_cache_misses"] += 1
             self._cache[key] = entry
             self.stats["bytes_cached"] += entry.nbytes
-            self._evict_lru()
+            self._enforce_budgets(tenant)
         self._quarantine.pop(key, None)
         return c, dict(cache_hit=hit, repacked=repacked,
                        plan_seconds=plan_seconds,
@@ -576,3 +660,17 @@ class SpGEMMSession:
         self._blockize_cache.clear()
         self._quarantine.clear()
         self.stats["bytes_cached"] = 0
+
+    def cached_bytes(self, tenant: Optional[str] = None) -> int:
+        """Device bytes pinned by cached entries — all of them, or only
+        those created by ``tenant``."""
+        if tenant is None:
+            return int(self.stats["bytes_cached"])
+        return sum(e.nbytes for e in self._cache.values()
+                   if e.owner == tenant)
+
+    def cached_entries(self, tenant: Optional[str] = None) -> int:
+        """Cached entry count — all, or only those created by ``tenant``."""
+        if tenant is None:
+            return len(self._cache)
+        return sum(1 for e in self._cache.values() if e.owner == tenant)

@@ -1,8 +1,8 @@
 // Rules shared by the bsr_spgemm kernels (bsr_spgemm.cu, bsr_spgemm_tc.cu,
 // bsr_spgemm_warp.cu, bsr_spgemm_minplus.cu): the NaN-propagating min and
-// max, the test for a k-panel the TF32 split must not take, cp.async, and
-// the identity fill of the output slots no run writes. The test for elements
-// the split cannot carry (wide) is hopper.cuh's, beside the split.
+// max, cp.async, and the identity fill of the output slots no run writes.
+// The tests for elements the split cannot carry (wide) and for a k-panel it
+// must not take (unsplit_panel) are hopper.cuh's, beside the split.
 //
 // Included by relative path; cuda_lib.library_path hashes it into every
 // library that includes it.
@@ -36,20 +36,6 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   float r;
   asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
   return r;
-}
-
-// Whether a plus-times k-panel must be summed unsplit by fp32 FMAs, from
-// the largest magnitude of its A part and of its B part (each folded with
-// max.NaN, so a NaN marks the panel): either part holds an element the
-// split cannot carry (wide), or a product of the two could overflow in
-// hi.hi where the fp32 product does not. TF32's hi is x rounded to 11
-// significant bits, so |hi| <= |x| (1 + 2^-11); where the fp32 product of
-// the two largest magnitudes is below 2^126, every |a b| is too, and every
-// |hi_a hi_b| < 2^126 (1 + 2^-11)^2 < 2^127, a factor of 2 below FLT_MAX.
-// An infinity times 0 is NaN, which fails the compare as well.
-__device__ __forceinline__ bool unsplit_panel(float a_mag, float b_mag) {
-  return wide(a_mag) || wide(b_mag)
-         || !(a_mag * b_mag < __uint_as_float(0x7E800000u));   // 2^126
 }
 
 // 16 bytes from global to shared memory, past L1 (.cg), asynchronously;

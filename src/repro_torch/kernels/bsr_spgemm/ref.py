@@ -9,8 +9,8 @@ import torch
 
 from ...core.semiring import MIN_PLUS, PLUS_TIMES, Semiring
 
-__all__ = ["bsr_spgemm_ref", "tf32_split", "bsr_spgemm_tc_model",
-           "bsr_spgemm_minplus_model"]
+__all__ = ["bsr_spgemm_ref", "tf32_split", "split_terms", "unsplit_where",
+           "bsr_spgemm_tc_model", "bsr_spgemm_minplus_model"]
 
 # depth of the k-panels of the bs-64/128 kernels (csrc/bsr_spgemm_tc.cu,
 # bsr_spgemm_minplus.cu: BK)
@@ -63,9 +63,9 @@ def tf32_split(x: torch.Tensor):
     2048``. A non-finite x keeps x in hi (a NaN as the quiet NaN) and 0 in
     lo. The split does not keep IEEE's non-finite rules (``inf * hi + inf *
     lo`` is NaN where hi and lo differ in sign, and an ``|x|`` near FLT_MAX
-    rounds its hi to infinity), so the kernel never splits a panel that
-    holds such an element (:func:`_wide`), nor one where hi·hi could
-    overflow (:func:`_unsplit`)."""
+    rounds its hi to infinity), so the kernels never split a panel that
+    holds such an element, nor one where hi·hi could overflow
+    (:func:`unsplit_where`)."""
     x = x.float()
     finite = torch.isfinite(x)
     hi = torch.where(finite, _rna_tf32(x),
@@ -75,23 +75,45 @@ def tf32_split(x: torch.Tensor):
     return hi, lo
 
 
-def _wide(t: torch.Tensor) -> bool:
-    """Whether ``t`` holds an element the split cannot carry: infinity,
-    NaN or ``|x| >= 2**127`` (an exponent of 0xFE or 0xFF)."""
-    return bool((~(t.abs() < 2.0 ** 127)).any())
+# the least |p| that float32 rounds to infinity: FLT_MAX plus half its ulp
+_TO_INF = 2.0 ** 128 - 2.0 ** 103
+
+
+def split_terms(pairs) -> torch.Tensor:
+    """``sum(a @ b for a, b in pairs)`` for float32 TF32 parts (a (..., M,
+    K), b (..., K, N)) as the split-TF32 routes form it: each product is
+    exact in float32 (11 by 11 significant bits) unless it passes FLT_MAX,
+    where it is an infinity, as the tensor core's fp32 product; the products
+    are summed in float64 and rounded to float32 once. Rows that hold no
+    product that large take float64 matmuls; if any does, every product is
+    formed in float32 one by one."""
+    out = sum(a.double() @ b.double() for a, b in pairs)
+    if any(bool((a.double().abs().amax(-1, keepdim=True)
+                 * b.double().abs().amax(-2, keepdim=True)
+                 >= _TO_INF).any()) for a, b in pairs):
+        out = sum((a.unsqueeze(-1) * b.unsqueeze(-3)).double().sum(-2)
+                  for a, b in pairs)
+    return out.float()
+
+
+def unsplit_where(a_mag: torch.Tensor, b_mag: torch.Tensor) -> torch.Tensor:
+    """Where the kernels sum a k-panel unsplit, from the largest magnitude
+    of its A part and of its B part (float32 tensors that broadcast; a NaN
+    anywhere in a part makes its magnitude NaN, as ``amax`` gives it)
+    (``kernels/hopper.cuh::unsplit_panel``): either part holds an infinity,
+    a NaN or an ``|x| >= 2**127`` (an exponent of 0xFE or 0xFF, which the
+    split cannot carry), or the float32 product of the two magnitudes is
+    NaN or at least ``2**126``. A TF32 hi is at most ``|x| (1 + 2**-11)``,
+    so below that bound every ``hi_a hi_b`` stays under ``2**127``; at or
+    above it hi·hi could overflow where the float32 product does not."""
+    wide = lambda m: ~(m < 2.0 ** 127)                      # noqa: E731
+    return wide(a_mag) | wide(b_mag) | ~(a_mag * b_mag < 2.0 ** 126)
 
 
 def _unsplit(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Whether the kernels sum the k-panel ``a @ b`` unsplit
-    (``csrc/tile_rules.cuh::unsplit_panel``): either part is :func:`_wide`,
-    or the float32 product of the two parts' largest magnitudes is NaN or
-    at least ``2**126``. A TF32 hi is at most ``|x| (1 + 2**-11)``, so below
-    that bound every ``hi_a hi_b`` stays under ``2**127``; at or above it
-    hi·hi could overflow where the float32 product does not."""
-    if _wide(a) or _wide(b):
-        return True
-    largest = a.abs().max() * b.abs().max()       # float32, as the kernels
-    return not bool(largest < 2.0 ** 126)
+    (:func:`unsplit_where` of the two parts' largest magnitudes)."""
+    return bool(unsplit_where(a.abs().max(), b.abs().max()))
 
 
 def bsr_spgemm_tc_model(a_tiles, b_tiles, a_slot, b_slot, c_slot, *,

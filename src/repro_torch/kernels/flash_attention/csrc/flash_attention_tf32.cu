@@ -31,8 +31,18 @@
 // place (bsr_spgemm_tc.cu found that on an H100), so PV sums each key block
 // into a fresh accumulator, the lo terms first, and the row's accumulator
 // adds the blocks in IEEE fp32 registers; QK^T is fresh every block too.
-// Inputs must be finite and below 2^127 in magnitude (the split keeps a
-// non-finite x whole in hi); the CPU model is ref.attention_tf32_model.
+// The split breaks IEEE's non-finite rules and its hi.hi can overflow where
+// the fp32 product does not: for q = k = nextafter(2^64, 0) in one
+// coordinate and -q, k in another k-step, hi.hi adds 2^128 to the
+// accumulator and the logit comes out inf where the plain one is finite.
+// So a key block whose largest |k| and the CTA's largest |q| meet
+// hopper.cuh's unsplit_panel (either an infinity, a NaN or >= 2^127, or a
+// product that is NaN or >= 2^126) takes its QK^T unsplit: IEEE fp32 FMAs
+// on the CUDA cores, from q and k in device memory. PV needs no such test,
+// since p <= 1. So q and k may hold any value; v must be finite and below
+// 2^127 in magnitude (the split keeps a non-finite v whole in hi, and
+// 0 * inf is NaN), and the scaled logits below FLT_MAX / log2(e) (they are
+// kept in log2 units). The CPU model is ref.attention_tf32_model.
 //
 // Bound. At qwen2-moe-a2.7b's prefill (q, k, v (4, 2048, 16, 128), causal)
 // the unmasked (row, key) pairs need 68.75 GFLOP of QK^T and PV against
@@ -72,7 +82,10 @@
 //   BK keys, 128-byte swizzled (64-byte at BK 16), lanes along D so that
 //   the loads and the 16-byte stores are free of bank conflicts.
 // * S = Q K^T: wgmma m64nBKk8, Q as A and K as B in shared memory, both
-//   K-major as stored. Softmax in fp32 registers on the accumulator
+//   K-major as stored. The consumers fold Q's largest magnitude while they
+//   split it, each staging warp K's while it splits a block (qk_mag), and a
+//   block where unsplit_panel holds for the two replaces its S by qk_fma's.
+//   Softmax in fp32 registers on the accumulator
 //   fragment; the mask is applied only in blocks that cross the causal
 //   diagonal, the window's edge or S. A warpgroup skips the MMAs of a
 //   block that is fully masked for its 64 rows.
@@ -89,7 +102,8 @@
 //   a launch repeats bitwise.
 //
 // Shared memory per DP (Cfg below), in bytes, besides 1024 of slack that
-// aligns the buffers to the swizzle atoms and the barriers; Q hi and lo,
+// aligns the buffers to the swizzle atoms, the barriers and the four
+// magnitude words (Q's, and K's per staging warp); Q hi and lo,
 // KST K stages (hi in place) and K lo, VST V stages and V^T hi and lo:
 //   DP   BQ  BK   Q hi+lo   K stages+lo   V stages   V^T hi+lo   total
 //   32  128  64   2 x 16    3 x  8        2 x  8     2 x  8       88 KB
@@ -160,7 +174,7 @@ struct Cfg {
   static constexpr int Q_BYTES = NBOX * Q_BOX;
   static constexpr int KV_BYTES = NBOX * K_BOX;      // one K, V or V^T block
   static constexpr int SMEM = 1024 + 2 * Q_BYTES + (KST + VST + 3) * KV_BYTES
-                              + (5 + 2 * KST + 2 * VST) * 8;
+                              + (5 + 2 * KST + 2 * VST) * 8 + 4 * 4;
   static_assert(SMEM <= 232448, "shared memory past the 227 KB a CTA has");
   static_assert(KV_BYTES % 1024 == 0, "buffers on 1024-byte atoms");
 };
@@ -180,15 +194,17 @@ __device__ __forceinline__ void consumer_sync() {
 
 // Split `n16` 16-byte chunks in place: hi over the fp32 tile, lo into `lo`
 // at the same offsets (the swizzled layout is kept: the split is
-// elementwise).
+// elementwise). Returns the largest magnitude bits this thread saw.
 template <int NTHREADS>
-__device__ __forceinline__ void split_tile(uint8_t* tile, uint8_t* lo,
-                                           int n16, int tid) {
+__device__ __forceinline__ uint32_t split_tile(uint8_t* tile, uint8_t* lo,
+                                               int n16, int tid) {
   float4* h = reinterpret_cast<float4*>(tile);
   float4* l = reinterpret_cast<float4*>(lo);
+  uint32_t m = 0;
 #pragma unroll 2
   for (int i = tid; i < n16; i += NTHREADS) {
     const float4 v = h[i];
+    m = mag4(m, v);
     float4 a, b;
     split(v.x, a.x, b.x);
     split(v.y, a.y, b.y);
@@ -197,6 +213,43 @@ __device__ __forceinline__ void split_tile(uint8_t* tile, uint8_t* lo,
     h[i] = a;
     l[i] = b;
   }
+  return m;
+}
+
+// S = Q K^T of one block in IEEE fp32 on the CUDA cores, for a block the
+// split must not take: this thread's fragment (rows row0 and row0 + 8, keys
+// k0 + 8 j + cq (+ 1)), each a dot product over d = 0 .. D - 1 of q and k as
+// they lie in device memory ((B, S, H, D), row stride H D). Rows and keys
+// past S give 0 (the mask drops those keys; those rows are not stored).
+template <int BK>
+__device__ __forceinline__ void qk_fma(float (&sacc)[BK / 2],
+                                       const float* q, const float* k, int S,
+                                       int Hq, int Hkv, int D, int b, int h,
+                                       int hk, int row0, int k0, int cq) {
+  const float* qr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    qr[i] = row < S ? q + ((size_t)(b * S + row) * Hq + h) * D : nullptr;
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = k0 + 8 * j + cq + e;
+      float s0 = 0.0f, s1 = 0.0f;
+      if (key < S) {
+        const float* kr = k + ((size_t)(b * S + key) * Hkv + hk) * D;
+#pragma unroll 1
+        for (int d = 0; d < D; ++d) {
+          const float kv = kr[d];
+          if (qr[0]) s0 = fmaf(qr[0][d], kv, s0);
+          if (qr[1]) s1 = fmaf(qr[1][d], kv, s1);
+        }
+      }
+      sacc[4 * j + e] = s0;
+      sacc[4 * j + 2 + e] = s1;
+    }
 }
 
 // Byte offset, in V^T, of the 16-byte chunk `cc` (logical key columns
@@ -257,8 +310,10 @@ __global__ void __launch_bounds__(Cfg<DP>::THREADS, 1)
 flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap,
-                      float* __restrict__ o, int S, int Hq, int Hkv, int D,
-                      float scale, int causal, int window, float softcap) {
+                      const float* __restrict__ qg,
+                      const float* __restrict__ kg, float* __restrict__ o,
+                      int S, int Hq, int Hkv, int D, float scale, int causal,
+                      int window, float softcap) {
   using C = Cfg<DP>;
   constexpr int BQ = C::BQ, BK = C::BK, NCONS = C::NCONS;
   constexpr int KST = C::KST, VST = C::VST;
@@ -281,6 +336,9 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap qmap,
   uint64_t* klo_free = klo_ready + 1;     // every QK^T of the block done
   uint64_t* vt_ready = klo_free + 1;      // V^T of this block staged
   uint64_t* vt_free = vt_ready + 1;       // every PV of the block done
+  // largest magnitude bits: [0] of Q (every consumer folds into it), [1 + w]
+  // of this K block's share that staging warp w split
+  uint32_t* qk_mag = reinterpret_cast<uint32_t*>(vt_free + 1);
 
   // the grid is query block major, longest causal rows first across every
   // (head, batch), so the last CTAs to start are the shortest
@@ -313,6 +371,7 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap qmap,
     mbar_init(klo_free, NWARPS);
     mbar_init(vt_ready, C::NSTAGE);
     mbar_init(vt_free, NWARPS);
+    qk_mag[0] = 0;
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -350,8 +409,10 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap qmap,
         const uint32_t ph = it & 1;
         mbar_wait(&kfull[ks], (it / KST) & 1);
         mbar_wait(klo_free, ph ^ 1);
-        split_tile<C::NSTAGE>(k_ring + ks * C::KV_BYTES, k_lo,
-                              C::KV_BYTES / 16, st);
+        const uint32_t m = __reduce_max_sync(
+            0xffffffffu, split_tile<C::NSTAGE>(k_ring + ks * C::KV_BYTES,
+                                               k_lo, C::KV_BYTES / 16, st));
+        if (tid % 32 == 0) qk_mag[1 + st / 32] = m;
         fence_proxy_async();
         mbar_arrive(klo_ready);
         mbar_wait(&vfull[vs], (it / VST) & 1);
@@ -391,9 +452,12 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint64_t vtl = vt_desc<BK>(smem_u32(vt_lo));
 
   mbar_wait(qfull, 0);
-  split_tile<NCONS>(q_hi, q_lo, C::Q_BYTES / 16, tid);
+  const uint32_t qm = __reduce_max_sync(
+      0xffffffffu, split_tile<NCONS>(q_hi, q_lo, C::Q_BYTES / 16, tid));
+  if (lane == 0) atomicMax(&qk_mag[0], qm);
   fence_proxy_async();
   consumer_sync<NCONS>();
+  const float q_mag = __uint_as_float(qk_mag[0]);
 
   float acc[DP / 2];
   float part[C::PART / C::PC][C::PC / 2];
@@ -422,9 +486,16 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap qmap,
     // S = Q K^T: lo.hi, hi.lo, then hi.hi, each over DP / 8 k-steps; step
     // 4 c + j reads box c at byte 32 j of each 128-byte row, 8-row groups
     // 1024 B apart. Descriptors advance by their address field (bytes / 16);
-    // the box loop stays rolled so they are not all held in registers.
+    // the box loop stays rolled so they are not all held in registers. A
+    // block where unsplit_panel holds for Q's and this K block's largest
+    // magnitudes (uniform over the CTA) then overwrites the accumulator
+    // with qk_fma's: placed after the wgmma, not beside it as an else, the
+    // rare branch costs the loop half as much (tools/ab_flash_fp32.py).
     float sacc[BK / 2];
     mbar_wait(klo_ready, ph);
+    const uint32_t k_bits = max(max(qk_mag[1], qk_mag[2]), qk_mag[3]);
+    const bool unsplit = unsplit_panel(q_mag, __uint_as_float(k_bits));
+    __syncwarp();                         // every lane has read qk_mag
     if (!dead) {
       __syncwarp();                       // wgmma is .sync.aligned
       wgmma_fence();
@@ -445,6 +516,8 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(sacc);
+      if (unsplit)
+        qk_fma<BK>(sacc, qg, kg, S, Hq, Hkv, D, b, h, hk, row0, k0, cq);
     }
     if (lane == 0) {                      // this warp is done with K
       mbar_arrive(klo_free);
@@ -623,8 +696,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   if (st != cudaSuccess) return (int)st;
   const dim3 grid(((S + C::BQ - 1) / C::BQ) * Hq * B);
   kern<<<grid, C::THREADS, C::SMEM, stream>>>(
-      qm, km, vm, static_cast<float*>(o), S, Hq, Hkv, D, scale, causal, window,
-      softcap);
+      qm, km, vm, static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<float*>(o), S, Hq, Hkv, D, scale, causal, window, softcap);
   return (int)cudaGetLastError();
 }
 

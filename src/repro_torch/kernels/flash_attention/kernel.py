@@ -15,8 +15,12 @@ Two routes, chosen by :func:`route` from the dtype and the head dim:
   accuracy: q, k, v and p are split into TF32 hi and lo and each product
   sums lo·hi + hi·lo + hi·hi in fp32 (``ref.attention_tf32_model`` is its
   arithmetic on the CPU). V is transposed and split into a K-major Vᵀ in
-  shared memory, since TF32 ``wgmma`` has no transpose bit. The head dim is
-  processed at D rounded up to 32 (224 to 256, :func:`fp32_config`).
+  shared memory, since TF32 ``wgmma`` has no transpose bit. A key block
+  whose largest |k| and the CTA's largest |q| hold an inf or a NaN, reach
+  ``2**127``, or multiply to ``2**126`` or more (where hi·hi could overflow;
+  ``hopper.cuh::unsplit_panel``) takes its QKᵀ unsplit in IEEE fp32 on the
+  CUDA cores. The head dim is processed at D rounded up to 32 (224 to 256,
+  :func:`fp32_config`).
 
 The routes' predecessor, ``csrc/flash_attention.cu`` (fp32 FMAs on the
 CUDA cores, D rounded up to 64, float32 and bf16), is launched only by

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from ..bsr_spgemm.ref import tf32_split
+from ..bsr_spgemm.ref import split_terms, tf32_split, unsplit_where
 
 __all__ = ["attention_ref", "attention_tf32_model", "fold_gqa", "mha_ref"]
 
@@ -71,26 +71,40 @@ def attention_tf32_model(q, k, v, *, scale: float, block_k: int,
     q, k and v are split into TF32 hi and lo (``hi = rna_tf32(x)``, ``lo =
     rna_tf32(x - hi)``, :func:`..bsr_spgemm.ref.tf32_split`, the kernel's
     split) and per key block of ``block_k`` keys (the kernel's ``BK``):
-    logits lo·hi + hi·lo + hi·hi (lo·lo left out), scale, softcap, mask to
-    -1e30, the online max m and rescale exp(m_old - m_new), l summed from
-    the unsplit p, then p split the same way and the block's PV as p_lo·v_hi
-    + p_hi·v_lo + p_hi·v_hi added to the rescaled accumulator; divide by l
-    (1 where it is 0). Each term's products are exact (TF32 x TF32) and
-    summed here in float64, rounded to float32 per block: the tensor core
-    sums them in fp32 in its own order and truncates below the
-    accumulator's last place, which this model does not reproduce."""
+    logits lo·hi + hi·lo + hi·hi (lo·lo left out), each product rounded to
+    float32 (an infinity past FLT_MAX) and summed in float64, rounded to
+    float32 per block (:func:`..bsr_spgemm.ref.split_terms`); where a q
+    row's and the key block's largest magnitudes meet the kernels' unsplit
+    rule (:func:`..bsr_spgemm.ref.unsplit_where`: an infinity, a NaN or
+    ``|x| >= 2**127`` in either, or a float32 product of the two that is NaN
+    or at least ``2**126``, where hi·hi could overflow), that row's logits
+    are the float32 product of the unsplit q and k instead; then scale,
+    softcap, mask to -1e30, the online max m and rescale exp(m_old - m_new),
+    l summed from the unsplit p, then p split the same way and the block's
+    PV as p_lo·v_hi + p_hi·v_lo + p_hi·v_hi (exact products summed in
+    float64) added to the rescaled accumulator; divide by l (1 where it is
+    0). The kernel decides the unsplit blocks for its whole tile of query
+    rows, and the tensor core sums each term's products in fp32 in its own
+    order and truncates below the accumulator's last place, which this
+    model does not reproduce."""
     b, s, hq, d = q.shape
     qf, kf, vf = (t.float() for t in fold_gqa(q, k, v))
-    (qh, ql), (kh, kl), (vh, vl) = (
-        tuple(x.double() for x in tf32_split(t)) for t in (qf, kf, vf))
+    (qh, ql), (kh, kl) = tf32_split(qf), tf32_split(kf)
+    vh, vl = (x.double() for x in tf32_split(vf))
+    q_mag = qf.abs().amax(-1, keepdim=True)
     rows = torch.arange(s, device=q.device)[:, None]
     m = torch.full((b * hq, s, 1), NEG_INF, device=q.device)
     l = torch.zeros(b * hq, s, 1, device=q.device)
     acc = torch.zeros(b * hq, s, d, device=q.device)
     for k0 in range(0, s, block_k):
         blk = slice(k0, k0 + block_k)
-        x = (ql @ kh[:, blk].transpose(1, 2) + qh @ kl[:, blk].transpose(1, 2)
-             + qh @ kh[:, blk].transpose(1, 2)).float() * scale
+        kh_t, kl_t = kh[:, blk].transpose(1, 2), kl[:, blk].transpose(1, 2)
+        x = split_terms(((ql, kh_t), (qh, kl_t), (qh, kh_t)))
+        unsplit = unsplit_where(
+            q_mag, kf[:, blk].abs().amax((-2, -1))[:, None, None])
+        if bool(unsplit.any()):
+            x = torch.where(unsplit, qf @ kf[:, blk].transpose(1, 2), x)
+        x = x * scale
         if softcap > 0.0:
             x = softcap * torch.tanh(x / softcap)
         cols = torch.arange(k0, k0 + x.shape[2], device=q.device)[None, :]

@@ -1,7 +1,9 @@
 // PTX helpers shared by the port's Hopper (sm_90a) kernels: mbarriers, TMA
 // tensor loads, wgmma shared-memory descriptors and the wgmma group fences,
-// tf32 rounding, the hi/lo split (split, split_finite) and the test for
-// values it cannot carry (wide), the tf32 wgmma shapes (m64nNk8 with both
+// tf32 rounding, the hi/lo split (split, split_finite), the magnitude fold
+// (mag_bits, mag4) and the tests for values the split cannot carry (wide)
+// and for a panel whose hi.hi products could overflow (unsplit_panel), the
+// tf32 wgmma shapes (m64nNk8 with both
 // operands in shared memory at N = 16, 32, 64, 128, and with A in
 // registers at N = 32, 64, 128), plus the host-side lookup of
 // cuTensorMapEncodeTiled.
@@ -154,6 +156,31 @@ __device__ __forceinline__ void split_finite(float x, float& hi, float& lo) {
 // an unsigned max of the bits of |x|), so one NaN marks the whole panel.
 __device__ __forceinline__ bool wide(float mag) {
   return !(mag < __uint_as_float(0x7F000000u));
+}
+
+// The bits of |v|: an unsigned max of them keeps the largest magnitude, and
+// a NaN above every other (its bits exceed infinity's); mag4 folds four.
+__device__ __forceinline__ uint32_t mag_bits(float v) {
+  return __float_as_uint(v) & 0x7FFFFFFFu;
+}
+
+__device__ __forceinline__ uint32_t mag4(uint32_t m, float4 v) {
+  return max(max(m, max(mag_bits(v.x), mag_bits(v.y))),
+             max(mag_bits(v.z), mag_bits(v.w)));
+}
+
+// Whether a product's k-panel must be summed unsplit in IEEE fp32, from the
+// largest magnitude of its A part and of its B part (each folded with a
+// fold that keeps NaN, so a NaN marks the panel): either part holds an
+// element the split cannot carry (wide), or a product of the two could
+// overflow in hi.hi where the fp32 product does not. TF32's hi is x rounded
+// to 11 significant bits, so |hi| <= |x| (1 + 2^-11); where the fp32
+// product of the two largest magnitudes is below 2^126, every |a b| is too,
+// and every |hi_a hi_b| < 2^126 (1 + 2^-11)^2 < 2^127, a factor of 2 below
+// FLT_MAX. An infinity times 0 is NaN, which fails the compare as well.
+__device__ __forceinline__ bool unsplit_panel(float a_mag, float b_mag) {
+  return wide(a_mag) || wide(b_mag)
+         || !(a_mag * b_mag < __uint_as_float(0x7E800000u));   // 2^126
 }
 
 // Orders this thread's generic-proxy shared-memory writes before later

@@ -26,11 +26,15 @@
 // lo = 0 and exact products, and sums below 2^24 are exact in any order,
 // so they come out bitwise equal to the plain version. The split breaks
 // IEEE's non-finite rules (inf * (hi + lo) is NaN where hi and lo differ in
-// sign; an |v| near FLT_MAX rounds its hi to infinity), so a panel whose x
-// rows or w panel hold an element with |v| >= 2^127, an infinity or a NaN
-// (hopper.cuh's wide) is summed unsplit by fp32 FMAs from the panel as it
-// landed, and inf and NaN come out as in the plain version; the split of
-// such a panel is computed and discarded, so the split need not handle
+// sign; an |v| near FLT_MAX rounds its hi to infinity), and its hi.hi can
+// overflow where the fp32 product does not (v = nextafter(2^64, 0) has
+// hi = 2^64, and hi.hi = 2^128 is inf where v.v = 3.4028233e38). So a
+// panel is summed unsplit by fp32 FMAs from the panel as it landed where
+// hopper.cuh's unsplit_panel holds for the largest |x| of the warp's row
+// pair and the largest |w| of the w panel: either is an infinity, a NaN or
+// >= 2^127 (wide), or their fp32 product is NaN or >= 2^126. inf, NaN and
+// products near FLT_MAX then come out as in the plain version; the split
+// of such a panel is computed and discarded, so the split need not handle
 // those values. No atomics and a fixed summation order: a launch repeats
 // bitwise. The CPU model of this arithmetic is ref.moe_gemm_tf32_model.
 //
@@ -67,7 +71,7 @@
 //   free of bank conflicts, behind mbarrier handoffs (staged: every stager
 //   arrives; wfree and empty: every consumer warp, once the panel's MMAs
 //   are done), so the staging runs beside the consumers' MMAs. Each stager
-//   warp also reports whether its share of the panel is wide. This
+//   warp also reports the largest magnitude in its share of the panel. This
 //   staging is the CUDA-core work the design has to hide: 184.5 M weight
 //   elements a launch at the shape above. On an H100 three staging warps
 //   left the launch slower than seven, and hopper.cuh's split (with its
@@ -87,7 +91,7 @@
 // Shared memory: a TMA ring of 5 stages (x panel and w panel as landed,
 // 16 KB each), 2 stages of w^T hi and lo (16 KB each), 1024 bytes of slack
 // that aligns the buffers to the swizzle's 1024-byte atoms, the barriers
-// and the flags: 230,576 bytes, one CTA an SM.
+// and the stager warps' magnitudes: 230,576 bytes, one CTA an SM.
 //
 // Requirements (checked by the wrapper): d and f multiples of 8, tensors
 // contiguous and 16-byte aligned, rows int32 (E,) or null. Tensor maps are
@@ -116,9 +120,9 @@ constexpr int THREADS = NCONS + NPROD;
 constexpr int NSTAGE = NPROD - 32;  // its staging threads (all but warp 0)
 constexpr int PANEL = BM * BK * 4;  // 16 KB: an x panel, a w panel, w^T
 static_assert(PANEL == BK * BN * 4, "x and w panels of one size");
-constexpr int FLAGS = NSTAGE / 32 + 1;  // wide-flag words a staged stage
+constexpr int MAGS = NSTAGE / 32 + 1;  // magnitude words a staged stage
 constexpr int SMEM = 1024 + (RST + WST) * 2 * PANEL + 2 * (RST + WST) * 8
-                     + WST * FLAGS * 4;
+                     + WST * MAGS * 4;
 static_assert(SMEM <= 232448, "shared memory past the 227 KB a CTA has");
 // setmaxnreg: registers a producer thread keeps / a consumer gets. Their
 // sum per SM sub-partition lane, 2 x 32 + 2 x 216 = 496, stays below 512
@@ -126,17 +130,6 @@ static_assert(SMEM <= 232448, "shared memory past the 227 KB a CTA has");
 // on an H100 and the launch hung); 40 / 208 spills in the consumers.
 constexpr int PRODUCER_REGS = 32;
 constexpr int CONSUMER_REGS = 216;
-
-// The bits of |v|: a wide element is one whose bits are >= 0x7F000000,
-// NaNs included; folding with max keeps the largest.
-__device__ __forceinline__ uint32_t mag_bits(float v) {
-  return __float_as_uint(v) & 0x7FFFFFFFu;
-}
-
-__device__ __forceinline__ uint32_t mag4(uint32_t m, float4 v) {
-  return max(max(m, max(mag_bits(v.x), mag_bits(v.y))),
-             max(mag_bits(v.z), mag_bits(v.w)));
-}
 
 // A w panel (BK rows of BN, row-major as landed) into w^T hi and lo, K-major
 // and 128-byte swizzled: row n is 128 bytes, its 16-byte chunk c at
@@ -260,7 +253,7 @@ struct Smem {
   uint64_t* empty;    // RST: every MMA of its panel done
   uint64_t* staged;   // WST: w^T hi and lo written
   uint64_t* wfree;    // WST: every MMA on them done
-  uint32_t* wflag;    // WST x FLAGS: a stager warp saw a wide value
+  uint32_t* wmag;     // WST x MAGS: a stager warp's largest |w| bits
   __device__ explicit Smem(uint8_t* base)
       : ring(base),
         wt(base + RST * 2 * PANEL),
@@ -268,7 +261,7 @@ struct Smem {
         empty(full + RST),
         staged(empty + RST),
         wfree(staged + WST),
-        wflag(reinterpret_cast<uint32_t*>(wfree + WST)) {}
+        wmag(reinterpret_cast<uint32_t*>(wfree + WST)) {}
 };
 
 // One consumer warpgroup's share of a tile, over every k-panel, into y:
@@ -286,9 +279,10 @@ __device__ __forceinline__ void consume(const Smem& sm, int nk, int g, int c0,
   // panel it: wait for its w^T; lo_x.hi_w, hi_x.lo_w, then hi_x.hi_w, each
   // over the four k-steps (32 bytes apart inside the 128-byte rows; 8-row
   // groups 1024 B apart), into a fresh accumulator; while they run, load
-  // and split the next panel's fragments; then the unsplit FMAs where the
-  // panel is wide, release both stages, and add the partial to acc in IEEE
-  // fp32 (acc starts at +0, so no -0 comes out)
+  // and split the next panel's fragments; then the unsplit FMAs where
+  // unsplit_panel holds for the row pair and the w panel, release both
+  // stages, and add the partial to acc in IEEE fp32 (acc starts at +0, so
+  // no -0 comes out)
   auto panel = [&](int it, Frags& cur, Frags& nxt) {
     const int s = it % RST, q = it % WST;
     const uint8_t* st = sm.ring + s * 2 * PANEL;
@@ -318,13 +312,14 @@ __device__ __forceinline__ void consume(const Smem& sm, int nk, int g, int c0,
     fence_acc(part);
     fence_frags(cur);
     // rows g and g + 8 are spread over the 4 lanes of a quad
-    bool wide_panel = wide(__uint_as_float(cur.mag));
-    wide_panel |= __shfl_xor_sync(0xffffffffu, wide_panel, 1);
-    wide_panel |= __shfl_xor_sync(0xffffffffu, wide_panel, 2);
-    const uint32_t* fl = sm.wflag + q * FLAGS;
+    uint32_t xm = cur.mag;
+    xm = max(xm, __shfl_xor_sync(0xffffffffu, xm, 1));
+    xm = max(xm, __shfl_xor_sync(0xffffffffu, xm, 2));
+    const uint32_t* wm = sm.wmag + q * MAGS;
+    uint32_t wmax = 0;
 #pragma unroll
-    for (int i = 0; i < NSTAGE / 32; ++i) wide_panel |= fl[i] != 0;
-    if (wide_panel)
+    for (int i = 0; i < NSTAGE / 32; ++i) wmax = max(wmax, wm[i]);
+    if (unsplit_panel(__uint_as_float(xm), __uint_as_float(wmax)))
       fma_panel<NC>(part, st, st + PANEL, g, c0, t);
     __syncwarp();
     if (lane == 0) {                      // this warp is done with both
@@ -414,10 +409,10 @@ moe_gemm_tf32_kernel(const __grid_constant__ CUtensorMap xmap,
         mbar_wait(&sm.full[s], (it / RST) & 1);
         mbar_wait(&sm.wfree[q], ((it / WST) & 1) ^ 1);
         uint8_t* hi = sm.wt + q * 2 * PANEL;
-        const uint32_t m = stage_w(sm.ring + s * 2 * PANEL + PANEL, hi,
-                                   hi + PANEL, st);
-        const bool any = __any_sync(0xffffffffu, wide(__uint_as_float(m)));
-        if (lane == 0) sm.wflag[q * FLAGS + st / 32] = any;
+        const uint32_t m = __reduce_max_sync(
+            0xffffffffu, stage_w(sm.ring + s * 2 * PANEL + PANEL, hi,
+                                 hi + PANEL, st));
+        if (lane == 0) sm.wmag[q * MAGS + st / 32] = m;
         fence_proxy_async();
         mbar_arrive(&sm.staged[q]);
       }

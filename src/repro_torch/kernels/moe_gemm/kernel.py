@@ -17,7 +17,9 @@ routes, chosen by :func:`route` from the dtype and ``cap``:
   (``ref.moe_gemm_tf32_model`` is its arithmetic on the CPU). A TMA ring
   feeds x, which the consumers split in registers (the A operand), and w,
   which producer warps rewrite K-major as hi and lo (TF32 ``wgmma`` has no
-  transpose bit). A panel holding an inf, a NaN or an ``|v| >= 2**127`` is
+  transpose bit). A panel whose x rows or w part hold an inf, a NaN or an
+  ``|v| >= 2**127``, or whose largest |x| and |w| multiply to ``2**126`` or
+  more (where hi·hi could overflow; ``hopper.cuh::unsplit_panel``), is
   summed unsplit by fp32 FMAs. Integer-valued inputs (``|v| < 2**11``,
   sums below ``2**24``) come out bitwise equal to the plain version.
   :func:`fp32_config` gives its blocking.
@@ -200,7 +202,7 @@ def fp32_config() -> dict:
     ``stages`` (x and w panels as landed, 32 KB a stage) and ``w_stages`` of
     w's staged hi and lo (32 KB each), and the launch's dynamic shared
     memory (1024 bytes of alignment slack, the stages, two mbarriers a stage
-    and eight flag words a staged stage, one per staging warp and one
+    and eight magnitude words a staged stage, one per staging warp and one
     spare). Host arithmetic only; the chip run holds it against
     :func:`fp32_kernel_config`."""
     bm, bn, bk, stages, w_stages = 128, 128, 32, 5, 2

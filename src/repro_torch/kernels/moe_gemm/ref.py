@@ -27,33 +27,35 @@ def moe_gemm_tf32_model(x, w, rows=None, block_k=32):
 
     Per k-panel of ``block_k`` (the kernel's ``BK``): x and w split into
     TF32 hi and lo (:func:`..bsr_spgemm.ref.tf32_split`, the kernel's
-    split), the panel's partial lo·hi + hi·lo + hi·hi (lo·lo left out) with
-    each term's exact products summed in float64 and rounded to float32;
-    the partials added in float32 in panel order; a zero stored as +0.
-    Where the panel of an x row, or the panel of w, holds an infinity, a
-    NaN or an ``|v| >= 2**127``, that row's panel is the float32 product of
-    the unsplit operands instead. Rows ``r >= rows[e]`` are zeros. The
-    kernel decides the unsplit panels for a pair of rows and a 128-column
-    tile at a time and sums each panel's terms in fp32 in its own order,
-    truncating below the accumulator's last place, which this model does
-    not reproduce."""
-    from ..bsr_spgemm.ref import tf32_split
+    split), the panel's partial lo·hi + hi·lo + hi·hi (lo·lo left out), each
+    product rounded to float32 (an infinity past FLT_MAX) and the products
+    summed in float64, rounded to float32
+    (:func:`..bsr_spgemm.ref.split_terms`); the partials added in float32 in
+    panel order; a zero stored as +0. Where the largest ``|x|`` of an x
+    row's panel and the largest ``|w|`` of the expert's w panel meet the
+    kernels' unsplit rule (:func:`..bsr_spgemm.ref.unsplit_where`: an
+    infinity, a NaN or ``|v| >= 2**127`` in either, or a float32 product of
+    the two that is NaN or at least ``2**126``, where hi·hi could overflow),
+    that row's panel is the float32 product of the unsplit operands instead.
+    Rows ``r >= rows[e]`` are zeros. The kernel decides the unsplit panels
+    for a pair of rows and a 128-column tile at a time and sums each panel's
+    terms in fp32 in its own order, truncating below the accumulator's last
+    place, which this model does not reproduce."""
+    from ..bsr_spgemm.ref import split_terms, tf32_split, unsplit_where
 
     x, w = x.float(), w.float()
     e, cap, d = x.shape
-    (xh, xl), (wh, wl) = (tuple(t.double() for t in tf32_split(a))
-                          for a in (x, w))
+    (xh, xl), (wh, wl) = tf32_split(x), tf32_split(w)
     y = torch.zeros(e, cap, w.shape[2], dtype=torch.float32,
                     device=x.device)
     for k0 in range(0, d, block_k):
         k = slice(k0, k0 + block_k)
-        part = (xl[:, :, k] @ wh[:, k] + xh[:, :, k] @ wl[:, k]
-                + xh[:, :, k] @ wh[:, k]).float()
-        wide = (~(x[:, :, k].abs() < 2.0 ** 127)).any(-1, keepdim=True) \
-            | (~(w[:, k].abs() < 2.0 ** 127)).flatten(1).any(-1)[:, None,
-                                                                  None]
-        if bool(wide.any()):
-            part = torch.where(wide, x[:, :, k] @ w[:, k], part)
+        part = split_terms(((xl[:, :, k], wh[:, k]), (xh[:, :, k], wl[:, k]),
+                            (xh[:, :, k], wh[:, k])))
+        unsplit = unsplit_where(x[:, :, k].abs().amax(-1, keepdim=True),
+                                w[:, k].abs().amax((-2, -1))[:, None, None])
+        if bool(unsplit.any()):
+            part = torch.where(unsplit, x[:, :, k] @ w[:, k], part)
         y = part if k0 == 0 else y + part
     y = y + 0.0
     if rows is not None:

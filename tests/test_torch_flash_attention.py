@@ -20,7 +20,10 @@
   block of the kernel's size) held against the Pallas kernel in interpret
   mode within the float32 tolerance the card is held to (atol 2e-5 + rtol
   1e-4), at head dims 16, 64, 128, 160 and 256, S 77 and 200, window,
-  softcap and GQA.
+  softcap and GQA; at overflow magnitudes (C3's pairs planted as the card
+  plants them, and full-mantissa logits in [2^126, 2^128) that the softmax
+  reads to the last bit) against the plain version, the NaN / inf pattern
+  equal and the rest within the same tolerance, through the unsplit rule.
 * ``route`` and the wrapper's argument checks per route: what the prefill
   path hands the kernel on a card passes them (run on CPU tensors, at each
   architecture's published head dim in bf16, and in float32 at each smoke
@@ -416,6 +419,94 @@ def test_fp32_model_differs_from_one_tf32_pass():
     hi = lambda t: tf32_split(t)[0]
     one = mha_ref(hi(q), hi(k), hi(v), **kw)
     assert not torch.allclose(one, want, atol=2e-5, rtol=1e-4)
+
+
+# C3's operand pairs at overflow magnitudes (the pairs ``chip_smoke.py``
+# plants on the card): x = nextafter(2**64, 0), whose TF32 hi is 2**64, so
+# hi·hi = 2**128 overflows where x·x does not; x·x negated; 2e19 squared,
+# past FLT_MAX either way; 2**63 times nextafter(2**65, 0) = FLT_MAX; exact
+# products under and over the 2**126 bound
+_X = float(np.nextafter(np.float32(2.0 ** 64), np.float32(0)))
+OVERFLOW_PAIRS = [(_X, _X), (-_X, _X), (2e19, 2e19),
+                  (2.0 ** 63, float(np.nextafter(np.float32(2.0 ** 65),
+                                                 np.float32(0)))),
+                  (2.0 ** 100, 2.0 ** 20), (3 * 2.0 ** 62, 2.0 ** 63)]
+
+
+def _reference_mha(q, k, v, *, scale, causal):
+    """The reference package's plain multi-head attention (its
+    ``attention_ref`` in the model layout) on the same inputs."""
+    return torch.from_numpy(np.array(r_multihead_attention(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)), scale, causal, 0, 0.0,
+        False, False)))
+
+
+def _same_nonfinite(got, want):
+    return all(torch.equal(f(got), f(want)) for f in (
+        torch.isnan, torch.isposinf, torch.isneginf))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("pair", range(len(OVERFLOW_PAIRS) + 1))
+def test_fp32_model_keeps_the_plain_pattern_at_overflow_magnitudes(pair,
+                                                                    causal):
+    """As the card is checked: q (1, 256, 2, 16) and k, v (1, 256, 1, 16)
+    seeded normals x 0.5, the pair's first value the one nonzero of q row
+    r = 250 - 9 t (head 0), its second the one nonzero of key c = 10 + 13 t,
+    both in coordinate j = (5 t + 3) % 16, so the logit (r, c) has one term;
+    the last case is x·x - x·x for x = nextafter(2**64, 0) (the second
+    product in coordinate j ^ 8, another TF32 k-step), 0 in the plain
+    version. The model gives the plain version's NaN / inf pattern (2e19
+    squared is an inf logit, so row r is NaN in both) and its finite values
+    within the float32 tolerance."""
+    t = pair
+    a, b = (OVERFLOW_PAIRS + [(_X, _X)])[t]
+    r = np.random.default_rng(t)
+    q = (r.standard_normal((1, 256, 2, 16)) * 0.5).astype(np.float32)
+    k, v = ((r.standard_normal((1, 256, 1, 16)) * m).astype(np.float32)
+            for m in (0.5, 1.0))
+    row, key, j = 250 - 9 * t, 10 + 13 * t, (5 * t + 3) % 16
+    q[0, row, 0], k[0, key, 0] = 0.0, 0.0
+    q[0, row, 0, j], k[0, key, 0, j] = a, b
+    if t == len(OVERFLOW_PAIRS):
+        q[0, row, 0, j ^ 8], k[0, key, 0, j ^ 8] = -a, b
+    q, k, v = (torch.from_numpy(x) for x in (q, k, v))
+    kw = dict(scale=0.25, causal=causal)
+    want = _reference_mha(q, k, v, **kw)
+    got = attention_tf32_model(q, k, v, block_k=tkernel.fp32_config(16)["bk"],
+                               **kw)
+    assert _same_nonfinite(got, want)
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_fp32_model_is_the_plain_version_at_overflow_magnitudes(causal):
+    """Logits at overflow magnitudes that the softmax reads to the last bit:
+    q row r holds a_r and key c holds b_c in coordinate 0 (nothing else),
+    seeded full 24-bit mantissas with a_r b_c in [2**126, 2**128) and the
+    b_c 2**-18 apart, and scale 2**-110, so the logits lie half a unit apart
+    and one float32 ulp of a_r b_c (2**104) moves a logit by 2**-6 and its
+    p by 1.6%. The model sums those blocks' QKᵀ unsplit (the largest |q|
+    and |k| multiply to 2**126 or more), so every logit is the float32
+    product and the output stays within the float32 tolerance of the plain
+    version; a split rounds about half those products elsewhere, and its
+    hi·hi of nextafter(2**64, 0) squared is 2**128."""
+    r = np.random.default_rng(5)
+    s, d = 96, 16
+    q = np.zeros((1, s, 1, d), np.float32)
+    k = np.zeros((1, s, 1, d), np.float32)
+    q[0, :, 0, 0] = r.uniform(1.0, 2.0, s) * 2.0 ** 63
+    k[0, :, 0, 0] = r.uniform(1.0, 1.5, 1) * 2.0 ** 63 * (
+        1.0 + np.arange(s) * 2.0 ** -18)
+    v = r.standard_normal((1, s, 1, d)).astype(np.float32)
+    q, k, v = (torch.from_numpy(x) for x in (q, k, v))
+    kw = dict(scale=2.0 ** -110, causal=causal)
+    want = _reference_mha(q, k, v, **kw)
+    got = attention_tf32_model(q, k, v, block_k=tkernel.fp32_config(d)["bk"],
+                               **kw)
+    assert bool(torch.isfinite(want).all())
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

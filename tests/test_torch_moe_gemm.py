@@ -18,7 +18,11 @@
   shapes and the grid's narrow ones, with ``rows`` None, random and all 0;
   bitwise on integer-valued inputs; against the Pallas kernel in interpret
   mode; a single TF32 pass falls outside that tolerance; planted inf / NaN /
-  |v| near FLT_MAX give the plain version's non-finite pattern. The route's
+  |v| near FLT_MAX give the plain version's non-finite pattern; products
+  at overflow magnitudes (C3's pairs and full-mantissa ones in [2^126,
+  2^128), one term an output element) come out as the plain version's
+  float32 product bit for bit, through the unsplit rule, and the split's
+  terms round each product to float32 (hi·hi overflows). The route's
   blocking (``fp32_config``) against the kernel source's constants.
 """
 
@@ -36,7 +40,8 @@ from repro.kernels.moe_gemm import moe_gemm_ref as r_moe_gemm_ref
 from repro.models.moe import moe_apply as r_moe_apply
 from repro.models.moe import moe_init as r_moe_init
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.bsr_spgemm.ref import tf32_split
+from repro_torch.kernels.bsr_spgemm.ref import (split_terms, tf32_split,
+                                               unsplit_where)
 from repro_torch.kernels.moe_gemm import grouped_gemm
 from repro_torch.kernels.moe_gemm import kernel as tkernel
 from repro_torch.kernels.moe_gemm.ref import (moe_gemm_ref,
@@ -310,6 +315,75 @@ def test_fp32_route_keeps_the_plain_non_finite_pattern(d, f, rows):
     naive = sum(a.double() @ b.double() for a, b in (
         (xs[1], ws[0]), (xs[0], ws[1]), (xs[0], ws[0]))).float().numpy()
     assert not np.array_equal(np.isnan(naive[:, :2]), np.isnan(want[:, :2]))
+
+
+# C3's operand pairs at overflow magnitudes (the pairs ``chip_smoke.py``
+# plants on the card): x = nextafter(2**64, 0), whose TF32 hi is 2**64, so
+# hi·hi = 2**128 overflows where x·x does not; x·x negated; 2e19 squared,
+# past FLT_MAX either way; 2**63 times nextafter(2**65, 0) = FLT_MAX; exact
+# products under and over the 2**126 bound
+_X = float(np.nextafter(np.float32(2.0 ** 64), np.float32(0)))
+OVERFLOW_PAIRS = [(_X, _X), (-_X, _X), (2e19, 2e19),
+                  (2.0 ** 63, float(np.nextafter(np.float32(2.0 ** 65),
+                                                 np.float32(0)))),
+                  (2.0 ** 100, 2.0 ** 20), (3 * 2.0 ** 62, 2.0 ** 63)]
+
+
+def _overflow_pairs(n=24, seed=11):
+    """``OVERFLOW_PAIRS``, then ``n`` seeded pairs with full 24-bit
+    mantissas whose products lie in [2**126, 2**128): there the split's
+    lo·hi + hi·lo + hi·hi (lo·lo dropped, and a lo short of the bits
+    x - hi has) rounds to another float32 than x·y about half the time."""
+    r = np.random.default_rng(seed)
+    a, b = (np.float32(r.uniform(1.0, 2.0, n) * 2.0 ** 63) for _ in "ab")
+    return OVERFLOW_PAIRS + [(float(u), float(v)) for u, v in zip(a, b)]
+
+
+def test_fp32_route_model_is_the_plain_product_at_overflow_magnitudes():
+    """Each pair of ``_overflow_pairs`` is the one nonzero term of an output
+    element (x row i holds its first value at column i, w its second at
+    (i, 5 i + 1 mod 64)), in 32-deep panels: where the largest |x| and |w|
+    of a panel multiply to 2**126 or more the panel is summed unsplit, so
+    every element is the float32 product bit for bit, inf and -inf
+    included, as the reference's ``moe_gemm_ref`` gives it (a split rounds
+    half the full-mantissa products elsewhere, and its hi·hi of
+    nextafter(2**64, 0) squared is 2**128). Last, x·x - x·x for
+    x = nextafter(2**64, 0) within one panel, a TF32 k-step apart: the
+    plain version's 0, up to x·x's rounding residual (2**80, which a fused
+    multiply-add keeps)."""
+    pairs = _overflow_pairs()
+    n, d = len(pairs), 64
+    x = np.zeros((1, n + 1, d), np.float32)
+    w = np.zeros((1, d, d), np.float32)
+    for i, (a, b) in enumerate(pairs):
+        x[0, i, i], w[0, i, (5 * i + 1) % d] = a, b
+    x[0, n, 40], x[0, n, 41] = _X, -_X
+    w[0, 40, 7] = w[0, 41, 7] = _X
+    got = _model(x, w, None).numpy()
+    want = _reference(x, w, None)
+    assert np.isposinf(want).any() and np.isneginf(want[:, :n]).sum() == 0
+    assert np.array_equal(got[:, :n].view(np.int32),
+                          (want[:, :n] + 0.0).view(np.int32))
+    for y in (got, want):
+        assert np.isfinite(y[0, n]).all() and abs(y[0, n, 7]) <= 2.0 ** 80
+
+
+def test_split_terms_round_each_product_to_float32():
+    """The models form each split term's products as the tensor core does,
+    in float32: hi·hi of nextafter(2**64, 0) squared is 2**128, an
+    infinity, and x·x - x·x a k-step apart is inf - inf, NaN, which is what
+    the unsplit rule keeps out; products below FLT_MAX are exact and summed
+    in float64."""
+    x = torch.tensor([[_X, -_X]])
+    w = torch.tensor([[_X], [_X]])
+    (xh, xl), (wh, wl) = tf32_split(x), tf32_split(w)
+    assert float(xh[0, 0]) == 2.0 ** 64
+    assert torch.isposinf(split_terms(((xh[:, :1], wh[:1]),))).all()
+    assert torch.isnan(split_terms(((xl, wh), (xh, wl), (xh, wh)))).all()
+    assert bool(unsplit_where(x.abs().amax(), w.abs().amax()))
+    small = torch.tensor([[3.0, 5.0]])
+    assert float(split_terms(((small, small.T), (small, small.T)))) == 68.0
+    assert not bool(unsplit_where(small.abs().amax(), small.abs().amax()))
 
 
 def test_fp32_config_matches_the_kernel_source():

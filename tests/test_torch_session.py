@@ -6,7 +6,11 @@ key rules for 2d/3d), the values-only repack, the typed dtype rejection on
 a repack, the degradation ladder (engine, then 3d→2d→1d) and the circuit
 breaker under injected faults, the card's rules (no plain rung behind the
 kernel on any algorithm rung, a bs the kernel does not take rejected at
-ingress), and
+ingress), the serving budgets (LRU order under a byte budget, an oversized
+newest entry kept, per-tenant quota and bytes charged to the creator as
+the reference charges them, the eviction hook's arguments and its chaining,
+the tenant through a downgrade, an entry's bytes as the sum of its
+tensors), and
 the device rule (asking for ``"cuda"`` without a GPU raises). Results compare bitwise on
 integer-valued operands (tolerance: none).
 """
@@ -352,6 +356,148 @@ def test_lru_eviction_releases_bytes():
     assert s.stats["evictions"] == 1 and len(s) == 1
     s.clear()
     assert s.stats["bytes_cached"] == 0 and len(s) == 0
+
+
+# ---- the serving budgets ----------------------------------------------------
+
+
+def _fill(s, i, **kw):
+    """One cold multiply of the i-th distinct integer matrix; returns the
+    key it cached (the newest, last in LRU order)."""
+    m = _int_matrix(30, seed=20 + i)
+    s.matmul(m, m, bs=16, **kw)
+    return next(reversed(s._cache))
+
+
+def test_entry_bytes_are_the_device_tensors_it_pins():
+    """An entry's ``nbytes`` is the sum of the tensors its executable was
+    built with, and the ledger holds it; the reference's count of the same
+    multiply is larger, since it also pins a flag array and a count the
+    port does not build (documented, not padded)."""
+    a = _int_matrix()
+    for kw in (dict(), dict(nparts=2), dict(algorithm="2d", grid=2)):
+        s = SpGEMMSession(device="cpu")
+        s.matmul(a, a, bs=16, **kw)
+        entry = next(iter(s._cache.values()))
+        assert all(isinstance(t, torch.Tensor) for t in entry.args)
+        assert entry.nbytes == sum(t.nbytes for t in entry.args) > 0
+        assert s.cached_bytes() == s.stats["bytes_cached"] == entry.nbytes
+    s = SpGEMMSession(device="cpu")
+    s.matmul(a, a, bs=16)
+    r = RSession()
+    ra = r_erdos_renyi(50, 50, 4.0, seed=3)
+    ra.data[:] = a.data
+    r.matmul(ra, ra, bs=16, engine="jnp")
+    assert s.cached_bytes() < r.cached_bytes()
+
+
+def test_byte_budget_evicts_lru_first_and_keeps_the_newest():
+    """``max_bytes`` evicts oldest-first (a hit refreshes an entry) until
+    the ledger fits, firing the hook with each entry's owner, key and
+    bytes; a newest entry larger than the whole budget still serves and
+    stays, alone."""
+    sizes = {}
+    probe = SpGEMMSession(device="cpu")
+    for i in range(4):
+        key = _fill(probe, i)
+        sizes[i] = probe._cache[key].nbytes
+    seen = []
+    s = SpGEMMSession(device="cpu", max_bytes=sizes[1] + sizes[2],
+                      on_evict=lambda *a: seen.append(a))
+    keys = [_fill(s, i, tenant=f"t{i}") for i in range(3)]
+    assert [k for _, k, _ in seen] == [keys[0]]
+    assert seen[0] == ("t0", keys[0], sizes[0])
+    _fill(s, 1)                                        # a hit: 1 is newest
+    assert s.last_call["cache_hit"] and list(s._cache) == [keys[2], keys[1]]
+    k3 = _fill(s, 3, tenant="t3")
+    assert seen[1] == ("t2", keys[2], sizes[2])        # LRU went first
+    assert s.cached_bytes() <= s.max_bytes and k3 in s._cache
+    s.max_bytes = 1                                    # smaller than any
+    k0 = _fill(s, 0)
+    assert list(s._cache) == [k0] and s.cached_bytes() == sizes[0]
+    assert s.stats["evictions"] == len(seen)
+    assert s.stats["bytes_cached"] == s.cached_bytes()
+
+
+def test_quota_charges_the_creator_as_the_reference_does():
+    """``tenant_quota`` counts the entries a tenant created: a hit by
+    another tenant neither moves ownership nor counts against it, and the
+    hook reports the owner. The same sequence through the reference's
+    session evicts the same structures for the same owners."""
+    got, want = [], []
+    s = SpGEMMSession(device="cpu", tenant_quota=1,
+                      on_evict=lambda o, k, n: got.append((o, k[-2:], n)))
+    r = RSession(tenant_quota=1,
+                 on_evict=lambda o, k, n: want.append((o, k[-2:])))
+    seq = [("a", 0), ("a", 1), ("b", 2), ("b", 1), ("b", 3), ("a", 4)]
+    for tenant, i in seq:
+        m = _int_matrix(30, seed=20 + i)
+        s.matmul(m, m, bs=16, tenant=tenant)
+        rm = r_erdos_renyi(30, 30, 4.0, seed=20 + i)
+        rm.data[:] = m.data
+        r.matmul(rm, rm, bs=16, engine="jnp", tenant=tenant)
+        assert s.last_call["cache_hit"] == r.last_call["cache_hit"]
+        for t in ("a", "b"):
+            assert s.cached_entries(t) == r.cached_entries(t) <= 1
+    assert [(o, k) for o, k, _ in got] == want
+    assert [o for o, _, _ in got] == ["a", "b", "a"]
+    assert all(n > 0 for _, _, n in got)
+    assert s.cached_bytes("a") + s.cached_bytes("b") == s.cached_bytes()
+
+
+def test_tenant_max_bytes_keeps_the_tenants_newest():
+    s = SpGEMMSession(device="cpu", tenant_max_bytes=1)
+    for i in range(3):
+        _fill(s, i, tenant="a")
+    _fill(s, 3, tenant="b")
+    assert s.cached_entries("a") == 1 and s.cached_entries("b") == 1
+    assert s.stats["evictions"] == 2
+
+
+def test_tenant_passes_through_a_downgrade():
+    """A 3d call whose plan fails on the 3d rung is served on the 2d rung,
+    and the entry that rung caches belongs to the calling tenant."""
+    inj = FaultInjector(seed=0, rates={"plan": 1.0}, max_faults=1)
+    s = SpGEMMSession(device="cpu", fault_injector=inj, tenant_quota=4,
+                      retry_policy=tft.RetryPolicy(max_retries=0,
+                                                   backoff_s=0.0))
+    a = _int_matrix(30, seed=2)
+    c = s.matmul(a, a, algorithm="3d", grid=2, layers=2, bs=16,
+                 tenant="t")
+    assert (s.last_call["algorithm"], s.last_call["degraded"]) == \
+        ("2d", True)
+    _assert_bitwise(c, _cold(a, a, nparts=1, bs=16))
+    entry, = s._cache.values()
+    assert entry.owner == "t" and s.cached_entries("t") == 1
+    assert s.cached_bytes("t") == entry.nbytes
+
+
+def test_eviction_releases_the_entry_and_chains_hooks():
+    """An evicted entry drops its tensors and executable; a service built
+    over a session that already has a hook calls that hook after counting
+    the eviction for the owner."""
+    from repro_torch.serve import SpGEMMService
+
+    prior = []
+    s = SpGEMMSession(device="cpu", maxsize=1,
+                      on_evict=lambda *a: prior.append(a))
+    svc = SpGEMMService(session=s)
+    k0 = _fill(s, 0, tenant="x")
+    entry = s._cache[k0]
+    nbytes = entry.nbytes
+    _fill(s, 1, tenant="y")
+    assert prior == [("x", k0, nbytes)]
+    assert entry.args == [] and entry.fn is None and entry.repack is None
+    assert svc.stats()["evictions_by_tenant"] == {"x": 1}
+    assert s.cached_bytes() == s.stats["bytes_cached"] \
+        == s.cached_bytes("y")
+
+
+@pytest.mark.parametrize("knob", ["max_bytes", "tenant_quota",
+                                  "tenant_max_bytes"])
+def test_budget_knobs_must_be_positive(knob):
+    with pytest.raises(ValueError, match=knob):
+        SpGEMMSession(device="cpu", **{knob: 0})
 
 
 def test_cuda_session_without_gpu_raises():
