@@ -83,6 +83,29 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  stack), the executable's time (CUDA events), the plan and
                  decode seconds, and the planned / padded bytes of the 1D
                  ring, 2D SUMMA and Split-3D side by side
+  5'. ranks    — the same multiplies across processes, one part per rank,
+                 through ``SpGEMMSession(group=WORLD)``, from the libraries
+                 phase 1 built: (a) NCCL with one rank per visible card (a
+                 world of one here: the NCCL setup and the rank's kernels,
+                 no transfer), the 1D ring at nparts = world on
+                 banded_clustered(65536, 64, 16.0) with phase 4's integer
+                 weights at bs 128 (``tc``) and, with 16 NaNs planted, in
+                 min-plus at bs 64 (``minplus``); (b) 8 gloo ranks
+                 time-sharing cuda:0:
+                 the Laplacian's ring at nparts 8, bs 128 (``tc``) and 32
+                 (``warp``), chunk None and 2, 2D SUMMA (grid 2: ranks 4-7
+                 idle, receiving the result) and Split-3D (2x2x2) at bs
+                 128, and min-plus with the NaNs through the ring (chunk 2)
+                 and Split-3D at bs 64. Every rank's result bitwise-equal to
+                 the one-process session's (the Laplacian's: to scipy's,
+                 which phases 3, 4b and 5 held the one-process session to);
+                 no fallback or downgrade; every member rank's launches on
+                 the call's route, none on an idle rank; the transport's
+                 bytes summed over ranks equal to ``comm_bytes_padded``
+                 (ring) or the gather share D (grid - 1) (na + nb) tiles
+                 (SUMMA). Per call: launches per rank, transport bytes by
+                 kind, wall / plan-and-build / execute seconds per rank and
+                 each rank's peak host RSS (sampled)
   5a. apps     — the paper's applications through ``repro_torch.apps``,
                  each on its own ``SpGEMMSession(device="cuda")`` at its
                  default bs, every launch on ``warp``, no profiler window:
@@ -230,6 +253,7 @@ import contextlib
 import gc
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1485,6 +1509,389 @@ def phase_summa(dev, case, ring):
     emit({"phase": "comm_bytes", "matrix": f"laplacian_2d({side})",
           "bs": 128, "geometry": {"1d": "nparts=8", "2d": "grid=2",
                                   "3d": "grid=2, layers=2"}, **comm})
+    return launches
+
+
+# ---- phase ranks: the three algorithms across processes -------------------
+
+# 8 gloo ranks time-share the card; the group's timeout bounds every wait
+# (the slowest rank's planning included), the join limit the whole spawn
+RANKS_GLOO = 8
+RANKS_TIMEOUT_S = 300
+RANKS_LIMIT_S = 400
+# the ranks are stopped, and the phase fails, before the host's available
+# memory falls below this (a machine out of memory loses the whole run)
+RANKS_MIN_FREE = 12 << 30
+# (label, operands, matmul kwargs, the route every launch must take);
+# min-plus on banded_clustered with NaNs planted
+RANKS_CALLS = (
+    ("1d_bs128", "laplacian", dict(algorithm="1d", nparts=8, bs=128), "tc"),
+    ("1d_bs128_chunk2", "laplacian",
+     dict(algorithm="1d", nparts=8, bs=128, chunk=2), "tc"),
+    ("1d_bs32", "laplacian", dict(algorithm="1d", nparts=8, bs=32), "warp"),
+    ("1d_bs32_chunk2", "laplacian",
+     dict(algorithm="1d", nparts=8, bs=32, chunk=2), "warp"),
+    ("2d_bs128", "laplacian", dict(algorithm="2d", grid=2, bs=128), "tc"),
+    ("3d_bs128", "laplacian", dict(algorithm="3d", grid=2, layers=2,
+                                   bs=128), "tc"),
+    ("min_plus_1d_bs64", "banded_nan",
+     dict(algorithm="1d", nparts=8, bs=64, chunk=2, semiring="min_plus"),
+     "minplus"),
+    ("min_plus_3d_bs64", "banded_nan",
+     dict(algorithm="3d", grid=2, layers=2, bs=64, semiring="min_plus"),
+     "minplus"),
+)
+
+
+def ranks_operand(name):
+    """The ranks phase's operands, built alike in every process:
+    laplacian_2d(1024) in float32 (``laplacian_case``'s ``a``), and
+    banded_clustered(65536, 64, 16.0) with phase 4's integer weights
+    (``"banded"``), with 16 NaNs planted at seeded entries
+    (``"banded_nan"``)."""
+    from repro_torch.core import banded_clustered, laplacian_2d
+
+    if name == "laplacian":
+        return laplacian_2d(1024).astype(np.float32)
+    a = banded_clustered(65536, 64, 16.0, seed=0)
+    a.data[:] = np.rint(2 * a.data)
+    a.data[a.data == 0] = 1.0
+    a = a.astype(np.float32)
+    if name == "banded_nan":
+        a.data[np.random.default_rng(5).choice(a.nnz, 16,
+                                               replace=False)] = np.nan
+    return a
+
+
+def csc_digest(c):
+    """One digest of a CSC's shape, indptr and indices (int64) and values
+    (float32 bits): equal digests, bitwise-equal results."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    h.update(np.asarray(c.shape, dtype=np.int64).tobytes())
+    for x, dt in ((c.indptr, np.int64), (c.indices, np.int64),
+                  (c.data, np.float32)):
+        h.update(np.ascontiguousarray(np.asarray(x).astype(dt)).tobytes())
+    return h.hexdigest()
+
+
+def ranks_worker(rank, world, backend, init_file, calls, queue):
+    """One rank of the ranks phase: join the group, serve ``calls`` through
+    one ``SpGEMMSession(group=WORLD)`` on ``cuda:(rank % device_count)``,
+    and put per call the result's digest and this rank's counts on
+    ``queue``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    try:
+        torch.set_num_threads(1)   # the ranks share the host's cores
+        if backend == "nccl":   # one host, no network: bootstrap on loopback
+            os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        dist.init_process_group(
+            backend, init_method=f"file://{init_file}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=RANKS_TIMEOUT_S))
+        from repro_torch.core import by_name
+        from repro_torch.core.session import SpGEMMSession
+        from repro_torch.kernels.bsr_spgemm import kernel
+
+        execute = []
+
+        def session(validate):
+            """A session over the whole group; its executables' runs timed
+            (host clock to a synchronize)."""
+            sess = SpGEMMSession(group=dist.group.WORLD, validate=validate)
+            compile_ = sess._compile
+
+            def timed_compile(*args, **kw):
+                fn, dev_args = compile_(*args, **kw)
+
+                def run(*xs):
+                    t = time.perf_counter()
+                    out = fn(*xs)
+                    torch.cuda.synchronize()
+                    execute.append(time.perf_counter() - t)
+                    return out
+                return run, dev_args
+
+            sess._compile = timed_compile
+            return sess
+
+        # ingress validation refuses NaN operands: the NaN calls go through
+        # a session that skips it
+        sessions = {True: session(True), False: session(False)}
+        operands, rows, rss = {}, [], PeakRss()
+        for label, opname, kw, route in calls:
+            if opname not in operands:
+                operands[opname] = ranks_operand(opname)
+            a = operands[opname]
+            sess = sessions[opname != "banded_nan"]
+            kw = dict(kw)
+            if "semiring" in kw:
+                kw["semiring"] = by_name(kw["semiring"])
+            kernel.reset_launches()
+            sess.transport.reset_counts()
+            execute.clear()
+            rss.reset()
+            t0 = time.perf_counter()
+            c = sess.matmul(a, a, **kw)
+            wall = time.perf_counter() - t0
+            entry = next(reversed(sess._cache.values()))
+            plan = entry.plan
+            if kw["algorithm"] == "1d":
+                share = plan.stats["comm_bytes_padded"]
+            else:   # the SUMMA gathers' share: D (grid - 1) (na + nb) tiles
+                D = plan.grid * plan.grid * plan.layers
+                share = (D * (plan.grid - 1) * (plan.a_tiles.shape[-3]
+                                                + plan.b_tiles.shape[-3])
+                         * plan.bs * plan.bs * 4)
+            rows.append({
+                "label": label, "digest": csc_digest(c), "nnz": c.nnz,
+                "member": entry.part is not None, "route": route,
+                "launches": kernel.bsr_spgemm.launches,
+                "route_launches": dict(kernel.bsr_spgemm.route_launches),
+                "wall_s": wall, "plan_and_build_s":
+                    sess.last_call["plan_seconds"],
+                "execute_s": sum(execute),
+                "sent": dict(sess.transport.sent),
+                "received": dict(sess.transport.received),
+                "transport_share": share,
+                "last_call": {k: sess.last_call[k] for k in (
+                    "algorithm", "engine", "degraded", "retries",
+                    "comm_bytes_planned", "comm_bytes_padded")},
+                "fallbacks": sess.stats["fallbacks"],
+                "peak_rss_bytes": rss.read()})
+            sess.clear()
+            del c, entry, plan
+            torch.cuda.empty_cache()
+        rss.close()
+        queue.put((rank, "ok", rows))
+    except Exception:  # report, then fail the phase in the parent
+        queue.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+
+
+def host_available():
+    """The host's available memory in bytes (``/proc/meminfo``)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return None
+
+
+def process_rss(pid):
+    """A process's resident memory now (``VmRSS`` of
+    ``/proc/<pid>/status``)."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return 0
+
+
+class PeakRss:
+    """This process's peak RSS, sampled every 50 ms by a daemon thread
+    (the samples run while the main thread is in native code). Some hosts
+    report no ``VmHWM``, and a spawned rank's ``ru_maxrss`` keeps the peak
+    of the process it was forked from, so the peak is sampled.
+    :meth:`reset` starts a new window."""
+
+    def __init__(self):
+        import threading
+
+        self.peak = process_rss(os.getpid())
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.wait(0.05):
+            self.peak = max(self.peak, process_rss(os.getpid()))
+
+    def reset(self):
+        self.peak = process_rss(os.getpid())
+
+    def read(self):
+        return max(self.peak, process_rss(os.getpid()))
+
+    def close(self):
+        self._stop.set()
+        self._thread.join()
+
+
+def spawn_ranks(world, backend, calls):
+    """Run ``ranks_worker`` on ``world`` processes (spawned, a ``file://``
+    init); returns per rank its rows, and the host's lowest available
+    memory while they ran (sampled every half second). Every process is
+    joined, or killed past RANKS_LIMIT_S or when the host's available
+    memory falls below RANKS_MIN_FREE, and any rank's failure fails the
+    phase."""
+    import queue as queues
+    import tempfile
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        init = os.path.join(tmp, "init")
+        procs = [ctx.Process(target=ranks_worker,
+                             args=(r, world, backend, init, calls, q))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        got, low, lowest = {}, None, None
+        deadline = time.monotonic() + RANKS_LIMIT_S
+        try:
+            while len(got) < world and time.monotonic() < deadline:
+                free = host_available()
+                lowest = free if lowest is None else min(lowest, free)
+                if free is not None and free < RANKS_MIN_FREE:
+                    low = (free, [process_rss(p.pid) for p in procs])
+                    break
+                try:
+                    rank, status, payload = q.get(timeout=0.5)
+                except queues.Empty:
+                    if all(p.exitcode is not None for p in procs):
+                        break
+                    continue
+                got[rank] = (status, payload)
+            if low is not None:
+                for p in procs:
+                    p.kill()
+        finally:
+            for p in procs:
+                p.join(timeout=max(deadline - time.monotonic(), 1.0))
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10)
+    check(low is None, f"{backend}: the host's available memory fell to "
+          f"{low and low[0]} bytes; the ranks' RSS was {low and low[1]} "
+          f"(the parent's {process_rss(os.getpid())})")
+    check(len(got) == world, f"{backend}: {world - len(got)} rank(s) "
+          f"reported nothing within {RANKS_LIMIT_S} s")
+    bad = {r: p for r, (s, p) in got.items() if s != "ok"}
+    check(not bad, "\n".join(f"{backend} rank {r}:\n{p}"
+                             for r, p in bad.items()))
+    return [got[r][1] for r in range(world)], lowest
+
+
+def ranks_report(backend, world, calls, spawned, want):
+    """Check one spawn's rows against the one-process digests ``want`` and
+    emit one line per call; returns the launches by route."""
+    per_rank, lowest = spawned
+    emit({"phase": "ranks_host", "backend": backend, "world": world,
+          "lowest_available_bytes": lowest})
+    launches = dict.fromkeys(("tc", "warp", "minplus"), 0)
+    for i, (label, opname, kw, route) in enumerate(calls):
+        rows = [pr[i] for pr in per_rank]
+        for r, row in enumerate(rows):
+            check(row["digest"] == want[label],
+                  f"{backend} {label}: rank {r}'s result differs from the "
+                  "one-process session's")
+            lc = row["last_call"]
+            check(lc["engine"] == "cuda" and not lc["degraded"]
+                  and lc["algorithm"] == kw["algorithm"]
+                  and row["fallbacks"] == 0,
+                  f"{backend} {label} rank {r} left the kernel's rung: {lc}")
+            routes = row["route_launches"]
+            check(row["launches"] == routes[route]
+                  and (routes[route] > 0) == row["member"],
+                  f"{backend} {label} rank {r} launches {routes} (member "
+                  f"{row['member']}, route {route})")
+            launches[route] += routes[route]
+        kind = "ring" if kw["algorithm"] == "1d" else "gather"
+        moved = sum(row["sent"][kind] for row in rows)
+        got = sum(row["received"][kind] for row in rows)
+        check(moved == got == rows[0]["transport_share"],
+              f"{backend} {label}: the transport moved {moved} / {got} "
+              f"bytes of {kind}, the plan's share is "
+              f"{rows[0]['transport_share']}")
+        emit({"phase": "ranks", "backend": backend, "world": world,
+              "label": label, "operands": opname, **kw,
+              "members": sum(row["member"] for row in rows),
+              "nnz_c": rows[0]["nnz"], "bitwise_one_process": True,
+              "route": route,
+              "launches_per_rank": [row["launches"] for row in rows],
+              "transport_bytes": {k: sum(row["sent"][k] for row in rows)
+                                  for k in rows[0]["sent"]},
+              "transport_share": rows[0]["transport_share"],
+              "comm_bytes_planned": rows[0]["last_call"][
+                  "comm_bytes_planned"],
+              "comm_bytes_padded": rows[0]["last_call"]["comm_bytes_padded"],
+              "wall_s": [row["wall_s"] for row in rows],
+              "plan_and_build_s": [row["plan_and_build_s"] for row in rows],
+              "execute_s": [row["execute_s"] for row in rows],
+              "peak_rss_bytes": [row["peak_rss_bytes"] for row in rows]})
+    return launches
+
+
+def phase_ranks(dev, case):
+    """The three algorithms across processes through
+    ``SpGEMMSession(group=WORLD)``, one part per rank, from the libraries
+    phase 1 built: (a) NCCL with one rank per visible card (on one card a
+    world of one: the NCCL setup and the rank's kernels, no transfer), the
+    1D ring at nparts = world on banded_clustered(65536, 64, 16.0) at bs
+    128 and in min-plus with NaNs at bs 64; (b) 8 gloo ranks time-sharing
+    cuda:0: ``RANKS_CALLS``. Every rank's result bitwise-equal to the
+    one-process session's (for the Laplacian: scipy's A·A, which phases 3,
+    4b and 5 held the one-process session to, bitwise, at each of these
+    geometries); every member rank's launches on the call's route, none on
+    an idle rank's; the transport's bytes summed over ranks equal to
+    ``comm_bytes_padded`` (ring) or the gather share (SUMMA). Returns the
+    launches by route."""
+    from repro_torch.core import by_name
+    from repro_torch.core.session import SpGEMMSession
+    from repro_torch.kernels.bsr_spgemm import kernel
+
+    t0 = time.perf_counter()
+    banded = ranks_operand("banded_nan")
+    check(np.isnan(banded.data).sum() == 16, "the NaNs were not planted")
+    want = {label: csc_digest(case["ref"]) for label, opname, _, _ in
+            RANKS_CALLS if opname == "laplacian"}
+    n = torch.cuda.device_count()
+    nccl_calls = (
+        ("nccl_1d_bs128", "banded", dict(algorithm="1d", nparts=n,
+                                         bs=128), "tc"),
+        ("nccl_min_plus_1d_bs64", "banded_nan",
+         dict(algorithm="1d", nparts=n, bs=64, semiring="min_plus"),
+         "minplus"))
+    # the one-process session (ingress validation refuses NaN operands)
+    sess = SpGEMMSession(device=dev, validate=False)
+    operands = {"banded": ranks_operand("banded"), "banded_nan": banded}
+    for label, opname, kw, _ in RANKS_CALLS + nccl_calls:
+        if opname != "laplacian":
+            kw = dict(kw)
+            if "semiring" in kw:
+                kw["semiring"] = by_name(kw["semiring"])
+            x = operands[opname]
+            c, _ = session_call(sess, kernel, x, x, **kw)
+            want[label] = csc_digest(c)
+            sess.clear()
+    del sess
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    emit({"phase": "ranks_host", "available_bytes": host_available(),
+          "parent_rss_bytes": process_rss(os.getpid())})
+    launches = ranks_report("nccl", n, nccl_calls,
+                            spawn_ranks(n, "nccl", nccl_calls), want)
+    t2 = time.perf_counter()
+    gloo = ranks_report("gloo", RANKS_GLOO, RANKS_CALLS,
+                        spawn_ranks(RANKS_GLOO, "gloo", RANKS_CALLS), want)
+    t3 = time.perf_counter()
+    for k, v in gloo.items():
+        launches[k] += v
+    emit({"phase": "ranks_counts", "route_launches": launches,
+          "one_process_s": t1 - t0, "nccl_s": t2 - t1, "gloo_s": t3 - t2})
     return launches
 
 
@@ -3140,6 +3547,7 @@ def main():
         minplus_main = phase_minplus_main(dev)
         default = phase_default_bs(dev, case, ring_ms)
         summa_launches = phase_summa(dev, case, ring)
+        rank_launches = phase_ranks(dev, case)
         del case
         torch.cuda.empty_cache()
         app_launches = phase_apps(dev)
@@ -3201,6 +3609,9 @@ def main():
 
     service_warp = sum(v for k, v in service_launches.items()
                        if k != "tc_group")
+    ranks_note = ("; the ranks phase (the same multiplies across processes, "
+                  "one part per rank: NCCL one rank per card, 8 gloo ranks "
+                  "on one card)")
     warp = dict(default["timings"][32], library_ms=None,
                 max_abs_err=max(grid_err["warp"],
                                 *(t["err"] for t in
@@ -3208,7 +3619,7 @@ def main():
     emit({"kernels": [
         kernel_row("bsr_spgemm_warp", bsr_pallas,
                    default["launches"] + sum(app_launches.values())
-                   + service_warp, warp,
+                   + service_warp + rank_launches["warp"], warp,
                    {"kernel_route": "warp", "launches_on":
                     "the session at its default bs: laplacian_2d(1024) "
                     "through the 1D ring at bs 32 (chunk None and 2) and 16 "
@@ -3216,10 +3627,12 @@ def main():
                     "and min_plus at bs 32 on banded_clustered (chunk 2); "
                     "the apps' kernel runs (AMG, the sketch stream, MCL, "
                     "BC and their resumes); the SpGEMM service's 1D "
-                    "requests (the serving CLI, budgets, failure routing)",
+                    "requests (the serving CLI, budgets, failure routing)"
+                    + ranks_note,
                     "launches_by_path": {"default_bs": default["launches"],
                                          "apps": app_launches,
-                                         "service": service_warp},
+                                         "service": service_warp,
+                                         "ranks": rank_launches["warp"]},
                     "bs": 32, "previous_ms": warp["previous_ms"],
                     "previous_fill_ms": warp["previous_fill_ms"],
                     "float_ms": warp["float_ms"],
@@ -3233,17 +3646,18 @@ def main():
                     "min_plus_bs32": default["semirings"]["min_plus"]},
                    source=bsr_src + "bsr_spgemm_warp.cu"),
         kernel_row("bsr_spgemm_tc", bsr_pallas,
-                   launches + summa_launches + service_launches["tc_group"],
-                   timing,
+                   launches + summa_launches + service_launches["tc_group"]
+                   + rank_launches["tc"], timing,
                    {"kernel_route": "tc", "launches_on":
                     "the main path (laplacian_2d(1024), bs 128): the 1D "
                     "ring (chunk None and 2) and 2D / 3D SUMMA, cold, hit "
                     "and repack each; the SpGEMM service's 2D group "
-                    "(bs 128)",
+                    "(bs 128)" + ranks_note,
                     "launches_by_path": {"1d": launches,
                                          "2d_3d": summa_launches,
                                          "service": service_launches[
-                                             "tc_group"]},
+                                             "tc_group"],
+                                         "ranks": rank_launches["tc"]},
                     "previous_ms": timing["previous_ms"],
                     "float_ms": timing["float_ms"],
                     "float_bound_ms": timing["float_bound_ms"],
@@ -3252,14 +3666,19 @@ def main():
                     "bool_bs64": semirings["bool_or_and"]},
                    source=bsr_src + "bsr_spgemm_tc.cu"),
         kernel_row("bsr_spgemm_minplus", bsr_pallas,
-                   mp["launches"] + mp_b["launches"] + mp_c["launches"], mp,
+                   mp["launches"] + mp_b["launches"] + mp_c["launches"]
+                   + rank_launches["minplus"], mp,
                    {"kernel_route": "minplus", "serves": "min_plus at bs 64 "
                     "and 128", "launches_on":
                     "the min-plus paths: banded_clustered at bs 64 through "
                     "1D (chunk 2), 2D and 3D (launch a, the 1D call's "
                     "largest), at bs 128 through 1D unchunked (launch b), "
                     "and |laplacian_2d(1024)| at bs 128 through 1D "
-                    "unchunked (launch c, part 0)",
+                    "unchunked (launch c, part 0)" + ranks_note,
+                    "launches_by_path": {
+                        "semirings": mp["launches"] + mp_b["launches"],
+                        "minplus_main": mp_c["launches"],
+                        "ranks": rank_launches["minplus"]},
                     "bs": 64, "ms_is": "profiler device time of the "
                     "product and the combine pass (previous_ms: of the "
                     "simt kernel and its fill); events_ms: CUDA events "

@@ -46,13 +46,17 @@ def blocksparse_from_arrays(tiles, tile_rows, tile_cols,
 
 def _carry(cls, fields: dict):
     """An instance of the plan dataclass ``cls`` from a reference plan's
-    fields: arrays copied, the semiring by name, partitions by splits."""
-    names = {f.name for f in dataclasses.fields(cls)}
-    missing = names - set(fields)
+    fields: arrays copied, the semiring by name, partitions by splits. A
+    field of the port's that has a default (``payload_parts``: the
+    reference has no rank-local plans) may be absent."""
+    fs = dataclasses.fields(cls)
+    required = {f.name for f in fs if f.default is dataclasses.MISSING
+                and f.default_factory is dataclasses.MISSING}
+    missing = required - set(fields)
     if missing:
         raise ValueError(f"plan fields missing: {sorted(missing)}")
     kw = {}
-    for name in names:
+    for name in {f.name for f in fs} & set(fields):
         v = fields[name]
         if name == "semiring":
             v = by_name(getattr(v, "name", v))

@@ -16,7 +16,11 @@ The port's counterpart of ``repro.core.device_common``. The 1D ring
   * the compute-phase dispatch (:func:`run_schedule`) and the kernel's
     run boundaries of a schedule window (:func:`window_run_starts`);
   * the semiring-aware output decode, pruned on the output's device before
-    the copy back (:func:`decode_tiles`);
+    the copy back (:func:`decode_tiles`, and :func:`decode_coo`, its
+    triples before the CSC assembly);
+  * meshes of ranks for the multi-process engines (:func:`ring_mesh`,
+    :func:`device_grid_mesh`: ``torch.distributed`` device meshes of the
+    first ranks, with the reference's axis names);
   * the shared stats surfaces :data:`REQUIRED_STATS` and
     :data:`SESSION_STATS`, with the reference's keys and meanings.
 """
@@ -32,12 +36,14 @@ from .blocksparse import BlockSparse, flags_from_c_slot, from_csc
 from .plan import Partition1D
 from .semiring import Semiring
 from .sparse import CSC, from_coo
+from .validate import ValidationError
 
 __all__ = [
     "ENGINES", "REQUIRED_STATS", "CHUNK_STATS", "SESSION_STATS",
     "resolve_device", "snap_to_tiles", "blockize_parts", "resolve_engine",
     "check_plan_semiring", "pack_schedules", "run_schedule",
-    "window_run_starts", "decode_tiles",
+    "window_run_starts", "decode_tiles", "decode_coo", "ring_mesh",
+    "device_grid_mesh",
 ]
 
 ENGINES = ("cuda", "torch")
@@ -115,11 +121,16 @@ def snap_to_tiles(part: Partition1D, bs: int) -> Partition1D:
 
 
 def blockize_parts(mat: CSC, part: Partition1D, bs: int,
-                   dtype, fill: float) -> List[BlockSparse]:
+                   dtype, fill: float,
+                   payload_parts: Optional[Sequence[int]] = None
+                   ) -> List[BlockSparse]:
     """Blockize each column part of ``mat`` independently. ``fill`` is
-    required: it must be the executing semiring's additive identity."""
+    required: it must be the executing semiring's additive identity.
+    ``payload_parts`` (None: all) names the parts whose payloads are
+    filled; the others get their tile structure only."""
     return [from_csc(mat.col_slice(*part.part_slice(i)), bs=bs, dtype=dtype,
-                     fill=fill)
+                     fill=fill, payload=payload_parts is None
+                     or i in payload_parts)
             for i in range(part.nparts)]
 
 
@@ -231,7 +242,20 @@ def decode_tiles(out, c_rows: np.ndarray, c_cols: np.ndarray,
                  out_shape: Tuple[int, int],
                  col_off: Optional[np.ndarray] = None,
                  col_lim: Optional[np.ndarray] = None) -> CSC:
-    """Decode per-part output tile stacks into one global CSC.
+    """Decode per-part output tile stacks into one global CSC: the COO
+    triples of :func:`decode_coo`, assembled by ``from_coo``."""
+    return from_coo(*decode_coo(out, c_rows, c_cols, c_counts, semiring,
+                                out_shape, col_off, col_lim), out_shape)
+
+
+def decode_coo(out, c_rows: np.ndarray, c_cols: np.ndarray,
+               c_counts: np.ndarray, semiring: Semiring,
+               out_shape: Tuple[int, int],
+               col_off: Optional[np.ndarray] = None,
+               col_lim: Optional[np.ndarray] = None
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Decode per-part output tile stacks into global COO triples
+    ``(rows, cols, vals)``, part by part.
 
     The prune runs where ``out`` lies (a torch tensor on the device, or a
     numpy array on the host), one part and at most
@@ -270,5 +294,45 @@ def decode_tiles(out, c_rows: np.ndarray, c_cols: np.ndarray,
             rows_l.append(rows_g[keep])
             cols_l.append(cols_g[keep])
             vals_l.append(vals[keep])
-    return from_coo(np.concatenate(rows_l), np.concatenate(cols_l),
-                    np.concatenate(vals_l), out_shape)
+    return (np.concatenate(rows_l), np.concatenate(cols_l),
+            np.concatenate(vals_l))
+
+
+# ---------------------------------------------------------------------------
+# meshes of ranks (the multi-process engines)
+# ---------------------------------------------------------------------------
+
+def device_grid_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]):
+    """A ``torch.distributed`` :class:`DeviceMesh` of the first
+    ``prod(shape)`` ranks of the default process group, reshaped to
+    ``shape`` with named ``axes`` — the counterpart of the reference's
+    mesh of the first ``prod(shape)`` devices. Every rank of the group
+    calls it (building a mesh is collective); a rank past the first
+    ``prod(shape)`` gets a mesh it is not a member of
+    (``get_coordinate()`` is None). Raises a :class:`ValidationError`
+    naming the world size when the group has fewer ranks."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    need = int(np.prod(shape))
+    if not dist.is_available() or not dist.is_initialized():
+        raise ValidationError(
+            f"a {tuple(shape)} mesh needs {need} ranks, and no process group "
+            "is initialized (torch.distributed.init_process_group)",
+            stage="validate", context={"ranks": need, "world_size": 0})
+    world = dist.get_world_size()
+    if world < need:
+        raise ValidationError(
+            f"a {tuple(shape)} mesh needs {need} ranks, the world has "
+            f"{world}", stage="validate",
+            context={"ranks": need, "world_size": world})
+    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(kind, np.arange(need).reshape(shape),
+                      mesh_dim_names=tuple(axes))
+
+
+def ring_mesh(n: int, axis: str = "p"):
+    """A 1D mesh of the first ``n`` ranks, the ring's: the counterpart of
+    the reference's ``compat.cpu_device_mesh``, over ranks instead of
+    devices."""
+    return device_grid_mesh((n,), (axis,))

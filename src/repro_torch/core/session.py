@@ -45,6 +45,27 @@ still may, and ``last_call["degraded"]`` says so). The kernel is built
 before the ladder and a bs the kernel does not take is rejected at
 ingress, so neither reaches a rung.
 
+Across processes (``group=``): the session is told its world as a
+``torch.distributed`` process group, because a call's geometry varies
+(``nparts``; ``grid²·layers``; the ladder's downgrades to fewer ranks) and
+no one mesh serves them all — the session builds the mesh each geometry
+needs (``device_common.ring_mesh`` / ``device_grid_mesh``, cached)
+over the first ranks, and every rank of the group calls ``matmul`` with
+the same operands. A geometry of n ranks runs on ranks 0..n-1, one part per
+rank; the others take no part and receive the result, as the reference
+uses the first n devices. A geometry larger than the world is a
+:class:`ValidationError`. Every rank keeps its own cache under the
+reference's keys and plans on its own (the planner is deterministic); at
+ingress the ranks check that they hold the same structure and values
+fingerprints and call arguments, and a mismatch is a
+:class:`ValidationError` on every rank. Every stage attempt ends in an
+agreement (an all-reduce of each rank's failure), so the ranks retry, fall
+back and downgrade together, and whatever escapes is the same typed error
+on every rank. The group's own timeout bounds every wait. Each rank's
+``stats`` and ``last_call`` equal the one-process session's on the same
+calls (an entry's ``nbytes`` counts the whole mesh's tensors, the sum of
+the ranks' shares).
+
 Serving budgets (the multi-tenant surface ``serve/spgemm_service.py``
 drives): a global byte budget, and per tenant an entry quota and a byte
 budget over the entries that tenant created; eviction is LRU-first, fires
@@ -62,6 +83,7 @@ than padding it to the reference's.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import time
 from collections import OrderedDict
@@ -72,7 +94,9 @@ import numpy as np
 import torch
 
 from ..runtime.fault_tolerance import RetryPolicy, with_retries
-from .device_common import SESSION_STATS, resolve_device, resolve_engine
+from . import collectives
+from .device_common import (SESSION_STATS, device_grid_mesh,
+                            resolve_device, resolve_engine, ring_mesh)
 from .semiring import PLUS_TIMES, Semiring
 from .sparse import CSC
 from .validate import (DeviceExecError, SpGEMMError,
@@ -148,6 +172,27 @@ def session_or_new(session: Optional["SpGEMMSession"],
     return session
 
 
+def _mesh_bytes(plan, mesh) -> int:
+    """The device bytes of a mesh's executable: every part's payload
+    stacks and schedule, summed over the ranks — what one process pins for
+    the same plan."""
+    parts = mesh.mesh.numel()
+    stacks = sum(parts * int(np.prod(x.shape[-3:])) * x.itemsize
+                 for x in (plan.a_tiles, plan.b_tiles))
+    return stacks + sum(x.nbytes for x in (plan.a_slot, plan.b_slot,
+                                           plan.c_slot))
+
+
+class RankStageError(RuntimeError):
+    """Another rank's (or this rank's) stage attempt failed retryably: the
+    ranks retry the stage together."""
+
+
+class RankStageFailure(Exception):
+    """A rank's stage attempt failed in a way the retry policy does not
+    retry: the ranks leave the stage together."""
+
+
 class _Entry:
     """One cached (plan, executable, device args) triple.
 
@@ -155,15 +200,18 @@ class _Entry:
     serving layer) — budgets charge the creator even when other tenants'
     structure-identical requests later hit the same entry. ``nbytes`` is
     the device footprint of the entry's argument tensors, fixed when the
-    executable is built (values-only repacks swap same-shape payloads).
+    executable is built (values-only repacks swap same-shape payloads);
+    across ranks it is given, the whole mesh's. ``part`` is the rank's
+    flat mesh index (None for one process, or a rank outside the mesh).
     """
 
     __slots__ = ("plan", "fn", "args", "decode", "repack", "val_fp",
-                 "owner", "nbytes")
+                 "owner", "nbytes", "part")
 
     def __init__(self, plan, fn, args: List, decode: Callable,
                  repack: Callable, val_fp: Tuple[bytes, bytes],
-                 owner: Optional[str] = None):
+                 owner: Optional[str] = None,
+                 nbytes: Optional[int] = None, part: Optional[int] = None):
         self.plan = plan
         self.fn = fn
         self.args = args
@@ -171,7 +219,9 @@ class _Entry:
         self.repack = repack
         self.val_fp = val_fp
         self.owner = owner
-        self.nbytes = sum(int(getattr(x, "nbytes", 0)) for x in args)
+        self.nbytes = nbytes if nbytes is not None else \
+            sum(int(getattr(x, "nbytes", 0)) for x in args)
+        self.part = part
 
     def release(self) -> None:
         """Drop the device buffer references (the payload/schedule stacks in
@@ -185,12 +235,19 @@ class _Entry:
 
 class SpGEMMSession:
     """Persistent SpGEMM session over the device engines (1D/2D/3D) on one
-    device.
+    device, or one rank each of a process group.
 
     ``maxsize`` bounds the LRU entry count (each entry pins a plan, an
     executable and its device-resident payload stacks). ``device`` is
     ``"cuda"`` by default; without a CUDA device that raises at
     construction — the CPU runs only when asked for (``device="cpu"``).
+
+    ``group`` — a ``torch.distributed`` process group spanning the job's
+    world (``torch.distributed.group.WORLD``): the session runs each call
+    one part per rank (the module docstring). A rank's device is
+    ``device``, or by default ``cuda:(rank % device_count)``, which becomes
+    the process's current CUDA device. ``None`` keeps the one-process
+    session.
 
     ``stats`` carries the cumulative ``device_common.SESSION_STATS``
     surface; ``last_call`` describes the most recent multiply::
@@ -236,7 +293,7 @@ class SpGEMMSession:
                           serving layer can attribute evictions per tenant.
     """
 
-    def __init__(self, maxsize: int = 32, device="cuda", *,
+    def __init__(self, maxsize: int = 32, device=None, *,
                  validate: bool = True,
                  fault_injector=None,
                  retry_policy: Optional[RetryPolicy] = None,
@@ -246,7 +303,8 @@ class SpGEMMSession:
                  max_bytes: Optional[int] = None,
                  tenant_quota: Optional[int] = None,
                  tenant_max_bytes: Optional[int] = None,
-                 on_evict: Optional[Callable] = None):
+                 on_evict: Optional[Callable] = None,
+                 group=None):
         if maxsize < 1:
             raise ValueError(f"maxsize must be >= 1, got {maxsize}")
         if breaker_threshold < 1:
@@ -262,7 +320,26 @@ class SpGEMMSession:
         self.tenant_quota = tenant_quota
         self.tenant_max_bytes = tenant_max_bytes
         self.on_evict = on_evict
-        self.device = resolve_device(device)
+        self.group = group
+        self.transport = None
+        self._meshes: dict = {}
+        if group is not None:
+            import torch.distributed as dist
+
+            if dist.get_world_size(group) != dist.get_world_size():
+                raise ValueError(
+                    "the session's group must span the job's world (meshes "
+                    "are built over the default group's first ranks)")
+            self.rank = dist.get_rank(group)
+            self.world = dist.get_world_size(group)
+            if device is None and torch.cuda.is_available():
+                device = torch.device(
+                    "cuda", self.rank % torch.cuda.device_count())
+        self.device = resolve_device("cuda" if device is None else device)
+        if group is not None:
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            self.transport = collectives.Transport(self.device, group)
         self._kernel_built = False
         self.validate = validate
         self.fault_injector = fault_injector
@@ -293,20 +370,114 @@ class SpGEMMSession:
 
     def _stage(self, stage: str, thunk: Callable, context: dict):
         """Run one pipeline stage: fault-injection point + retry/backoff,
-        wrapping whatever survives retries into the stage's typed error."""
+        wrapping whatever survives retries into the stage's typed error.
 
-        def attempt():
+        Across ranks, the injection point and the stage each end in an
+        agreement (:meth:`_agreed`), and the policy retries exactly the
+        agreed retryable failures, so every rank makes the same number of
+        attempts and leaves the stage the same way."""
+
+        def fire():
             if self.fault_injector is not None:
                 self.fault_injector.fire(stage)
-            return thunk()
 
+        if self.group is None:
+            def attempt():
+                fire()
+                return thunk()
+            policy = self.retry_policy
+        else:
+            def attempt():
+                self._agreed(stage, fire)
+                return self._agreed(stage, thunk)
+            policy = dataclasses.replace(self.retry_policy,
+                                         retryable=(RankStageError,))
         try:
-            return with_retries(attempt, self.retry_policy,
+            return with_retries(attempt, policy,
                                 on_retry=self._on_retry,
                                 sleep=self._retry_sleep,
                                 rng=self._retry_rng)()
         except Exception as e:
             raise wrap_stage_error(stage, e, context) from e
+
+    def _agreed(self, stage: str, fn: Callable):
+        """Run ``fn`` on this rank, then agree with the others on how it
+        went: returns its result when no rank failed; otherwise raises on
+        every rank — a :class:`ValidationError` if any rank's was one, a
+        retryable :class:`RankStageError` if the worst failure is one the
+        session's policy retries, else this rank's own error or a
+        :class:`RankStageFailure`."""
+        err, result = None, None
+        try:
+            result = fn()
+        except Exception as e:  # every rank must reach the agreement
+            err = e
+        code = (0 if err is None else 3 if isinstance(err, ValidationError)
+                else 1 if isinstance(err, self.retry_policy.retryable) else 2)
+        worst, who = collectives.agree(code, self.group)
+        if worst == 0:
+            return result
+        if code == worst and worst != 1:
+            raise err
+        what = (f"{type(err).__name__}: {err}" if code == worst
+                else f"rank {who} failed")
+        msg = f"the {stage} stage failed across ranks: {what}"
+        if worst == 3:
+            raise ValidationError(msg, stage="validate")
+        raise (RankStageError if worst == 1 else RankStageFailure)(msg) \
+            from err
+
+    def _mesh(self, algorithm: str, geom: tuple):
+        """The mesh of ranks a rung's geometry runs on (built once per
+        geometry; building one is collective over the group)."""
+        from .spgemm_2d_device import SUMMA_AXES
+
+        key = (algorithm == "1d",) + geom
+        if key not in self._meshes:
+            self._meshes[key] = (
+                ring_mesh(geom[0]) if algorithm == "1d" else
+                device_grid_mesh((geom[0], geom[0], geom[1]), SUMMA_AXES))
+        return self._meshes[key]
+
+    def _ingress(self, a: CSC, b: CSC, call: tuple,
+                 err: Optional[Exception], need: int) -> None:
+        """Across ranks, after this rank's own ingress checks (``err``):
+        agree on them, then check that every rank holds the same operands
+        and call arguments, and that the geometry's ``need`` ranks fit in
+        the world. Each failure is raised on every rank."""
+        code = 0 if err is None else 3 if isinstance(err, ValidationError) \
+            else 2
+        worst, who = collectives.agree(code, self.group)
+        if worst == 3:
+            self.stats["validation_failures"] += 1
+            if code == 3:
+                raise err
+            raise ValidationError(f"rank {who} rejected its operands",
+                                  stage="validate")
+        if worst:
+            if code:
+                raise err
+            raise DeviceExecError(f"rank {who} failed to build the kernel",
+                                  stage="compile")
+        h = hashlib.blake2b(digest_size=32)
+        for m in (a, b):
+            h.update(structure_fingerprint(m))
+            h.update(values_fingerprint(m))
+            h.update(np.dtype(m.data.dtype).str.encode())
+        h.update(repr(call).encode())
+        if not collectives.all_same(np.frombuffer(h.digest(), np.int64),
+                                    self.group):
+            self.stats["validation_failures"] += 1
+            raise ValidationError(
+                "the ranks called matmul with different operands or "
+                "arguments (structure / values fingerprints differ)",
+                stage="validate", context={"rank": self.rank})
+        if need > self.world:
+            self.stats["validation_failures"] += 1
+            raise ValidationError(
+                f"the call's geometry needs {need} ranks, the world has "
+                f"{self.world}", stage="validate",
+                context={"ranks": need, "world_size": self.world})
 
     def _record_failure(self, key: tuple) -> None:
         """A rung failed on ``key``: bump its breaker count and quarantine
@@ -359,34 +530,48 @@ class SpGEMMSession:
 
     def _plan(self, a: CSC, b: CSC, algorithm: str, nparts: int, grid: int,
               layers: int, bs: int, nblocks: Optional[int],
-              semiring: Semiring, dtype, chunk: Optional[int]):
+              semiring: Semiring, dtype, chunk: Optional[int], mesh=None):
         """Host planning only (the ``plan`` stage); returns
-        (plan, decode, repack)."""
+        (plan, decode, repack). Across ranks (``mesh``) the decode is this
+        rank's share: its part's COO triples."""
         from .spgemm_1d_device import (build_device_plan, decode_ring_output,
-                                       repack_ring_payloads)
+                                       decode_ring_rank, repack_ring_payloads)
         from .spgemm_2d_device import (build_summa_plan, decode_summa_output,
+                                       decode_summa_rank,
                                        repack_summa_payloads)
 
+        # a rank fills only its own part's payloads (none outside the mesh)
+        held = {} if mesh is None else dict(payload_parts=() if (
+            idx := collectives.mesh_index(mesh)) is None else (idx,))
         if algorithm == "1d":
             plan = build_device_plan(
                 a, b, nparts, bs=bs, nblocks=nblocks, dtype=dtype,
                 semiring=semiring, a_blockize_cache=self._blockize_cache,
-                chunk=chunk)
-            return plan, decode_ring_output, repack_ring_payloads
-        plan = build_summa_plan(
-            a, b, grid=grid, layers=layers if algorithm == "3d" else 1,
-            bs=bs, dtype=dtype, semiring=semiring)
-        return plan, decode_summa_output, repack_summa_payloads
+                chunk=chunk, **held)
+            decode, rank_decode = decode_ring_output, decode_ring_rank
+            repack = repack_ring_payloads
+        else:
+            plan = build_summa_plan(
+                a, b, grid=grid, layers=layers if algorithm == "3d" else 1,
+                bs=bs, dtype=dtype, semiring=semiring, **held)
+            decode, rank_decode = decode_summa_output, decode_summa_rank
+            repack = repack_summa_payloads
+        if mesh is not None:
+            decode = lambda plan, out: rank_decode(plan, mesh, out)
+        return plan, decode, repack
 
-    def _compile(self, plan, algorithm: str, engine: str):
+    def _compile(self, plan, algorithm: str, engine: str, mesh=None):
         """Upload the plan and build the executable (the ``compile``
-        stage); returns (fn, device args)."""
+        stage); returns (fn, device args). Across ranks (``mesh``) the
+        executable is this rank's part of the mesh's."""
         from .spgemm_1d_device import compile_ring
         from .spgemm_2d_device import compile_summa
 
         compiler = compile_ring if algorithm == "1d" else compile_summa
+        ranks = {} if mesh is None else dict(mesh=mesh,
+                                             transport=self.transport)
         fn, args = compiler(plan, device=self.device, engine=engine,
-                            trace_probe=self._count_trace)
+                            trace_probe=self._count_trace, **ranks)
         return fn, list(args)
 
     def _build_kernel(self) -> None:
@@ -429,12 +614,14 @@ class SpGEMMSession:
         plan and one executable.
 
         ``algorithm`` selects the engine, each run as logical parts on the
-        session's device: ``"1d"`` (the sparsity-aware ring, geometry
-        ``nparts``), ``"2d"`` (sparse SUMMA, geometry ``grid``×``grid``) or
-        ``"3d"`` (Split-3D, geometry ``grid``×``grid``×``layers``). A 2d or
-        3d call whose rung keeps failing downgrades (3d→2d→1d); a
-        downgraded 1d rung gets ``grid*grid`` ring parts, a downgraded 2d
-        rung keeps the grid.
+        session's device (or one part per rank, with a ``group``):
+        ``"1d"`` (the sparsity-aware ring, geometry ``nparts``), ``"2d"``
+        (sparse SUMMA, geometry ``grid``×``grid``) or ``"3d"`` (Split-3D,
+        geometry ``grid``×``grid``×``layers``). A 2d or 3d call whose rung
+        keeps failing downgrades (3d→2d→1d); a downgraded 1d rung gets
+        ``grid*grid`` ring parts, a downgraded 2d rung keeps the grid.
+        With a ``group``, every rank calls ``matmul`` with the same
+        operands and arguments, and every rank returns the same CSC.
 
         On a CUDA device with the kernel engine, ``bs`` must be one the
         kernel takes (``KERNEL_BS``); any other is a :class:`ValidationError`
@@ -456,6 +643,7 @@ class SpGEMMSession:
         engine = resolve_engine(engine, self.device)
         on_card = engine == "cuda" and self.device.type == "cuda"
         self.stats["calls"] += 1
+        err = None
         try:
             if self.validate:
                 validate_matmul_operands(a, b, semiring=semiring)
@@ -463,11 +651,24 @@ class SpGEMMSession:
                 raise ValidationError(
                     f"the CUDA kernel takes bs in {KERNEL_BS}, got {bs}",
                     stage="validate", context={"bs": bs, "engine": engine})
-        except ValidationError:
-            self.stats["validation_failures"] += 1
-            raise
-        if on_card:
-            self._build_kernel()
+        except ValidationError as e:
+            if self.group is None:
+                self.stats["validation_failures"] += 1
+                raise
+            err = e
+        if on_card and err is None:
+            try:
+                self._build_kernel()
+            except DeviceExecError as e:
+                if self.group is None:
+                    raise
+                err = e
+        if self.group is not None:
+            need = (nparts if algorithm == "1d" else
+                    grid * grid * (layers if algorithm == "3d" else 1))
+            self._ingress(a, b, (algorithm, nparts, grid, layers, bs,
+                                 nblocks, semiring.name, engine,
+                                 np.dtype(dtype).str, chunk), err, need)
 
         # the degradation ladder: engine fallback cuda→torch inside each
         # algorithm rung, for CPU tensors only (there the cuda engine's
@@ -546,6 +747,7 @@ class SpGEMMSession:
                 f"{failures} consecutive times", stage="execute",
                 context=ctx)
 
+        mesh = None if self.group is None else self._mesh(algorithm, geom)
         entry = self._cache.get(key)
         hit = entry is not None
         repacked = False
@@ -588,18 +790,20 @@ class SpGEMMSession:
                     # A mid-repack failure quarantines the entry, so a
                     # half-swapped payload stack can never serve a call.
                     def do_repack():
+                        if self.group is not None and entry.part is None:
+                            return  # a rank outside the mesh holds none
                         new_a, new_b = entry.repack(
                             entry.plan,
                             a if val_fp[0] != entry.val_fp[0] else None,
                             b if val_fp[1] != entry.val_fp[1] else None)
-                        # the stacks arrive in the plan's layout; the
-                        # executable's may be their flat view
-                        if new_a is not None:
-                            entry.args[0] = torch.from_numpy(new_a).to(
-                                self.device).reshape(entry.args[0].shape)
-                        if new_b is not None:
-                            entry.args[1] = torch.from_numpy(new_b).to(
-                                self.device).reshape(entry.args[1].shape)
+                        # the stacks arrive in the plan's layout (across
+                        # ranks, this rank's part only); the executable's
+                        # may be their flat view
+                        for i, new in ((0, new_a), (1, new_b)):
+                            if new is not None:
+                                entry.args[i] = torch.from_numpy(new).to(
+                                    self.device).reshape(
+                                    entry.args[i].shape)
 
                     self._stage("repack", do_repack, ctx)
                     entry.val_fp = val_fp
@@ -611,20 +815,37 @@ class SpGEMMSession:
                     "plan",
                     lambda: self._plan(a, b, algorithm, geom[0], grid,
                                        layers, bs, nblocks, semiring,
-                                       dtype, chunk),
+                                       dtype, chunk, mesh),
                     ctx)
                 fn, args = self._stage(
                     "compile",
-                    lambda: self._compile(plan, algorithm, engine), ctx)
+                    lambda: self._compile(plan, algorithm, engine, mesh),
+                    ctx)
                 plan_seconds = time.perf_counter() - t0
-                entry = _Entry(plan, fn, args, decode, repack,
-                               (values_fingerprint(a),
-                                values_fingerprint(b)), owner=tenant)
+                entry = _Entry(
+                    plan, fn, args, decode, repack,
+                    (values_fingerprint(a), values_fingerprint(b)),
+                    owner=tenant,
+                    nbytes=None if mesh is None else _mesh_bytes(plan, mesh),
+                    part=None if mesh is None else
+                    collectives.mesh_index(mesh))
 
             def do_execute():
                 return entry.decode(entry.plan, entry.fn(*entry.args))
 
             c = self._stage("execute", do_execute, ctx)
+            if mesh is not None:
+                # each rank holds its own part's triples: the result
+                # gather (outside the stats, as the reference's host pull)
+                try:
+                    c = collectives.gather_csc(c, entry.plan.out_shape,
+                                               self.group, self.transport)
+                except RuntimeError as e:
+                    raise wrap_stage_error("execute", e, ctx) from e
+                if c is None:
+                    raise DeviceExecError("the result gather failed on a "
+                                          "rank", stage="execute",
+                                          context=ctx)
         except ValidationError:
             # ingress rejection of a malformed request: the cached entry is
             # healthy and untouched — quarantining it (or bumping its

@@ -21,6 +21,18 @@ other pad. Then each part's schedule runs through
 one CSC. The plan, the bytes accounting and the stats are the reference's,
 so nothing about the algorithm changes.
 
+Across processes (``mesh=``, a :func:`device_common.ring_mesh` of
+``nparts`` ranks) the ring is the reference's again: rank p holds part p
+only — its payload and B stacks and its schedule — and each ring step is a
+point-to-point exchange (``collectives.Transport.ring_start``): the
+payload packed from ``send_slots`` goes to rank (p - s) mod P while rank
+(p + s) mod P's arrives, pads carrying ``semiring.zero`` and steps of size
+0 skipped, as the reference skips them. ``chunk=c`` posts chunk g+1's
+sends and receives before chunk g's compute and waits only before using
+them. Every rank decodes its own part, and the pieces are gathered so each
+rank returns the same global CSC (that last gather is not part of the
+stats, as the reference's host pull is not).
+
 The whole path is **semiring-generic**: the plan is built for one
 :class:`~repro_torch.core.semiring.Semiring`, whose additive identity fills
 every absent tile position, pad payload slot and pad product, and whose
@@ -43,17 +55,20 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .blocksparse import BlockSparse, build_schedule, flags_from_c_slot
+from .blocksparse import (BlockSparse, build_schedule, flags_from_c_slot,
+                          from_csc)
+from .collectives import Transport, dim_ranks, gather_csc, mesh_index
 from .device_common import (ENGINES, blockize_parts, check_plan_semiring,
-                            decode_tiles, pack_schedules, resolve_device,
-                            resolve_engine, run_schedule, snap_to_tiles,
-                            window_run_starts)
+                            decode_coo, decode_tiles, pack_schedules,
+                            resolve_device, resolve_engine, run_schedule,
+                            snap_to_tiles, window_run_starts)
 from .plan import Partition1D
 from .semiring import PLUS_TIMES, Semiring
 from .sparse import CSC
 
 __all__ = ["DeviceSpGEMMPlan", "build_device_plan", "compile_ring",
-           "run_device_spgemm", "decode_ring_output", "payload_need_maps",
+           "run_device_spgemm", "decode_ring_output", "decode_ring_rank",
+           "payload_need_maps",
            "repack_ring_payloads", "segment_ring_schedule", "recv_index",
            "ENGINES"]
 
@@ -110,6 +125,12 @@ class DeviceSpGEMMPlan:
     seg_payload_sizes: Tuple[int, ...] = (0,)        # payload tiles per segment
     seg_prod_off: Tuple[int, ...] = (0,)             # flat schedule offsets
     seg_prod_len: Tuple[int, ...] = (0,)             # padded products per seg
+    # ---- a rank's plan (``payload_parts``): None fills every part's
+    # payload stacks; a tuple of part ids fills only those, and
+    # ``a_tiles`` / ``b_tiles`` then hold just them, in that order —
+    # (len(payload_parts), na_max, bs, bs). Every other array and stat is
+    # the whole plan's, whatever the rank.
+    payload_parts: Optional[Tuple[int, ...]] = None
 
 
 def payload_need_maps(a_parts: List[BlockSparse],
@@ -234,7 +255,8 @@ def build_device_plan(a: CSC, b: CSC, nparts: int,
                       dtype=np.float32,
                       semiring: Semiring = PLUS_TIMES,
                       a_blockize_cache: Optional[dict] = None,
-                      chunk: Optional[int] = None
+                      chunk: Optional[int] = None,
+                      payload_parts: Optional[Sequence[int]] = None
                       ) -> DeviceSpGEMMPlan:
     """Symbolic phase at tile granularity + static-shape padding.
 
@@ -256,6 +278,11 @@ def build_device_plan(a: CSC, b: CSC, nparts: int,
     level) pass a dict here to reuse A's blockization across calls. The
     cache pins the operand object (so the ``id``-based key cannot go
     stale) and assumes it is not mutated between calls.
+
+    ``payload_parts``: a rank that runs part p of the ring needs every
+    part's tile *structure* but only part p's payloads; ``(p,)`` plans with
+    the others' structure alone, so P ranks planning at once hold one
+    payload stack each instead of P (``()``: a rank outside the mesh).
     """
     assert a.ncols == b.nrows
     if chunk is not None:
@@ -273,15 +300,19 @@ def build_device_plan(a: CSC, b: CSC, nparts: int,
     # local tile grids don't embed into the global k tile space
     part_k = snap_to_tiles(part_k, bs)
 
+    if payload_parts is not None:
+        payload_parts = tuple(int(x) for x in payload_parts)
     if a_blockize_cache is None:
-        a_parts = blockize_parts(a, part_k, bs, dtype, fill=semiring.zero)
+        a_parts = blockize_parts(a, part_k, bs, dtype, fill=semiring.zero,
+                                 payload_parts=payload_parts)
     else:
         key = (id(a), tuple(int(s) for s in part_k.splits), bs,
-               np.dtype(dtype).str, float(semiring.zero))
+               np.dtype(dtype).str, float(semiring.zero), payload_parts)
         cached = a_blockize_cache.get(key)
         if cached is None or cached[0] is not a:
             cached = (a, blockize_parts(a, part_k, bs, dtype,
-                                         fill=semiring.zero))
+                                         fill=semiring.zero,
+                                         payload_parts=payload_parts))
             # bounded FIFO: callers alternate between a handful of static
             # operands (BC: Aᵀ forward / A backward); evicting beyond that
             # keeps the pinned-operand retention O(1), not O(calls)
@@ -289,7 +320,8 @@ def build_device_plan(a: CSC, b: CSC, nparts: int,
                 a_blockize_cache.pop(next(iter(a_blockize_cache)))
             a_blockize_cache[key] = cached
         a_parts = cached[1]
-    b_parts = blockize_parts(b, part_n, bs, dtype, fill=semiring.zero)
+    b_parts = blockize_parts(b, part_n, bs, dtype, fill=semiring.zero,
+                             payload_parts=payload_parts)
 
     # tile-level hit vectors: device i needs global tile-row g of B_i ⇔ some
     # nonzero of B_i falls in element rows [g*bs, (g+1)*bs)
@@ -327,14 +359,13 @@ def build_device_plan(a: CSC, b: CSC, nparts: int,
     S_total = sum(step_sizes)
 
     # pad slots hold the additive identity, not literal zeros (semiring fill)
-    a_tiles = semiring.fill((Pn, max(na_max, 1), bs, bs), dtype=dtype)
-    b_tiles = semiring.fill((Pn, max(nb_max, 1), bs, bs), dtype=dtype)
+    held = tuple(range(Pn)) if payload_parts is None else payload_parts
+    a_tiles = _payload_stack(a_parts, held, max(na_max, 1), bs, dtype,
+                             semiring)
+    b_tiles = _payload_stack(b_parts, held, max(nb_max, 1), bs, dtype,
+                             semiring)
     send_slots = np.full((Pn, max(S_total, 1)), -1, dtype=np.int32)
     for j in range(Pn):
-        if a_parts[j].ntiles:
-            a_tiles[j, :a_parts[j].ntiles] = a_parts[j].tiles
-        if b_parts[j].ntiles:
-            b_tiles[j, :b_parts[j].ntiles] = b_parts[j].tiles
         off = 0
         for s_idx, mx in enumerate(step_sizes):
             sl = send_per_step[s_idx][j]
@@ -451,6 +482,7 @@ def build_device_plan(a: CSC, b: CSC, nparts: int,
         chunk=chunk, seg_steps=seg_steps,
         seg_payload_sizes=seg_payload_sizes,
         seg_prod_off=seg_prod_off, seg_prod_len=seg_prod_len,
+        payload_parts=payload_parts,
         stats=dict(
             # shared device-engine stats surface (device_common.REQUIRED_STATS)
             comm_bytes_planned=exact_tiles * tile_bytes,
@@ -470,14 +502,26 @@ def build_device_plan(a: CSC, b: CSC, nparts: int,
     )
 
 
-def _refill_stack(mat: CSC, part: Partition1D, shape, bs: int, dtype,
-                  semiring: Semiring) -> np.ndarray:
-    parts = blockize_parts(mat, part, bs, dtype, fill=semiring.zero)
-    stack = semiring.fill(shape, dtype=dtype)
-    for j, p in enumerate(parts):
-        if p.ntiles:
-            stack[j, :p.ntiles] = p.tiles
+def _payload_stack(parts: List[BlockSparse], held: Sequence[int], n: int,
+                   bs: int, dtype, semiring: Semiring) -> np.ndarray:
+    """The ``(len(held), n, bs, bs)`` payload stack of the parts ``held``,
+    padded with the additive identity."""
+    stack = semiring.fill((len(held), n, bs, bs), dtype=dtype)
+    for i, j in enumerate(held):
+        if parts[j].ntiles:
+            stack[i, :parts[j].ntiles] = parts[j].tiles
     return stack
+
+
+def _refill_stack(mat: CSC, part: Partition1D, n: int, bs: int, dtype,
+                  semiring: Semiring,
+                  held: Optional[Tuple[int, ...]]) -> np.ndarray:
+    """A refilled payload stack of the parts ``held`` (None: all); only
+    those parts are blockized."""
+    held = tuple(range(part.nparts)) if held is None else held
+    parts = {j: from_csc(mat.col_slice(*part.part_slice(j)), bs=bs,
+                         dtype=dtype, fill=semiring.zero) for j in held}
+    return _payload_stack(parts, held, n, bs, dtype, semiring)
 
 
 def repack_ring_payloads(plan: DeviceSpGEMMPlan,
@@ -498,14 +542,15 @@ def repack_ring_payloads(plan: DeviceSpGEMMPlan,
     structure-keyed cache hit whose values changed). Blockization is
     deterministic given structure (``from_csc`` orders tiles by
     (col, row)), so feeding these stacks to the cached executable decodes
-    bitwise-identically to a cold re-plan.
+    bitwise-identically to a cold re-plan. A rank's plan refills only its
+    ``payload_parts``.
     """
     dtype = plan.a_tiles.dtype
-    sr = plan.semiring
+    sr, held = plan.semiring, plan.payload_parts
     a_tiles = None if a is None else _refill_stack(
-        a, plan.part_k, plan.a_tiles.shape, plan.bs, dtype, sr)
+        a, plan.part_k, plan.a_tiles.shape[1], plan.bs, dtype, sr, held)
     b_tiles = None if b is None else _refill_stack(
-        b, plan.part_n, plan.b_tiles.shape, plan.bs, dtype, sr)
+        b, plan.part_n, plan.b_tiles.shape[1], plan.bs, dtype, sr, held)
     return a_tiles, b_tiles
 
 
@@ -626,22 +671,137 @@ def _make_step_fn(plan: DeviceSpGEMMPlan, device: torch.device, engine: str,
     return body
 
 
+def _make_rank_body(plan: DeviceSpGEMMPlan, p: int, device: torch.device,
+                    engine: str, transport: Transport, ranks: List[int]):
+    """The ring body of rank ``p`` (part p): pack each step's payload from
+    the own stack, exchange it over ``transport`` with the ring's
+    neighbours at that shift, and run part p's schedule on what arrived.
+
+    A compute that raises mid-ring does not stop the rank's sends and
+    receives: later chunks are still exchanged, and the error is raised
+    once the ring is done, so no other rank waits for a message that
+    never comes."""
+    bs, nc_max = plan.bs, plan.nc_max
+    semiring = plan.semiring
+    windows = _windows(plan)
+    offs = np.concatenate([[0], np.cumsum(plan.step_sizes)]).astype(np.int64)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    # per ring step: the own-stack slots packed for the receiving part; a
+    # pad slot (-1) carries the additive identity
+    packs = {}
+    for s_idx, n in enumerate(plan.step_sizes):
+        if n:
+            slots = plan.send_slots[p, offs[s_idx]:offs[s_idx + 1]]
+            packs[s_idx] = (put(slots.clip(min=0).astype(np.int64)),
+                            put(slots < 0) if (slots < 0).any() else None)
+    starts = [put(_run_starts(plan, p, off, ln)) for off, ln in windows]
+
+    def fetch(a_tiles, steps):
+        """Post the steps' exchanges (the empty ones skipped); None when
+        every step of the group is empty."""
+        steps = [s for s in steps if s in packs]
+        if not steps:
+            return None
+        payloads = []
+        for s_idx in steps:
+            idx, pad = packs[s_idx]
+            x = a_tiles.index_select(0, idx)
+            if pad is not None:
+                x.masked_fill_(pad[:, None, None], semiring.zero)
+            payloads.append(x)
+        return transport.ring_start(payloads, [s + 1 for s in steps], ranks)
+
+    def landed(pending):
+        return torch.cat(pending.wait(), dim=0)
+
+    def body(a_tiles, b_tiles, a_slot, b_slot, c_slot):
+        def compute(g, payload, dst=None):
+            off, ln = windows[g]
+            return run_schedule(payload, b_tiles, a_slot, b_slot, c_slot,
+                                starts[g], engine=engine, nprod_max=ln,
+                                nc_max=nc_max, bs=bs, semiring=semiring,
+                                seg_start=off, out=dst)
+
+        out = torch.empty((nc_max + 1, bs, bs), dtype=torch.float32,
+                          device=device)
+        if plan.chunk is None:
+            pending = fetch(a_tiles, range(plan.nparts - 1))
+            stack = a_tiles if pending is None else torch.cat(
+                [a_tiles, landed(pending)], dim=0)
+            compute(0, stack, dst=out)
+            return out[:nc_max]
+
+        # chunked pipeline: chunk g+1's exchange is in flight while
+        # segment g computes; partials combine under the additive monoid
+        out.fill_(semiring.zero)
+        failed = None
+        G = len(windows)
+        cur = a_tiles
+        for g in range(G):
+            nxt = fetch(a_tiles, plan.seg_steps[g + 1]) if g + 1 < G \
+                else None
+            if windows[g][1] > 0 and failed is None:
+                try:
+                    semiring.add(out, compute(g, cur), out=out)
+                except Exception as e:  # re-raised once the ring is done
+                    failed = e
+            cur = None if nxt is None else landed(nxt)
+        if failed is not None:
+            raise failed
+        return out[:nc_max]
+
+    return body
+
+
 def compile_ring(plan: DeviceSpGEMMPlan, device="cuda", engine: str = "auto",
                  semiring: Optional[Semiring] = None,
-                 trace_probe: Optional[Callable] = None):
+                 trace_probe: Optional[Callable] = None, *,
+                 mesh=None, axis: str = "p",
+                 transport: Optional[Transport] = None):
     """Upload the plan and build the ring; returns ``(fn, args)``.
 
     ``fn(*args)`` yields the raw ``(P, nc_max, bs, bs)`` output stacks on
     the device. ``args`` are the payload stacks and the schedule arrays
     (``[a_tiles, b_tiles, a_slot, b_slot, c_slot]``); a values-only repack
     swaps ``args[0]`` / ``args[1]`` and reuses ``fn``.
+
+    With ``mesh`` (a 1D mesh of ``nparts`` ranks, dim ``axis``) every rank
+    of the process group calls this: a member rank p uploads only part p,
+    ``args`` hold part p's stacks and schedule, and ``fn(*args)`` yields
+    part p's raw ``(nc_max, bs, bs)`` output (:func:`decode_ring_rank`
+    decodes it); a rank outside the mesh gets ``fn`` returning None and no
+    ``args``. ``transport`` carries the ring steps (by default a new
+    :class:`~repro_torch.core.collectives.Transport` over the default
+    group on ``device``).
     """
     dev = resolve_device(device)
     engine = resolve_engine(engine, dev)
     check_plan_semiring(plan.semiring, semiring)
-    args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (
-        plan.a_tiles, plan.b_tiles, plan.a_slot, plan.b_slot, plan.c_slot)]
-    return _make_step_fn(plan, dev, engine, trace_probe), args
+    put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    arrays = (plan.a_tiles, plan.b_tiles, plan.a_slot, plan.b_slot,
+              plan.c_slot)
+    if mesh is None:
+        args = [put(x) for x in arrays]
+        return _make_step_fn(plan, dev, engine, trace_probe), args
+    if mesh.mesh.numel() != plan.nparts:
+        raise ValueError(f"the plan has {plan.nparts} parts, the mesh "
+                         f"{mesh.mesh.numel()} ranks")
+    if trace_probe is not None:
+        trace_probe()
+    p = mesh_index(mesh)
+    if p is None:
+        return (lambda: None), []
+    if transport is None:
+        transport = Transport(dev)
+    body = _make_rank_body(plan, p, dev, engine, transport,
+                           dim_ranks(mesh, axis))
+    held = plan.payload_parts
+    own = p if held is None else held.index(p)
+    return body, [put(plan.a_tiles[own]), put(plan.b_tiles[own])] + [
+        put(x[p]) for x in arrays[2:]]
 
 
 def decode_ring_output(plan: DeviceSpGEMMPlan, out) -> CSC:
@@ -658,9 +818,39 @@ def decode_ring_output(plan: DeviceSpGEMMPlan, out) -> CSC:
                         col_off=splits[:-1], col_lim=splits[1:])
 
 
+def decode_ring_rank(plan: DeviceSpGEMMPlan, mesh, out):
+    """One rank's share of the decode: the COO triples of its part's raw
+    ``(nc_max, bs, bs)`` output (none for a rank outside the mesh), for
+    ``collectives.gather_csc`` to assemble on every rank."""
+    p = mesh_index(mesh)
+    if p is None:
+        return None
+    splits = plan.part_n.splits.astype(np.int64)
+    sl = slice(p, p + 1)
+    return decode_coo(out[None], plan.c_rows[sl], plan.c_cols[sl],
+                      plan.c_counts[sl], plan.semiring, plan.out_shape,
+                      col_off=splits[sl], col_lim=splits[p + 1:p + 2])
+
+
 def run_device_spgemm(plan: DeviceSpGEMMPlan, device="cuda",
                       engine: str = "auto",
-                      semiring: Optional[Semiring] = None) -> CSC:
-    """Execute the plan's P parts on ``device`` and decode C."""
-    fn, args = compile_ring(plan, device, engine, semiring)
-    return decode_ring_output(plan, fn(*args))
+                      semiring: Optional[Semiring] = None, *,
+                      mesh=None, axis: str = "p",
+                      transport: Optional[Transport] = None) -> CSC:
+    """Execute the plan's P parts on ``device`` and decode C.
+
+    With ``mesh``, every rank of the process group calls it, each member
+    runs its part, and every rank returns the same global CSC."""
+    fn, args = compile_ring(plan, device, engine, semiring, mesh=mesh,
+                            axis=axis, transport=transport)
+    if mesh is None:
+        return decode_ring_output(plan, fn(*args))
+    try:
+        coo = decode_ring_rank(plan, mesh, fn(*args))
+    except Exception:
+        gather_csc(None, plan.out_shape, failed=True)
+        raise
+    c = gather_csc(coo, plan.out_shape)
+    if c is None:
+        raise RuntimeError("another rank failed its part of the ring")
+    return c

@@ -41,6 +41,20 @@ visit at ``semiring.zero`` (the Pallas kernel left them unspecified, and
 the reference reset them with the plan's ``visit`` mask), so the partials
 reduce as they are.
 
+Across processes (``mesh=``, a :func:`device_common.device_grid_mesh` of
+``(grid, grid, layers)`` ranks with dims ``("gr", "gc", "gl")``) the body
+is the reference's again: rank (r, c, l) holds only its own A and B blocks,
+gathers A over ``"gc"`` and B over ``"gr"``
+(``collectives.Transport.gather_start``), and runs one schedule over the
+gathered stacks, which the plan's own ``a_slot`` / ``b_slot`` index — no
+``global_slots`` remap. With ``layers > 1`` the layers' partials are
+gathered over ``"gl"`` and reduced with ``Semiring.axis_reduce`` two at a
+time in layer order, as the one-process body merges them: bitwise the same
+merge, and a NaN survives it wherever it sits (gloo's ``all_reduce``
+MIN / MAX drops a NaN that is not on rank 0). Every rank then decodes its
+(r, c) block if it is on layer 0, and the pieces are gathered so each rank
+returns the same global CSC.
+
 Everything is semiring-generic: payload pads, unvisited slots, the
 cross-layer reduce and the output decode all go through the plan's
 semiring — no literal ``0.0`` anywhere.
@@ -57,7 +71,8 @@ import numpy as np
 import torch
 
 from .blocksparse import BlockSparse, build_schedule, from_csc
-from .device_common import (check_plan_semiring, decode_tiles,
+from .collectives import Transport, dim_ranks, gather_csc, mesh_index
+from .device_common import (check_plan_semiring, decode_coo, decode_tiles,
                             pack_schedules, resolve_device, resolve_engine,
                             run_schedule, snap_to_tiles, window_run_starts)
 from .plan import BYTES_PER_NNZ, Partition1D
@@ -65,8 +80,11 @@ from .semiring import PLUS_TIMES, Semiring
 from .sparse import CSC, from_coo
 
 __all__ = ["SummaDevicePlan", "build_summa_plan", "compile_summa",
-           "run_device_summa", "decode_summa_output",
-           "repack_summa_payloads", "global_slots"]
+           "run_device_summa", "decode_summa_output", "decode_summa_rank",
+           "repack_summa_payloads", "global_slots", "SUMMA_AXES"]
+
+# the mesh dims of the reference's (grid, grid, layers) mesh
+SUMMA_AXES = ("gr", "gc", "gl")
 
 
 @dataclasses.dataclass
@@ -107,6 +125,11 @@ class SummaDevicePlan:
     exact_bytes: int           # real tiles moved (gathers + layer merge)
     padded_bytes: int          # what the static-shape exchange would move
     stats: dict
+    # a rank's plan: None fills every part's payloads; a tuple of flat part
+    # ids ((r * grid + c) * layers + l) fills only those, and ``a_tiles`` /
+    # ``b_tiles`` then hold just them, in that order — (len(payload_parts),
+    # n_max, bs, bs). Every other array and stat is the whole plan's.
+    payload_parts: Optional[Tuple[int, ...]] = None
 
 
 def _split_rows(sub: CSC, row_part: Partition1D) -> list:
@@ -124,13 +147,20 @@ def _split_rows(sub: CSC, row_part: Partition1D) -> list:
     return out
 
 
+def _held(held, r, c, l, grid, layers) -> bool:
+    """Is block (r, c, l)'s payload filled (``held``: flat part ids, or
+    None for all)?"""
+    return held is None or (r * grid + c) * layers + l in held
+
+
 def _blockize_mesh_a(a: CSC, grid: int, layers: int, bs: int, dtype,
                      semiring: Semiring, part_m: Partition1D,
-                     part_k: Partition1D):
+                     part_k: Partition1D, held=None):
     """a_blk[r][s][l]: A rows part_m[r] × k-piece (l*grid + s), owner
     (r, s, l); plus per-block stored-entry counts (explicit identity-valued
     entries included — an oblivious SUMMA moves stored entries regardless
-    of value) for the element-level comm model."""
+    of value) for the element-level comm model. Only the owners in
+    ``held`` (None: all) get payloads; the others their tile structure."""
     fill = semiring.zero
     a_blk = [[[None] * layers for _ in range(grid)] for _ in range(grid)]
     a_nnzb = np.zeros((grid, grid, layers), dtype=np.int64)
@@ -141,16 +171,18 @@ def _blockize_mesh_a(a: CSC, grid: int, layers: int, bs: int, dtype,
             klo, khi = part_k.part_slice(l * grid + s)
             for r, blk in enumerate(_split_rows(a.col_slice(klo, khi),
                                                 part_m)):
-                a_blk[r][s][l] = from_csc(blk, bs=bs, dtype=dtype, fill=fill)
+                a_blk[r][s][l] = from_csc(
+                    blk, bs=bs, dtype=dtype, fill=fill,
+                    payload=_held(held, r, s, l, grid, layers))
                 a_nnzb[r, s, l] = blk.nnz
     return a_blk, a_nnzb
 
 
 def _blockize_mesh_b(b: CSC, grid: int, layers: int, bs: int, dtype,
                      semiring: Semiring, part_n: Partition1D,
-                     part_k: Partition1D):
+                     part_k: Partition1D, held=None):
     """b_blk[s][c][l]: B k-piece (l*grid + s) × cols part_n[c], owner
-    (s, c, l); counts as in :func:`_blockize_mesh_a`."""
+    (s, c, l); counts and ``held`` as in :func:`_blockize_mesh_a`."""
     fill = semiring.zero
     b_blk = [[[None] * layers for _ in range(grid)] for _ in range(grid)]
     b_nnzb = np.zeros((grid, grid, layers), dtype=np.int64)
@@ -159,23 +191,30 @@ def _blockize_mesh_b(b: CSC, grid: int, layers: int, bs: int, dtype,
         # k-pieces
         nlo, nhi = part_n.part_slice(c)
         for p, blk in enumerate(_split_rows(b.col_slice(nlo, nhi), part_k)):
-            b_blk[p % grid][c][p // grid] = from_csc(blk, bs=bs, dtype=dtype,
-                                                     fill=fill)
+            b_blk[p % grid][c][p // grid] = from_csc(
+                blk, bs=bs, dtype=dtype, fill=fill,
+                payload=_held(held, p % grid, c, p // grid, grid, layers))
             b_nnzb[p % grid, c, p // grid] = blk.nnz
     return b_blk, b_nnzb
 
 
 def _pack_side(blk, grid: int, layers: int, max_n: int, bs: int, dtype,
-               semiring: Semiring) -> np.ndarray:
+               semiring: Semiring, held=None) -> np.ndarray:
     """Fill one static (grid, grid, layers, max_n, bs, bs) payload stack
-    from a per-owner blockization (pads hold the additive identity)."""
-    tiles = semiring.fill((grid, grid, layers, max_n, bs, bs), dtype=dtype)
-    for r in range(grid):
-        for c in range(grid):
-            for l in range(layers):
-                xb = blk[r][c][l]
-                if xb.ntiles:
-                    tiles[r, c, l, :xb.ntiles] = xb.tiles
+    from a per-owner blockization (pads hold the additive identity); with
+    ``held`` (flat part ids) the (len(held), max_n, bs, bs) stack of those
+    owners only."""
+    if held is None:
+        held = range(grid * grid * layers)
+        shape = (grid, grid, layers, max_n, bs, bs)
+    else:
+        shape = (len(held), max_n, bs, bs)
+    tiles = semiring.fill(shape, dtype=dtype)
+    flat = tiles.reshape((-1, max_n, bs, bs))
+    for i, d in enumerate(held):
+        xb = blk[d // (grid * layers)][d // layers % grid][d % layers]
+        if xb.ntiles:
+            flat[i, :xb.ntiles] = xb.tiles
     return tiles
 
 
@@ -183,7 +222,9 @@ def build_summa_plan(a: CSC, b: CSC, grid: int,
                      layers: int = 1,
                      bs: int = 128,
                      dtype=np.float32,
-                     semiring: Semiring = PLUS_TIMES) -> SummaDevicePlan:
+                     semiring: Semiring = PLUS_TIMES,
+                     payload_parts: Optional[Tuple[int, ...]] = None
+                     ) -> SummaDevicePlan:
     """Blockize A and B onto the (grid, grid, layers) mesh and build every
     device's product schedule over the post-gather stacks.
 
@@ -191,6 +232,10 @@ def build_summa_plan(a: CSC, b: CSC, grid: int,
     tile grids embed into the global tile space (empty blocks — small
     matrices, surplus layers — simply contribute zero tiles). ``semiring``
     fixes the payload fill exactly as in the 1D planner.
+
+    ``payload_parts`` (flat part ids) fills only those parts' payload
+    stacks, as a rank's plan needs (``spgemm_1d_device.build_device_plan``
+    says why); the others contribute their tile structure alone.
     """
     assert a.ncols == b.nrows
     t_plan0 = time.perf_counter()
@@ -207,10 +252,12 @@ def build_summa_plan(a: CSC, b: CSC, grid: int,
     n_tile_off = [part_n.part_slice(c)[0] // bs for c in range(grid)]
 
     # ---- blockize every block of the 3D distribution -----------------------
+    if payload_parts is not None:
+        payload_parts = tuple(int(x) for x in payload_parts)
     a_blk, a_nnzb = _blockize_mesh_a(a, grid, layers, bs, dtype, semiring,
-                                     part_m, part_k)
+                                     part_m, part_k, payload_parts)
     b_blk, b_nnzb = _blockize_mesh_b(b, grid, layers, bs, dtype, semiring,
-                                     part_n, part_k)
+                                     part_n, part_k, payload_parts)
 
     na_max = max((a_blk[r][s][l].ntiles for r in range(grid)
                   for s in range(grid) for l in range(layers)), default=0)
@@ -218,8 +265,10 @@ def build_summa_plan(a: CSC, b: CSC, grid: int,
                   for c in range(grid) for l in range(layers)), default=0)
     max_na, max_nb = max(na_max, 1), max(nb_max, 1)
 
-    a_tiles = _pack_side(a_blk, grid, layers, max_na, bs, dtype, semiring)
-    b_tiles = _pack_side(b_blk, grid, layers, max_nb, bs, dtype, semiring)
+    a_tiles = _pack_side(a_blk, grid, layers, max_na, bs, dtype, semiring,
+                         payload_parts)
+    b_tiles = _pack_side(b_blk, grid, layers, max_nb, bs, dtype, semiring,
+                         payload_parts)
 
     # ---- per-part schedules over the gathered stacks -----------------------
     # Gathered layout of part (r, c, l): stage s's A block occupies slots
@@ -374,7 +423,7 @@ def build_summa_plan(a: CSC, b: CSC, grid: int,
         visit=_reshape(visit), nc_max=nc_max,
         c_rows=c_rows, c_cols=c_cols, c_counts=c_counts,
         part_m=part_m, part_n=part_n, part_k=part_k,
-        out_shape=(m, n), semiring=semiring,
+        out_shape=(m, n), semiring=semiring, payload_parts=payload_parts,
         exact_bytes=exact_tiles * tile_bytes,
         padded_bytes=padded_tiles * tile_bytes,
         stats=dict(
@@ -416,24 +465,25 @@ def repack_summa_payloads(plan: SummaDevicePlan,
     masks / decode coordinates untouched so the built executable can be
     reused as it is (``core.session``'s values-only cache-hit path). The
     stacks come back in the plan's (grid, grid, layers, n, bs, bs) layout;
-    the executable's flat stack is the same memory order.
+    the executable's flat stack is the same memory order. A rank's plan
+    refills only its ``payload_parts``.
     """
-    dtype = plan.a_tiles.dtype
+    dtype, held = plan.a_tiles.dtype, plan.payload_parts
     a_tiles = b_tiles = None
     if a is not None:
         a_blk, _ = _blockize_mesh_a(a, plan.grid, plan.layers, plan.bs,
                                     dtype, plan.semiring, plan.part_m,
-                                    plan.part_k)
+                                    plan.part_k, held)
         a_tiles = _pack_side(a_blk, plan.grid, plan.layers,
-                             plan.a_tiles.shape[3], plan.bs, dtype,
-                             plan.semiring)
+                             plan.a_tiles.shape[-3], plan.bs, dtype,
+                             plan.semiring, held)
     if b is not None:
         b_blk, _ = _blockize_mesh_b(b, plan.grid, plan.layers, plan.bs,
                                     dtype, plan.semiring, plan.part_n,
-                                    plan.part_k)
+                                    plan.part_k, held)
         b_tiles = _pack_side(b_blk, plan.grid, plan.layers,
-                             plan.b_tiles.shape[3], plan.bs, dtype,
-                             plan.semiring)
+                             plan.b_tiles.shape[-3], plan.bs, dtype,
+                             plan.semiring, held)
     return a_tiles, b_tiles
 
 
@@ -510,9 +560,69 @@ def _make_body(plan: SummaDevicePlan, device: torch.device, engine: str,
     return body
 
 
+def _make_rank_body(plan: SummaDevicePlan, d: int, device: torch.device,
+                    engine: str, transport: Transport, mesh, axes):
+    """The SUMMA body of the rank at flat mesh index ``d`` = (r, c, l):
+    gather A's blocks over ``axes[1]`` and B's over ``axes[0]``, run the
+    part's schedule on the gathered stacks, and with layers merge the
+    partials gathered over ``axes[2]``, a piece of at most the transport's
+    ``piece_bytes`` at a time. A compute that raises on a layered mesh
+    still sends an identity partial to the merge and raises after it, so
+    no other rank waits for a message that never comes."""
+    L, bs, nc_max = plan.layers, plan.bs, plan.nc_max
+    nprod = int(plan.a_slot.shape[-1])
+    semiring = plan.semiring
+    flags = plan.flags.reshape(-1, nprod)[d]
+    c_host = plan.c_slot.reshape(-1, nprod)[d]
+    starts = torch.from_numpy(window_run_starts(flags, c_host, nc_max, 0,
+                                                nprod)).to(device)
+    ax_r, ax_c, ax_l = axes
+    row, col = dim_ranks(mesh, ax_c), dim_ranks(mesh, ax_r)
+    layer = dim_ranks(mesh, ax_l)
+
+    def body(a_own, b_own, a_slot, b_slot, c_slot):
+        ga = transport.gather_start(a_own, row, tag=1)
+        gb = transport.gather_start(b_own, col, tag=2)
+        stack_a = ga.wait().reshape(-1, bs, bs)
+        stack_b = gb.wait().reshape(-1, bs, bs)
+        out = torch.empty((nc_max + 1, bs, bs), dtype=torch.float32,
+                          device=device)
+        failed = None
+        try:
+            run_schedule(stack_a, stack_b, a_slot, b_slot, c_slot, starts,
+                         engine=engine, nprod_max=nprod, nc_max=nc_max,
+                         bs=bs, semiring=semiring, out=out)
+        except Exception as e:  # re-raised after the merge
+            if L == 1:
+                raise
+            failed = e
+            out.fill_(semiring.zero)
+        if L == 1:
+            return out[:nc_max]
+        # the merge, a piece of the partial at a time: gather the layers'
+        # pieces, reduce them in layer order, write the result in place
+        rows = max(1, transport.piece_bytes // (bs * bs * 4))
+        for t0 in range(0, nc_max, rows):
+            piece = out[t0:min(t0 + rows, nc_max)]
+            parts = transport.gather_start(piece, layer, kind="merge",
+                                           tag=3).wait()
+            merged = parts[0]
+            for l in range(1, L):
+                merged = semiring.axis_reduce(
+                    torch.stack([merged, parts[l]]), 0)
+            piece.copy_(merged)
+        if failed is not None:
+            raise failed
+        return out[:nc_max]
+
+    return body
+
+
 def compile_summa(plan: SummaDevicePlan, device="cuda", engine: str = "auto",
                   semiring: Optional[Semiring] = None,
-                  trace_probe: Optional[Callable] = None):
+                  trace_probe: Optional[Callable] = None, *,
+                  mesh=None, axes: Tuple[str, str, str] = SUMMA_AXES,
+                  transport: Optional[Transport] = None):
     """Upload the plan and build the SUMMA body; returns ``(fn, args)``.
 
     ``fn(*args)`` yields the raw ``(grid*grid, nc_max, bs, bs)`` merged
@@ -520,17 +630,47 @@ def compile_summa(plan: SummaDevicePlan, device="cuda", engine: str = "auto",
     flat payload stacks and the remapped schedule (``[a_tiles, b_tiles,
     a_glob, b_glob, c_slot]``, :func:`global_slots`); a values-only repack
     swaps ``args[0]`` / ``args[1]`` (reshaped flat) and reuses ``fn``.
+
+    With ``mesh`` (``(grid, grid, layers)`` ranks, dims ``axes``) every
+    rank of the process group calls this: the member at (r, c, l) uploads
+    only its own blocks and schedule (``args`` = ``[a_tiles[r, c, l],
+    b_tiles[r, c, l], a_slot[r, c, l], b_slot[r, c, l], c_slot[r, c,
+    l]]``), and ``fn(*args)`` yields its merged ``(nc_max, bs, bs)`` block
+    (:func:`decode_summa_rank` decodes it); a rank outside the mesh gets
+    ``fn`` returning None and no ``args``.
     """
     dev = resolve_device(device)
     engine = resolve_engine(engine, dev)
     check_plan_semiring(plan.semiring, semiring)
     bs = plan.bs
-    a_glob, b_glob = global_slots(plan)
     put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-    args = [put(plan.a_tiles).reshape(-1, bs, bs),
-            put(plan.b_tiles).reshape(-1, bs, bs), put(a_glob), put(b_glob),
-            put(plan.c_slot.reshape(a_glob.shape))]
-    return _make_body(plan, dev, engine, trace_probe), args
+    if mesh is None:
+        a_glob, b_glob = global_slots(plan)
+        args = [put(plan.a_tiles).reshape(-1, bs, bs),
+                put(plan.b_tiles).reshape(-1, bs, bs), put(a_glob),
+                put(b_glob), put(plan.c_slot.reshape(a_glob.shape))]
+        return _make_body(plan, dev, engine, trace_probe), args
+    if tuple(mesh.mesh.shape) != (plan.grid, plan.grid, plan.layers):
+        raise ValueError(f"the plan's mesh is "
+                         f"{(plan.grid, plan.grid, plan.layers)}, the mesh "
+                         f"given {tuple(mesh.mesh.shape)}")
+    if trace_probe is not None:
+        trace_probe()
+    d = mesh_index(mesh)
+    if d is None:
+        return (lambda: None), []
+    if transport is None:
+        transport = Transport(dev)
+    body = _make_rank_body(plan, d, dev, engine, transport, mesh, axes)
+    held = plan.payload_parts
+    own = d if held is None else held.index(d)
+    stacks = [x.reshape((-1,) + x.shape[-3:])[own]
+              for x in (plan.a_tiles, plan.b_tiles)]
+    nprod = plan.a_slot.shape[-1]
+    args = [put(x) for x in stacks] + [
+        put(x.reshape(-1, nprod)[d])
+        for x in (plan.a_slot, plan.b_slot, plan.c_slot)]
+    return body, args
 
 
 def decode_summa_output(plan: SummaDevicePlan, out) -> CSC:
@@ -541,9 +681,37 @@ def decode_summa_output(plan: SummaDevicePlan, out) -> CSC:
                         plan.semiring, plan.out_shape)
 
 
+def decode_summa_rank(plan: SummaDevicePlan, mesh, out):
+    """One rank's share of the decode: the COO triples of its merged (r, c)
+    block if it sits on layer 0 (every layer holds the same merged block),
+    else none, for ``collectives.gather_csc`` to assemble on every rank."""
+    d = mesh_index(mesh)
+    if d is None or d % plan.layers:
+        return None
+    rc = slice(d // plan.layers, d // plan.layers + 1)
+    return decode_coo(out[None], plan.c_rows[rc], plan.c_cols[rc],
+                      plan.c_counts[rc], plan.semiring, plan.out_shape)
+
+
 def run_device_summa(plan: SummaDevicePlan, device="cuda",
                      engine: str = "auto",
-                     semiring: Optional[Semiring] = None) -> CSC:
-    """Execute the plan's parts on ``device`` and decode C."""
-    fn, args = compile_summa(plan, device, engine, semiring)
-    return decode_summa_output(plan, fn(*args))
+                     semiring: Optional[Semiring] = None, *,
+                     mesh=None, axes: Tuple[str, str, str] = SUMMA_AXES,
+                     transport: Optional[Transport] = None) -> CSC:
+    """Execute the plan's parts on ``device`` and decode C.
+
+    With ``mesh``, every rank of the process group calls it, each member
+    runs its part, and every rank returns the same global CSC."""
+    fn, args = compile_summa(plan, device, engine, semiring, mesh=mesh,
+                             axes=axes, transport=transport)
+    if mesh is None:
+        return decode_summa_output(plan, fn(*args))
+    try:
+        coo = decode_summa_rank(plan, mesh, fn(*args))
+    except Exception:
+        gather_csc(None, plan.out_shape, failed=True)
+        raise
+    c = gather_csc(coo, plan.out_shape)
+    if c is None:
+        raise RuntimeError("another rank failed its part of the SUMMA")
+    return c

@@ -24,6 +24,12 @@ adds is the 3D reading of its two extra moving parts:
     a layer never writes hold the additive identity — no literal ``0.0``
     anywhere.
 
+Across processes (``mesh=``, one rank per (r, c, l)) the merge is the
+reference's again: the layers' partials are gathered over the mesh's
+``"gl"`` dim and each rank reduces them two at a time in layer order
+(``spgemm_2d_device``), never by an ``all_reduce(MIN / MAX)``, which drops
+a NaN that is not on rank 0 under gloo.
+
 Like its host counterpart (``spgemm_3d.py``), the layer count is a tuning
 knob the paper sweeps per input.
 """

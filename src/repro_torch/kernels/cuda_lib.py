@@ -9,11 +9,16 @@ reused. The caller loads the library with ``ctypes``. Nothing here runs at
 import.
 
 :func:`compile_sources` starts one ``nvcc`` per source, all at once, and
-waits for every one: the kernels of a run build in parallel.
+waits for every one: the kernels of a run build in parallel. A build holds
+an exclusive lock on ``build/.lock`` (``fcntl.flock``, released when the
+process ends, however it ends), so processes that start together — the
+ranks of one job — build each library once: the first builds, the others
+wait and find it built.
 """
 
 from __future__ import annotations
 
+import fcntl
 import hashlib
 import os
 import re
@@ -81,11 +86,30 @@ def compile_sources(sources: Sequence[Path]) -> Dict[Path, dict]:
     started ``nvcc`` has ended."""
     t0 = time.perf_counter()
     running = {}
+    if not all(library_path(src).exists() for src in sources):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            running = _build_missing(sources)
+    seconds = time.perf_counter() - t0
+    info = {}
+    for src in sources:
+        log = library_path(src).with_suffix(".log")
+        info[src] = {"path": str(library_path(src)), "seconds": seconds,
+                     "built": src in running,
+                     "log": log.read_text() if log.exists() else ""}
+    return info
+
+
+def _build_missing(sources: Sequence[Path]) -> dict:
+    """Start one ``nvcc`` for each source whose library is missing, wait
+    for all, and move each library into place; the caller holds the build
+    lock. Returns the sources built."""
+    running = {}
     for src in sources:
         so = library_path(src)
         if so.exists() or src in running:
             continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         running[src] = (so, tmp, subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
@@ -100,14 +124,7 @@ def compile_sources(sources: Sequence[Path]) -> Dict[Path, dict]:
         os.replace(tmp, so)
     if failed:
         raise RuntimeError("\n".join(failed))
-    seconds = time.perf_counter() - t0
-    info = {}
-    for src in sources:
-        log = library_path(src).with_suffix(".log")
-        info[src] = {"path": str(library_path(src)), "seconds": seconds,
-                     "built": src in running,
-                     "log": log.read_text() if log.exists() else ""}
-    return info
+    return running
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype, ndim: int, device,
