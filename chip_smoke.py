@@ -115,17 +115,18 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  CountSketch stream (dim 256, A·Sᵀ) over four integer value
                  sets on the Laplacian's structure: one cold call and three
                  repacks, bitwise against scipy; (c) ``mcl`` of
-                 block_diagonal_noise(262144, 4096, 8, 0.05), on the kernel,
-                 on the plain version (clusters and iterations equal,
-                 operators within rtol 1e-4, atol 1e-6) and again on the
-                 kernel's session (all hits, bitwise); (d) ``bc_batch`` of a
-                 symmetrized block_diagonal_noise(262144, 1024, 5, 0.3), 128
-                 seeded sources, bs 16, on the kernel and on the plain
-                 version (depths and call counts equal, scores within rtol
-                 1e-5), every backward call a hit with a repack; (e) MCL
-                 killed by an injected execute fault in its fourth
-                 iteration and BC by a fault on its first backward call,
-                 each resumed from its snapshots, bitwise. Per run: calls,
+                 block_diagonal_noise(262144, 4096, 8, 0.05) on the kernel
+                 and again on the kernel's session (all hits, bitwise); (d)
+                 ``bc_batch`` of a symmetrized block_diagonal_noise(262144,
+                 1024, 5, 0.3), 128 seeded sources, bs 16, on the kernel,
+                 every backward call a hit with a repack; both graphs also
+                 at 65,536 vertices on the kernel and on the plain version
+                 (MCL: clusters and iterations equal, operators within rtol
+                 1e-4, atol 1e-6; BC: depths and call counts equal, scores
+                 within rtol 1e-5); (e) at 65,536 vertices, MCL killed by an
+                 injected execute fault in its fourth iteration and BC by a
+                 fault on its first backward call, each resumed from its
+                 snapshots, bitwise. Per run: calls,
                  hits, repacks, wall, planning, repack, decode and app host
                  seconds, execute ms (CUDA events), launches by route, peak
                  device memory, the largest deviation from the reference
@@ -238,8 +239,46 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  again from host copies of their inputs, under
                  torch.profiler: the product kernel's and the combine
                  pass's device time, and the ``simt`` kernel's with its
-                 fill; last, because profiler windows opened before the LM
-                 phases made theirs drop kernel records
+                 fill; after the LM phases, because profiler windows opened
+                 before them made theirs drop kernel records, and before
+                 the training phase, after which this process's profiler
+                 recorded no kernel
+  12. train    — the training path (``repro_torch.train``): (a) each
+                 autograd Function on the card against autograd through its
+                 plain version on the card: ``multihead_attention`` (the
+                 route's kernel forward, the plain chunked recompute
+                 backward) at (2, 4096, 16, 128) bf16 causal, with 4 kv
+                 heads, with a 1024 window and softcap 50, and at (1, 1024,
+                 16, 128) float32; ``grouped_gemm`` (kernel forward, float32
+                 einsum backward) at the step's (64, 640, 2048) x (64, 2048,
+                 1408) and its down projection, bf16 and float32, ``rows``
+                 below capacity in some experts: output and every input
+                 gradient within the forward tolerances; (b) qwen2-moe-a2.7b
+                 at full width cut to 4 layers (float32 masters and AdamW
+                 moments, 43.7 GB; bf16 compute, remat "block"), S 4096, B
+                 2, AdamW at its defaults through ``make_train_step`` and
+                 ``TrainLoopRunner``: 6 steps, every metric finite, exactly
+                 8 ``tc`` attention and 24 ``prefill`` GEMM launches a step
+                 (forward and the backward's recompute), step ms (CUDA
+                 events), tokens/s, peak memory; the same first step again
+                 from the same state (bitwise?); the first step through
+                 the plain versions (loss within 2e-3, grad norm within
+                 2e-2, relative); cut to 1 layer (a 4-layer checkpoint is
+                 32.8 GB), a run killed by its batch function at step 4 and
+                 resumed in a new runner from step 3's checkpoint (copied
+                 into the state in place), bitwise against an
+                 uninterrupted run when the step repeats bitwise; (c) the
+                 model at full width, 2 layers, float32, S 1024: loss (1e-4
+                 relative) and every leaf's gradient (1e-3 of its largest
+                 magnitude) through the ``fp32`` routes against the plain
+                 versions; (d) ``python -m repro_torch.launch.train --arch
+                 qwen2-moe-a2.7b --smoke --steps 4 --compress-grads
+                 --device cuda`` in a process of its own: exit 0, the
+                 float32 routes' launches; (e) in a spawned process, one
+                 step under torch.profiler, its device time split by where
+                 each kernel ran (layers' forward and recompute,
+                 cross entropy, attention backward, experts' backward,
+                 optimizer, the rest) and by kind, and the idle share
 
 Every main-path call must run on the kernel: ``fallbacks == 0``,
 ``last_call["engine"] == "cuda"`` and the kernel's launch count grows.
@@ -254,6 +293,7 @@ import gc
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2115,45 +2155,58 @@ def same_mcl(res, want, what):
           and res.comm_bytes == want.comm_bytes, f"{what}: differs")
 
 
-def apps_mcl(dev, kernel, n):
+def mcl_graph(n):
+    from repro_torch.core import block_diagonal_noise
+
+    g = block_diagonal_noise(n, n // 64, d_in=8.0, d_out=0.05, seed=7)
+    g.data = np.abs(g.data) + 0.5
+    return g
+
+
+def apps_mcl(dev, kernel, n, n_plain):
     """(c) Markov clustering of block_diagonal_noise(n, n / 64, 8, 0.05)
-    (|w| + 0.5): on the kernel, on the plain version (clusters and
-    iterations equal, operators within rtol 1e-4, atol 1e-6), and again on
-    the kernel's session (hits, bitwise). (e) the run killed by an injected
-    execute fault in its fourth iteration resumes from its snapshots on a
-    fresh session, bitwise."""
+    (|w| + 0.5): on the kernel, and again on the kernel's session (hits,
+    bitwise); the same graph family at ``n_plain`` vertices on the kernel
+    and on the plain version (clusters and iterations equal, operators
+    within rtol 1e-4, atol 1e-6). (e) at ``n_plain`` vertices, the run
+    killed by an injected execute fault in its fourth iteration resumes
+    from its snapshots on a fresh session, bitwise."""
     import tempfile
 
     from repro_torch.apps import mcl
-    from repro_torch.core import block_diagonal_noise
     from repro_torch.core.session import SpGEMMSession
     from repro_torch.core.validate import SpGEMMError
     from repro_torch.runtime import FaultInjector, RetryPolicy
 
-    g = block_diagonal_noise(n, n // 64, d_in=8.0, d_out=0.05, seed=7)
-    g.data = np.abs(g.data) + 0.5
+    g = mcl_graph(n)
     rows = {}
     sess = SpGEMMSession(device=dev)
     clock = AppClock(sess)
     res, rows["kernel"] = app_run(kernel, clock,
                                   lambda: mcl(g, session=sess, **MCL_KW))
-    first = list(clock.calls)
     again, rows["kernel_again"] = app_run(
         kernel, clock, lambda: mcl(g, session=sess, **MCL_KW))
     same_mcl(again, res, "mcl again on its session")
     check(rows["kernel_again"]["hits"] == again.iterations,
           f"mcl again: {rows['kernel_again']['hits']} hits in "
           f"{again.iterations} iterations")
+    g_small = mcl_graph(n_plain)
+    small_sess = SpGEMMSession(device=dev)
+    small_clock = AppClock(small_sess)
+    small, rows["kernel_small"] = app_run(
+        kernel, small_clock,
+        lambda: mcl(g_small, session=small_sess, **MCL_KW))
+    first = list(small_clock.calls)
     plain_sess = SpGEMMSession(device=dev)
     pclock = AppClock(plain_sess)
-    plain, rows["plain"] = app_run(kernel, pclock, lambda: mcl(
-        g, session=plain_sess, engine="torch", **MCL_KW), plain=True)
-    del plain_sess, pclock
-    check(np.array_equal(res.clusters, plain.clusters)
-          and res.iterations == plain.iterations,
+    plain, rows["plain_small"] = app_run(kernel, pclock, lambda: mcl(
+        g_small, session=plain_sess, engine="torch", **MCL_KW), plain=True)
+    del plain_sess, pclock, small_sess, small_clock
+    check(np.array_equal(small.clusters, plain.clusters)
+          and small.iterations == plain.iterations,
           f"mcl clusters or iterations differ from the plain run "
-          f"({res.iterations} vs {plain.iterations})")
-    diff = abs(scipy_csc(res.matrix) - scipy_csc(plain.matrix))
+          f"({small.iterations} vs {plain.iterations})")
+    diff = abs(scipy_csc(small.matrix) - scipy_csc(plain.matrix))
     slack = diff - 1e-4 * abs(scipy_csc(plain.matrix))
     check(not slack.nnz or slack.max() <= 1e-6,
           "mcl operator beyond rtol 1e-4, atol 1e-6 of the plain run")
@@ -2162,7 +2215,7 @@ def apps_mcl(dev, kernel, n):
     # (e) kill the fourth iteration: a cold call fires plan, compile and
     # execute, a hit with new values repack and execute, a plain hit
     # execute alone
-    check(res.iterations >= 4, f"mcl ran {res.iterations} iterations")
+    check(small.iterations >= 4, f"mcl ran {small.iterations} iterations")
     arm = sum(1 if c["cache_hit"] and not c["repacked"] else
               2 if c["cache_hit"] else 3 for c in first[:3])
     with tempfile.TemporaryDirectory() as ckpt:
@@ -2172,7 +2225,7 @@ def apps_mcl(dev, kernel, n):
 
         def killed():
             try:
-                mcl(g, session=broken, checkpoint_dir=ckpt, **MCL_KW)
+                mcl(g_small, session=broken, checkpoint_dir=ckpt, **MCL_KW)
             except SpGEMMError as e:
                 return type(e).__name__
             return None
@@ -2187,44 +2240,53 @@ def apps_mcl(dev, kernel, n):
         fresh = SpGEMMSession(device=dev)
         fclock = AppClock(fresh)
         resumed, row = app_run(kernel, fclock, lambda: mcl(
-            g, session=fresh, checkpoint_dir=ckpt, **MCL_KW))
-        same_mcl(resumed, res, "mcl resumed")
+            g_small, session=fresh, checkpoint_dir=ckpt, **MCL_KW))
+        same_mcl(resumed, small, "mcl resumed")
         del fresh, fclock
     emit({"phase": "apps", "app": "mcl",
           "matrix": f"block_diagonal_noise({n}, {n // 64}, 8.0, 0.05, "
                     "seed=7), |w| + 0.5", "nnz": g.nnz,
           "iterations": res.iterations, "converged": res.converged,
           "clusters": int(len(np.unique(res.clusters))),
-          "final_nnz": res.matrix.nnz, "max_abs_dev_plain": dev_max,
-          **MCL_KW, "runs": rows})
-    emit({"phase": "apps", "app": "mcl_resume", "fault": fault,
-          "arm_after": arm, "resumed_from": snap,
+          "final_nnz": res.matrix.nnz, "plain_n": n_plain,
+          "plain_iterations": plain.iterations,
+          "max_abs_dev_plain": dev_max, **MCL_KW, "runs": rows})
+    emit({"phase": "apps", "app": "mcl_resume", "n": n_plain,
+          "fault": fault, "arm_after": arm, "resumed_from": snap,
           "runs": {"killed": killed_row, "resumed": row}})
     del sess, clock
     torch.cuda.empty_cache()
     return (rows["kernel"]["launches"] + rows["kernel_again"]["launches"]
-            + killed_row["launches"] + row["launches"])
+            + rows["kernel_small"]["launches"] + killed_row["launches"]
+            + row["launches"])
 
 
-def apps_bc(dev, kernel, n, nsources):
-    """(d) batched betweenness centrality of symmetrize(
-    block_diagonal_noise(n, n / 256, 5, 0.3)), unit weights, from
-    ``nsources`` seeded sources at bs 16: on the kernel, then on the plain
-    version (depths and call counts equal, scores within rtol 1e-5).
-    (e) the kernel run again with its first backward call failing, then
-    resumed from its snapshots: scores bitwise."""
-    import tempfile
-
-    from repro_torch.apps import bc_batch, device_spgemm_fn
+def bc_graph(n, nsources):
     from repro_torch.core import block_diagonal_noise, symmetrize
-    from repro_torch.core.session import SpGEMMSession
-    from repro_torch.core.validate import DeviceExecError
 
     a = symmetrize(block_diagonal_noise(n, n // 256, d_in=5.0, d_out=0.3,
                                         seed=2))
     a.data[:] = 1
     sources = np.sort(np.random.default_rng(0).choice(n, nsources,
                                                       replace=False))
+    return a, sources
+
+
+def apps_bc(dev, kernel, n, nsources, n_plain):
+    """(d) batched betweenness centrality of symmetrize(
+    block_diagonal_noise(n, n / 256, 5, 0.3)), unit weights, from
+    ``nsources`` seeded sources at bs 16, on the kernel; the same graph
+    family at ``n_plain`` vertices on the kernel and on the plain version
+    (depths and call counts equal, scores within rtol 1e-5). (e) at
+    ``n_plain`` vertices, the kernel run again with its first backward call
+    failing, then resumed from its snapshots: scores bitwise."""
+    import tempfile
+
+    from repro_torch.apps import bc_batch, device_spgemm_fn
+    from repro_torch.core.session import SpGEMMSession
+    from repro_torch.core.validate import DeviceExecError
+
+    a, sources = bc_graph(n, nsources)
     rows = {}
     sess = SpGEMMSession(device=dev)
     clock = AppClock(sess)
@@ -2235,20 +2297,27 @@ def apps_bc(dev, kernel, n, nsources):
     fwd, bwd = calls[:res.fwd_spgemm_calls], calls[res.fwd_spgemm_calls:]
     check(all(c["cache_hit"] and c["repacked"] for c in bwd),
           "a backward call missed the forward levels' entries")
+    a_small, src_small = bc_graph(n_plain, nsources)
+    small_sess = SpGEMMSession(device=dev)
+    small_clock = AppClock(small_sess)
+    small_fn = device_spgemm_fn(nparts=8, bs=16, session=small_sess)
+    small, rows["kernel_small"] = app_run(
+        kernel, small_clock,
+        lambda: bc_batch(a_small, src_small, spgemm_fn=small_fn))
     plain_sess = SpGEMMSession(device=dev)
     pclock = AppClock(plain_sess)
-    plain, rows["plain"] = app_run(kernel, pclock, lambda: bc_batch(
-        a, sources, spgemm_fn=device_spgemm_fn(
+    plain, rows["plain_small"] = app_run(kernel, pclock, lambda: bc_batch(
+        a_small, src_small, spgemm_fn=device_spgemm_fn(
             nparts=8, bs=16, engine="torch", session=plain_sess)),
         plain=True)
     del plain_sess, pclock
-    check(res.depths == plain.depths
-          and res.fwd_spgemm_calls == plain.fwd_spgemm_calls
-          and res.bwd_spgemm_calls == plain.bwd_spgemm_calls,
+    check(small.depths == plain.depths
+          and small.fwd_spgemm_calls == plain.fwd_spgemm_calls
+          and small.bwd_spgemm_calls == plain.bwd_spgemm_calls,
           "bc depths or call counts differ from the plain run")
-    rel = np.abs(res.scores - plain.scores) / np.maximum(
+    rel = np.abs(small.scores - plain.scores) / np.maximum(
         np.abs(plain.scores), 1e-300)
-    check(np.allclose(res.scores, plain.scores, rtol=1e-5, atol=0.0),
+    check(np.allclose(small.scores, plain.scores, rtol=1e-5, atol=0.0),
           f"bc scores beyond rtol 1e-5 of the plain run: {rel.max()}")
 
     def failing(at):
@@ -2259,29 +2328,30 @@ def apps_bc(dev, kernel, n, nsources):
             if count["n"] == at:
                 raise DeviceExecError("injected on the first backward call",
                                       stage="execute")
-            return fn(x, y, semiring)
+            return small_fn(x, y, semiring)
         return wrapped
 
     with tempfile.TemporaryDirectory() as ckpt:
 
         def killed():
             try:
-                bc_batch(a, sources,
-                         spgemm_fn=failing(res.fwd_spgemm_calls + 1),
+                bc_batch(a_small, src_small,
+                         spgemm_fn=failing(small.fwd_spgemm_calls + 1),
                          checkpoint_dir=ckpt)
             except DeviceExecError as e:
                 return type(e).__name__
             return None
 
-        fault, killed_row = app_run(kernel, clock, killed)
+        fault, killed_row = app_run(kernel, small_clock, killed)
         check(fault is not None, "the injected fault did not surface")
-        resumed, row = app_run(kernel, clock, lambda: bc_batch(
-            a, sources, spgemm_fn=failing(None), checkpoint_dir=ckpt))
-    check(resumed.scores.tobytes() == res.scores.tobytes()
-          and resumed.depths == res.depths
-          and resumed.fwd_spgemm_calls == res.fwd_spgemm_calls
-          and resumed.bwd_spgemm_calls == res.bwd_spgemm_calls
-          and resumed.comm_bytes == res.comm_bytes,
+        resumed, row = app_run(kernel, small_clock, lambda: bc_batch(
+            a_small, src_small, spgemm_fn=failing(None),
+            checkpoint_dir=ckpt))
+    check(resumed.scores.tobytes() == small.scores.tobytes()
+          and resumed.depths == small.depths
+          and resumed.fwd_spgemm_calls == small.fwd_spgemm_calls
+          and resumed.bwd_spgemm_calls == small.bwd_spgemm_calls
+          and resumed.comm_bytes == small.comm_bytes,
           "bc resumed differs from the uninterrupted run")
     emit({"phase": "apps", "app": "bc_batch",
           "matrix": f"symmetrize(block_diagonal_noise({n}, {n // 256}, 5.0, "
@@ -2291,28 +2361,34 @@ def apps_bc(dev, kernel, n, nsources):
           "bwd_calls": res.bwd_spgemm_calls,
           "fwd_hits": sum(c["cache_hit"] for c in fwd),
           "bwd_hits": sum(c["cache_hit"] for c in bwd),
+          "plain_n": n_plain, "plain_depths": plain.depths,
           "max_rel_dev_plain": float(rel.max()), "runs": rows})
-    emit({"phase": "apps", "app": "bc_resume", "fault": fault,
+    emit({"phase": "apps", "app": "bc_resume", "n": n_plain, "fault": fault,
           "runs": {"killed": killed_row, "resumed": row}})
-    del sess, clock, fn
+    del sess, clock, fn, small_sess, small_clock, small_fn
     torch.cuda.empty_cache()
-    return rows["kernel"]["launches"] + killed_row["launches"] + \
-        row["launches"]
+    return rows["kernel"]["launches"] + rows["kernel_small"]["launches"] \
+        + killed_row["launches"] + row["launches"]
 
 
-def phase_apps(dev, side=1024, n_mcl=262144, n_bc=262144, nsources=128):
+def phase_apps(dev, side=1024, n_mcl=262144, n_bc=262144, nsources=128,
+               n_plain=65536):
     """The paper's applications through their entry points, each on its
     own session at its default bs (every launch on ``warp``): (a) AMG
     Galerkin, (b) a CountSketch stream, (c) Markov clustering, (d) batched
-    betweenness centrality, (e) MCL and BC resumed after a fault."""
+    betweenness centrality, (e) MCL and BC resumed after a fault. MCL's and
+    BC's runs on the plain version, the kernel runs they are held against,
+    and the killed and resumed runs are at ``n_plain`` vertices (at full
+    size the plain runs took 47 s and 81 s, the resumes 49 s and 88 s, of
+    the script's 1200 s)."""
     from repro_torch.kernels.bsr_spgemm import kernel
 
     launches = {}
     t0 = time.perf_counter()
     launches["amg"] = apps_amg(dev, kernel, side)
     launches["sketch"] = apps_sketch(dev, kernel, side)
-    launches["mcl"] = apps_mcl(dev, kernel, n_mcl)
-    launches["bc"] = apps_bc(dev, kernel, n_bc, nsources)
+    launches["mcl"] = apps_mcl(dev, kernel, n_mcl, n_plain)
+    launches["bc"] = apps_bc(dev, kernel, n_bc, nsources, n_plain)
     emit({"phase": "apps_done", "seconds": time.perf_counter() - t0,
           "warp_launches": launches})
     gc.collect()
@@ -3499,6 +3575,686 @@ def phase_lm_serve(dev, arch="qwen2-moe-a2.7b", lens=(2048, 1536, 1024, 512),
             f32["moe_gemm_fp32"])
 
 
+# ---------------------------------------------------------------------------
+# phase 10b: the training path
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen2-moe-a2.7b"
+# 4 of the 24 layers: float32 masters, their gradients and two AdamW moments
+# take 16 bytes a parameter, 43.7 GB at 4 layers (2.73 B parameters), 237 GB
+# at 24
+TRAIN_LAYERS = 4
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096        # SHAPES["train_4k"]'s sequence
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_KILL_AT = 6, 3, 4
+# the checkpointed run (kill and resume) is the same model cut to 1 layer:
+# the 4-layer state is 32.8 GB, a checkpoint of it took 42 s to write and
+# 59 s to read back beside an H100, whose machine took at most 45 GiB of
+# disk writes a run; 1 layer is 11 GB
+TRAIN_RESUME_LAYERS = 1
+# gradients of the Functions against autograd through the plain versions:
+# both backward passes compute in float32 from the same inputs (the
+# attention's as a chunked online softmax, the plain one's as a full
+# softmax), so they differ by float32 rounding and then, in bf16, by one
+# rounding of the result: the forward tolerances hold for them
+GRAD_TOL = TOL
+MOE_GRAD_TOL = MOE_TOL
+# the full-width step through the plain versions: bf16 activations rounded
+# in other places (the kernel rounds P to bf16 before PV; the plain version
+# rounds only its output) over 4 layers, averaged over 8192 tokens
+TRAIN_PLAIN_LOSS_RTOL = 2e-3
+TRAIN_PLAIN_GNORM_RTOL = 2e-2
+# the float32 check: the split-TF32 kernels agree with the plain versions
+# to ~1e-6 a call; a token whose router scores sit at a top-4 near-tie is
+# the one place a gradient could move more
+F32_LOSS_RTOL = 1e-4
+F32_GRAD_REL = 1e-3
+
+
+class TrainKilled(Exception):
+    """Raised by the batch function to kill a training run."""
+
+
+def train_cfg(layers=TRAIN_LAYERS, dtype="bfloat16"):
+    """qwen2-moe-a2.7b at its published width, cut to ``layers`` layers;
+    ``remat="block"`` (the config's default), compute in ``dtype``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=layers,
+                              dtype=dtype)
+    check(cfg.remat == "block", f"remat {cfg.remat}")
+    return cfg
+
+
+def train_params(cfg, dev, seed=0):
+    """Float32 master weights from a seeded generator: the same every
+    call."""
+    from repro_torch.models import init_params
+
+    return init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                       device=dev, dtype=torch.float32)
+
+
+def train_state(cfg, dev, seed=0):
+    """``train_params`` and AdamW's zero moments."""
+    from repro_torch.train import init_train_state
+
+    return init_train_state(cfg, train_params(cfg, dev, seed))
+
+
+def train_batches(cfg, dev, seq=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0):
+    from repro_torch.data import SyntheticLMDataset
+
+    ds = SyntheticLMDataset(cfg.vocab, seq, batch, seed=seed)
+
+    def get(step):
+        out = {k: torch.from_numpy(v).to(dev)
+               for k, v in ds.batch(step).items()}
+        out["tokens"] = out["tokens"].long()
+        return out
+    return get
+
+
+def host_leaves(tree):
+    from repro_torch.train.optimizer import tree_leaves
+
+    return [t.detach().to("cpu", copy=True) for t in tree_leaves(tree)]
+
+
+def same_leaves(tree, host):
+    """Bitwise, leaf by leaf, against host copies; the first differing
+    leaf's index and largest difference, or None."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    for i, (t, h) in enumerate(zip(tree_leaves(tree), host)):
+        got = t.detach().to("cpu")
+        if not bitwise(got, h):
+            return {"leaf": i, "shape": list(h.shape),
+                    "max_abs_diff": float((got - h).abs().max())}
+    return None
+
+
+def attention_fn_case(name, dev, b, s, hq, hkv, dtype, window=0, softcap=0.0):
+    """``multihead_attention``'s Function (the route's kernel forward, the
+    plain chunked recompute backward) against autograd through ``mha_ref``
+    on the card: output and (dq, dk, dv)."""
+    from repro_torch.kernels.flash_attention import multihead_attention
+    from repro_torch.kernels.flash_attention.kernel import route
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+
+    g = torch.Generator(device=dev).manual_seed(s + hkv)
+    d = 128
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev, dtype=dtype)
+               for h in (hq, hkv, hkv))
+    up = torch.randn(b, s, hq, d, generator=g, device=dev, dtype=dtype)
+    scale = d ** -0.5
+
+    def run(fn):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*ins)
+        return [out.detach()] + list(torch.autograd.grad(out, ins, up))
+
+    t0 = time.perf_counter()
+    got = run(lambda *t: multihead_attention(*t, scale, True, window,
+                                             softcap))
+    torch.cuda.synchronize()
+    fn_s = time.perf_counter() - t0
+    want = run(lambda *t: mha_ref(*t, scale=scale, causal=True,
+                                  window=window, softcap=softcap))
+    errs = {}
+    for label, a, w, tol in zip(("out", "dq", "dk", "dv"), got, want,
+                                (TOL, GRAD_TOL, GRAD_TOL, GRAD_TOL)):
+        ok, errs[label] = within(a, w, *tol[dtype])
+        check(ok and bool(torch.isfinite(a).all()),
+              f"attention Function {name}: {label} off the plain version's "
+              f"autograd by {errs[label]}")
+    return {"case": name, "shape": [b, s, hq, hkv, d], "dtype": str(dtype),
+            "route": route(dtype, d), "window": window, "softcap": softcap,
+            "max_abs_err": errs, "function_s": fn_s}
+
+
+def moe_fn_case(name, dev, e, cap, d, f, dtype):
+    """``grouped_gemm``'s Function (the route's kernel forward, the float32
+    einsum backward) against autograd through ``moe_gemm_ref`` on the card,
+    with ``rows`` below capacity in some experts: output and (dx, dw)."""
+    from repro_torch.kernels.moe_gemm import grouped_gemm
+    from repro_torch.kernels.moe_gemm.kernel import route
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+
+    g = torch.Generator(device=dev).manual_seed(d + f)
+    x = torch.randn(e, cap, d, generator=g, device=dev, dtype=dtype)
+    w = (torch.randn(e, d, f, generator=g, device=dev) * d ** -0.5).to(dtype)
+    up = torch.randn(e, cap, f, generator=g, device=dev, dtype=dtype)
+    rows = torch.randint(0, cap + 1, (e,), generator=g, device=dev,
+                         dtype=torch.int32)
+    rows[::4] = cap                      # every fourth expert full
+    rows[1] = 0                          # one empty
+
+    def run(fn):
+        ins = [x.clone().requires_grad_(), w.clone().requires_grad_()]
+        out = fn(*ins, rows)
+        return [out.detach()] + list(torch.autograd.grad(out, ins, up))
+
+    got, want = run(grouped_gemm), run(moe_gemm_ref)
+    errs = {}
+    for label, a, b, tol in zip(("out", "dx", "dw"), got, want,
+                                (MOE_TOL, MOE_GRAD_TOL, MOE_GRAD_TOL)):
+        ok, errs[label] = within(a, b, *tol[dtype])
+        check(ok and bool(torch.isfinite(a).all()),
+              f"grouped_gemm Function {name}: {label} off the plain "
+              f"version's autograd by {errs[label]}")
+    return {"case": name, "x": [e, cap, d], "w": [e, d, f],
+            "dtype": str(dtype), "route": route(dtype, cap),
+            "live_rows": int(rows.sum()), "max_abs_err": errs}
+
+
+def train_function_checks(dev):
+    bf, f32 = torch.bfloat16, torch.float32
+    attn = [attention_fn_case("bf16", dev, 2, 4096, 16, 16, bf),
+            attention_fn_case("bf16_gqa", dev, 2, 4096, 16, 4, bf),
+            attention_fn_case("bf16_window_softcap", dev, 2, 4096, 16, 16,
+                              bf, window=1024, softcap=50.0),
+            attention_fn_case("f32", dev, 1, 1024, 16, 16, f32)]
+    torch.cuda.empty_cache()
+    moe = [moe_fn_case(f"{p}_{str(dt)[6:]}", dev, 64, 640, d, f, dt)
+           for dt in (bf, f32)
+           for p, d, f in (("up", 2048, 1408), ("down", 1408, 2048))]
+    torch.cuda.empty_cache()
+    return attn, moe
+
+
+class TimedStep:
+    """The train step with CUDA events around it and its kernel launches by
+    route: the counts set to 0 just before the step and read just after."""
+
+    def __init__(self, step_fn):
+        self.fn = step_fn
+        self.rows = []
+        self.after = None
+
+    def __call__(self, state, batch):
+        from repro_torch.kernels.flash_attention import kernel as fa
+        from repro_torch.kernels.moe_gemm import kernel as mg
+
+        fa.reset_launches()
+        mg.reset_launches()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, metrics = self.fn(state, batch)
+        e1.record()
+        self.rows.append({
+            "events": (e0, e1),
+            "flash_attention": dict(fa.flash_attention.route_launches),
+            "moe_gemm": dict(mg.moe_gemm.route_launches)})
+        if self.after is not None:
+            self.after(state)
+            self.after = None
+        return state, metrics
+
+    def launches(self):
+        out = {"flash_attention": dict.fromkeys(("tc", "fp32"), 0),
+               "moe_gemm": dict.fromkeys(("prefill", "decode", "fp32"), 0)}
+        for r in self.rows:
+            for kern in out:
+                for route, n in r[kern].items():
+                    out[kern][route] += n
+        return out
+
+
+def run_logged(runner, batches, steps):
+    """``runner.run`` logging every step's metrics as floats."""
+    logged = {}
+    runner.run(batches, steps, log_every=1,
+               log_fn=lambda s, m: logged.__setitem__(s, m))
+    return logged
+
+
+def train_uninterrupted(dev, cfg, step_fn, batches):
+    """(1) The full-width run: ``TRAIN_STEPS`` steps through
+    ``TrainLoopRunner`` (no checkpoint), each step timed by CUDA events with
+    its launches by route; every metric finite, the launch counts exact.
+    Returns the emitted row, the launches, every step's metrics and the
+    host copy of the parameters after step 0."""
+    from repro_torch.runtime import TrainLoopRunner
+    from repro_torch.train.optimizer import tree_leaves
+
+    n_attn = n_moe = cfg.n_layers                  # every layer is 'A'
+    want = {"flash_attention": {"tc": 2 * n_attn, "fp32": 0},
+            "moe_gemm": {"prefill": 6 * n_moe, "decode": 0, "fp32": 0}}
+    out = {"arch": TRAIN_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "experts_padded": cfg.moe.n_experts_padded,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": cfg.remat,
+           "compute_dtype": cfg.dtype, "launches_per_step_expected": want}
+    t0 = time.perf_counter()
+    state = train_state(cfg, dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = sum(t.numel() for t in tree_leaves(state.params))
+    out["state_bytes"] = sum(t.numel() * t.element_size()
+                             for t in tree_leaves(state))
+    snap = {}
+    timed = TimedStep(step_fn)
+    timed.after = lambda st: snap.__setitem__("params",
+                                              host_leaves(st.params))
+    torch.cuda.reset_peak_memory_stats()
+    runner = TrainLoopRunner(timed, state, os.path.join(
+        str(Path(__file__).resolve().parent / "build"), "train_no_ckpt"),
+        ckpt_every=10 ** 9)
+    t0 = time.perf_counter()
+    whole = run_logged(runner, batches, TRAIN_STEPS)
+    out["run_wall_s"] = time.perf_counter() - t0
+    out["peak_memory_allocated"] = torch.cuda.max_memory_allocated()
+    step_ms = [e0.elapsed_time(e1) for e0, e1 in
+               (r["events"] for r in timed.rows)]
+    for i, r in enumerate(timed.rows):
+        got = {k: r[k] for k in want}
+        check(got == want, f"train step {i}: launches {got}, expected "
+              f"{want} a step")
+    for s, m in whole.items():
+        check(all(np.isfinite(v) for v in m.values()),
+              f"train step {s}: a metric is not finite: {m}")
+    out["step_ms"] = step_ms
+    steady = float(np.mean(step_ms[1:]))
+    out["step_ms_mean_after_first"] = steady
+    out["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / (steady / 1e3)
+    out["losses"] = [whole[s]["loss/total"] for s in sorted(whole)]
+    out["grad_norms"] = [whole[s]["opt/grad_norm"] for s in sorted(whole)]
+    out["straggler_summary"] = runner.stats.summary()
+    return out, timed.launches(), whole, snap["params"]
+
+
+def train_repeat_first(dev, cfg, step_fn, batches, whole, snap):
+    """(2) The same first step again from the same state: bitwise?"""
+    state = train_state(cfg, dev)
+    again_state, again = step_fn(state, batches(0))
+    diff = same_leaves(again_state.params, snap)
+    same_metrics = (float(again["loss/total"]) == whole[0]["loss/total"]
+                    and float(again["opt/grad_norm"])
+                    == whole[0]["opt/grad_norm"])
+    return {"bitwise": diff is None and same_metrics,
+            "first_differing_leaf": diff, "metrics_equal": same_metrics,
+            "loss": float(again["loss/total"]),
+            "grad_norm": float(again["opt/grad_norm"])}
+
+
+def train_kill_resume(dev, kdir, deterministic):
+    """(3) At ``TRAIN_RESUME_LAYERS`` layers: an uninterrupted run of
+    ``TRAIN_STEPS`` steps, then a run killed by its batch function at step
+    ``TRAIN_KILL_AT``, checkpointed every ``TRAIN_CKPT_EVERY`` steps,
+    resumed in a new runner from its last checkpoint (copied into the
+    killed run's state in place) to step ``TRAIN_STEPS``: its losses and
+    parameters against the uninterrupted run's, bitwise when a step repeats
+    bitwise. The resumed run saves no checkpoint of its own (it would cost
+    15 s and 11 GB of disk writes)."""
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.runtime import TrainLoopRunner
+    from repro_torch.train import AdamWConfig, make_train_step
+
+    cfg = train_cfg(TRAIN_RESUME_LAYERS)
+    step_fn = make_train_step(cfg, AdamWConfig())
+    batches = train_batches(cfg, dev)
+    runner = TrainLoopRunner(step_fn, train_state(cfg, dev), os.path.join(
+        kdir, "uninterrupted"), ckpt_every=10 ** 9)
+    whole = run_logged(runner, batches, TRAIN_STEPS)
+    final = host_leaves(runner.state.params)
+    del runner
+    torch.cuda.empty_cache()
+
+    def killing(step):
+        if step == TRAIN_KILL_AT:
+            raise TrainKilled(f"killed at step {step}")
+        return batches(step)
+
+    runner = TrainLoopRunner(step_fn, train_state(cfg, dev), kdir,
+                             ckpt_every=TRAIN_CKPT_EVERY)
+    save, saves = runner.manager.save, []
+
+    def timed_save(step, tree):
+        t0 = time.perf_counter()
+        save(step, tree)
+        saves.append((t0, time.perf_counter() - t0))
+    runner.manager.save = timed_save
+    t0 = time.perf_counter()
+    try:
+        runner.run(killing, TRAIN_STEPS, log_every=1)
+        check(False, "the batch function's kill did not surface")
+    except TrainKilled:
+        pass
+    runner.manager.wait()
+    t_end = time.perf_counter()
+    check(latest_step(kdir) == TRAIN_CKPT_EVERY and len(saves) == 1,
+          f"the killed run's last checkpoint is {latest_step(kdir)}")
+    out = {"layers": cfg.n_layers, "killed_at": TRAIN_KILL_AT,
+           "resumed_from": TRAIN_CKPT_EVERY,
+           "killed_run_s": t_end - t0,
+           "save_host_copy_s": saves[0][1],
+           "save_to_written_s": t_end - saves[0][0],
+           "checkpoint_bytes_on_disk": sum(
+               os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(kdir) for f in files)}
+    template = runner.state
+    del runner
+    t0 = time.perf_counter()
+    resumed_runner = TrainLoopRunner(step_fn, template, kdir,
+                                     ckpt_every=10 ** 9)
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    check(resumed_runner.start_step == TRAIN_CKPT_EVERY,
+          f"resumed at {resumed_runner.start_step}")
+    t0 = time.perf_counter()
+    resumed = run_logged(resumed_runner, batches,
+                         TRAIN_STEPS - TRAIN_CKPT_EVERY)
+    out["resumed_run_s"] = time.perf_counter() - t0
+    diff = same_leaves(resumed_runner.state.params, final)
+    loss_diff = {s: resumed[s]["loss/total"] - whole[s]["loss/total"]
+                 for s in resumed}
+    out.update({"losses": [resumed[s]["loss/total"] for s in
+                           sorted(resumed)],
+                "loss_diff": loss_diff,
+                "params_first_differing_leaf": diff,
+                "bitwise": diff is None
+                and all(v == 0.0 for v in loss_diff.values())})
+    if deterministic:
+        check(out["bitwise"], f"the resumed run differs from the "
+              f"uninterrupted one: {diff}, loss diffs {loss_diff}")
+    else:
+        check(all(abs(v) <= 1e-3 * abs(whole[s]["loss/total"])
+                  for s, v in loss_diff.items()),
+              f"the resumed run's losses differ: {loss_diff}")
+    return out
+
+
+def train_plain_first(dev, cfg, step_fn, batches, whole):
+    """(4) The first step through the plain versions (autograd through
+    ``mha_ref`` and ``moe_gemm_ref``) from the same state."""
+    state = train_state(cfg, dev)
+    with plain_ops():
+        _, plain = step_fn(state, batches(0))
+        plain = {k: float(v) for k, v in plain.items()}
+    del state
+    rel_loss = abs(plain["loss/total"] - whole[0]["loss/total"]) / abs(
+        plain["loss/total"])
+    rel_gn = abs(plain["opt/grad_norm"] - whole[0]["opt/grad_norm"]) / abs(
+        plain["opt/grad_norm"])
+    check(rel_loss <= TRAIN_PLAIN_LOSS_RTOL,
+          f"the first step's loss {whole[0]['loss/total']} is {rel_loss} "
+          f"off the plain versions' {plain['loss/total']}")
+    check(rel_gn <= TRAIN_PLAIN_GNORM_RTOL,
+          f"the first step's grad norm {whole[0]['opt/grad_norm']} is "
+          f"{rel_gn} off the plain versions' {plain['opt/grad_norm']}")
+    return {"loss": plain["loss/total"], "grad_norm": plain["opt/grad_norm"],
+            "kernels_loss": whole[0]["loss/total"],
+            "kernels_grad_norm": whole[0]["opt/grad_norm"],
+            "loss_rel_diff": rel_loss, "grad_norm_rel_diff": rel_gn}
+
+
+def train_full_width(dev, ckpt_root):
+    """The full-width step: the uninterrupted run, the same first step
+    again, the first step through the plain versions, and (1 layer) kill
+    and resume; one line each. Returns the uninterrupted run's
+    launches."""
+    from repro_torch.train import AdamWConfig, make_train_step
+
+    cfg = train_cfg()
+    step_fn = make_train_step(cfg, AdamWConfig())
+    batches = train_batches(cfg, dev)
+    out, launches, whole, snap = train_uninterrupted(dev, cfg, step_fn,
+                                                     batches)
+    emit({"phase": "train_step", **out})
+    torch.cuda.empty_cache()
+    repeat = train_repeat_first(dev, cfg, step_fn, batches, whole, snap)
+    emit({"phase": "train_repeat", **repeat})
+    del snap
+    torch.cuda.empty_cache()
+    plain = train_plain_first(dev, cfg, step_fn, batches, whole)
+    emit({"phase": "train_plain_first_step", **plain})
+    torch.cuda.empty_cache()
+    resume = train_kill_resume(dev, os.path.join(ckpt_root, "killed"),
+                               repeat["bitwise"])
+    emit({"phase": "train_resume", **resume})
+    shutil.rmtree(os.path.join(ckpt_root, "killed"), ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_f32_check(dev, layers=2, seq=1024, batch=2):
+    """The model at full width, 2 layers, float32 compute, S 1024: loss and
+    every leaf's gradient through the ``fp32`` routes against the plain
+    versions; the kernels' run is the float32 routes' training path."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.moe_gemm import kernel as mg
+    from repro_torch.train.step import _grads
+
+    cfg = train_cfg(layers, "float32")
+    params = train_params(cfg, dev, seed=1)
+    b = train_batches(cfg, dev, seq=seq, batch=batch, seed=1)(0)
+    fa.reset_launches()
+    mg.reset_launches()
+    gk, mk = _grads(cfg, params, b)
+    launches = {"flash_attention": dict(fa.flash_attention.route_launches),
+                "moe_gemm": dict(mg.moe_gemm.route_launches)}
+    want = {"flash_attention": {"tc": 0, "fp32": 2 * layers},
+            "moe_gemm": {"prefill": 0, "decode": 0, "fp32": 6 * layers}}
+    check(launches == want, f"float32 train launches {launches}, expected "
+          f"{want}")
+    with plain_ops():
+        gp, mp = _grads(cfg, params, b)
+    rel = abs(float(mk["loss/total"]) - float(mp["loss/total"])) / abs(
+        float(mp["loss/total"]))
+    check(rel <= F32_LOSS_RTOL, f"float32 loss {float(mk['loss/total'])} "
+          f"is {rel} off the plain versions' {float(mp['loss/total'])}")
+    worst = 0.0
+    for i, (a, w) in enumerate(zip(gk, gp)):
+        check(bool(torch.isfinite(a).all()), f"float32 gradient {i} not "
+              "finite")
+        scale = float(w.abs().max())
+        err = float((a - w).abs().max())
+        check(err <= F32_GRAD_REL * scale + 1e-30,
+              f"float32 gradient leaf {i} {tuple(w.shape)}: {err} off "
+              f"the plain versions' (largest {scale})")
+        worst = max(worst, err / scale if scale else 0.0)
+    return {"dtype": "float32", "layers": layers, "tokens": [batch, seq],
+            "loss": float(mk["loss/total"]),
+            "plain_loss": float(mp["loss/total"]), "loss_rel_diff": rel,
+            "worst_leaf_rel_grad_diff": worst, "leaves": len(gk),
+            "launches": launches}, launches
+
+
+def train_cli(ckpt_dir, steps=4):
+    """``python -m repro_torch.launch.train --arch qwen2-moe-a2.7b --smoke
+    --steps 4 --compress-grads --device cuda`` in a process of its own: it
+    must exit 0, log finite metrics and launch the float32 routes (the
+    smoke config is float32, head dim 16, remat "none": one attention and
+    three GEMM launches a layer a step)."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         TRAIN_ARCH, "--smoke", "--steps", str(steps), "--compress-grads",
+         "--device", "cuda", "--ckpt-dir", ckpt_dir], cwd=root, env=env,
+        capture_output=True, text=True, timeout=300)
+    lines = (proc.stdout + proc.stderr).strip().splitlines()
+    check(proc.returncode == 0, f"launch.train exited {proc.returncode}: "
+          f"{lines[-20:]}")
+    out_lines = proc.stdout.strip().splitlines()
+    check(out_lines[-1] == "done", f"launch.train ended {out_lines[-1:]}")
+    launches = json.loads(out_lines[-2])
+    logged = json.loads(out_lines[1])
+    check(all(np.isfinite(v) for v in logged.values()),
+          f"launch.train logged {logged}")
+    layers = 2
+    want = {"flash_attention": {"tc": 0, "fp32": steps * layers},
+            "moe_gemm": {"prefill": 0, "decode": 0,
+                         "fp32": 3 * steps * layers}}
+    check(launches == want, f"launch.train launches {launches}, expected "
+          f"{want}")
+    return {"seconds": time.perf_counter() - t0, "returncode": 0,
+            "first_line": out_lines[0], "step0": logged,
+            "launches": launches}
+
+
+def train_profile_worker(queue):
+    """In a process of its own (``torch.profiler`` drops kernel records in a
+    process that opened windows before): one warm-up step of the full-width
+    training step, then one step under the profiler, its device time split
+    by where each kernel was launched from."""
+    try:
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        import repro_torch.kernels.flash_attention.ops as fa_ops
+        import repro_torch.kernels.moe_gemm.ops as mg_ops
+        import repro_torch.models.transformer as tr
+        import repro_torch.train.step as step_mod
+        from repro_torch.train import AdamWConfig, make_train_step
+
+        def ranged(fn, label):
+            def wrapped(*a, **kw):
+                with record_function(label):
+                    return fn(*a, **kw)
+            return wrapped
+
+        tr._train_layer = ranged(tr._train_layer, "range:layer_forward")
+        tr._ce_chunk = ranged(tr._ce_chunk, "range:cross_entropy_forward")
+        step_mod.adamw_update = ranged(step_mod.adamw_update,
+                                       "range:optimizer")
+        for fn_cls, label in ((fa_ops._Attention, "attention_backward"),
+                              (mg_ops._GroupedGemm, "experts_backward")):
+            fn_cls.backward = staticmethod(ranged(fn_cls.backward,
+                                                  "range:" + label))
+        dev = torch.device("cuda", 0)
+        cfg = train_cfg()
+        state = train_state(cfg, dev)
+        batches = train_batches(cfg, dev)
+        step_fn = make_train_step(cfg, AdamWConfig())
+        state, _ = step_fn(state, batches(0))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batches(1))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        queue.put(("ok", split_train_profile(prof, wall)))
+    except Exception:
+        queue.put(("error", traceback.format_exc()))
+
+
+def split_train_profile(prof, wall):
+    """Device ms of the profiled step by where each kernel ran: inside the
+    innermost of the named ranges' device spans (the layers' forward and
+    remat recompute, the cross entropy's forward and recompute, the
+    attention Function's backward, the grouped GEMM Function's backward,
+    the optimizer) or outside them all (the rest of the backward: the
+    projections', the shared experts', the cross entropy's GEMMs); within
+    each by kind (``flash_attention``, ``moe_gemm``, cuBLAS in fp32 by its
+    kernel's name, other cuBLAS, other). A range's device span runs from
+    its first kernel's start to its last kernel's end on the one stream.
+    The ranges' spans are not kernels and count nowhere."""
+    def kind(name):
+        low = name.lower()
+        if "flash_fwd" in low:
+            return "flash_attention"
+        if "moe_gemm" in low:
+            return "moe_gemm"
+        if any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet")):
+            fp32 = "sgemm" in low or "f32f32_f32f32" in low
+            return "cublas_fp32" if fp32 else "cublas_other"
+        if "memcpy" in low or "memset" in low:
+            return "memcpy"
+        return "other"
+
+    spans, kernels = [], []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        tr = ev.time_range
+        if ev.name.startswith("range:"):
+            spans.append((tr.start, tr.end, ev.name[len("range:"):]))
+        else:
+            kernels.append((tr.start, tr.end - tr.start, ev.name))
+    table, names, busy = {}, {}, 0.0
+    for start, dur, name in kernels:
+        inside = [(e - s0, label) for s0, e, label in spans
+                  if s0 <= start < e]
+        place = min(inside)[1] if inside else "backward_rest"
+        ms = dur / 1e3
+        busy += ms
+        cell = table.setdefault(place, {})
+        k = kind(name)
+        cell[k] = cell.get(k, 0.0) + ms
+        n = names.setdefault(name[:90], [0, 0.0])
+        n[0] += 1
+        n[1] += ms
+    by_kind = {}
+    for cell in table.values():
+        for k, ms in cell.items():
+            by_kind[k] = by_kind.get(k, 0.0) + ms
+    top = sorted(names.items(), key=lambda kv: -kv[1][1])[:15]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "idle_share": 1 - busy / (wall * 1e3), "kernels": len(kernels),
+            "ranges": len(spans),
+            "by_place_ms": {p: sum(c.values()) for p, c in
+                            sorted(table.items())},
+            "by_place": {p: dict(sorted(c.items())) for p, c in
+                         sorted(table.items())},
+            "by_kind": dict(sorted(by_kind.items())),
+            "top": [{"kernel": n, "launches": c, "ms": ms}
+                    for n, (c, ms) in top]}
+
+
+def train_profile(limit_s=300):
+    ctx = torch.multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    p = ctx.Process(target=train_profile_worker, args=(q,))
+    t0 = time.perf_counter()
+    p.start()
+    try:
+        status, payload = q.get(timeout=limit_s)
+    finally:
+        p.join(timeout=60)
+        if p.is_alive():
+            p.kill()
+            p.join(timeout=10)
+    check(status == "ok", f"the profile process failed:\n{payload}")
+    payload["seconds"] = time.perf_counter() - t0
+    return payload
+
+
+def phase_train(dev):
+    """The training path on the card: the Functions against the plain
+    versions' autograd, the full-width step (timed, launch counts, the same
+    step twice, kill and resume), the first step through the plain
+    versions, the float32 check, the CLI, and a profile of one step."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    attn, moe = train_function_checks(dev)
+    emit({"phase": "train_functions", "attention": attn, "moe_gemm": moe})
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root, prefix="train_ckpt.") as ckpt:
+        launches = train_full_width(dev, ckpt)
+        f32, f32_launches = train_f32_check(dev)
+        emit({"phase": "train_f32_check", **f32})
+        torch.cuda.empty_cache()
+        cli = train_cli(os.path.join(ckpt, "cli"))
+        emit({"phase": "train_cli", **cli})
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = train_profile()
+    emit({"phase": "train_profile", "arch": TRAIN_ARCH,
+          "layers": TRAIN_LAYERS, "tokens": [TRAIN_BATCH, TRAIN_SEQ],
+          **prof})
+    emit({"phase": "train_done", "seconds": time.perf_counter() - t_phase})
+    return {"full_width": launches, "f32": f32_launches}
+
+
 def leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3559,6 +4315,7 @@ def main():
         (routes, attn_routes, flash, flash_fp32, gemms,
          fp32) = phase_lm_serve(dev)
         split = phase_minplus_split(dev)
+        train = phase_train(dev)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -3596,14 +4353,34 @@ def main():
                 "events_ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "host_us_per_call", "launch_us_per_call")
 
+    # launches per path: serving (one generate; the float32 routes' from
+    # the 2-layer check) and training (the full-width step's runs; the
+    # float32 routes' from the 2-layer float32 check)
+    by_path = {
+        "flash_attention": {
+            r: {"serve": attn_routes[r],
+                "train": train["full_width"]["flash_attention"][r]
+                + train["f32"]["flash_attention"][r]} for r in attn_routes},
+        "moe_gemm": {
+            r: {"serve": routes[r],
+                "train": train["full_width"]["moe_gemm"][r]
+                + train["f32"]["moe_gemm"][r]} for r in routes}}
+    train_note = ("; training: the 6 steps of qwen2-moe-a2.7b at full "
+                  "width, 4 layers, S 4096, B 2, remat block (the forward "
+                  "and the backward's recompute); the float32 routes: the "
+                  "2-layer float32 training check")
+
     def moe_row(route, timings, err, source, extra=None):
         head = timings[0]
+        paths = by_path["moe_gemm"][route]
         return kernel_row(
-            f"moe_gemm_{route}", moe_pallas, routes[route],
+            f"moe_gemm_{route}", moe_pallas, sum(paths.values()),
             {**head, "max_abs_err": max([err] + [t["max_abs_err"]
                                                  for t in timings])},
             {"shape": head["shape"], "previous_ms": head["previous_ms"],
              "shapes": [{k: t[k] for k in moe_keys} for t in timings],
+             "launches_by_path": paths,
+             "launches_on": "serving: one generate" + train_note,
              **(extra or {})},
             source=moe_src + source)
 
@@ -3689,15 +4466,24 @@ def main():
                     "launch_b": {k: mp_b[k] for k in mp_keys},
                     "launch_c": {k: mp_c[k] for k in mp_keys}},
                    source=bsr_src + "bsr_spgemm_minplus.cu"),
-        kernel_row("flash_attention_bf16", fa_pallas, attn_routes["tc"],
+        kernel_row("flash_attention_bf16", fa_pallas,
+                   sum(by_path["flash_attention"]["tc"].values()),
                    flash, {"shape": flash["shape"],
+                           "launches_by_path": by_path["flash_attention"][
+                               "tc"],
+                           "launches_on": "serving: one generate's prefill"
+                           + train_note,
                            "previous_ms": flash["previous_ms"],
                            "host_us_per_call": flash["host_us_per_call"],
                            "launch_us_per_call": flash["launch_us_per_call"]},
                    source=fa_src + "flash_attention_tc.cu"),
-        kernel_row("flash_attention_fp32", fa_pallas, attn_routes["fp32"],
+        kernel_row("flash_attention_fp32", fa_pallas,
+                   sum(by_path["flash_attention"]["fp32"].values()),
                    flash_fp32,
                    {"shape": flash_fp32["shape"],
+                    "launches_by_path": by_path["flash_attention"]["fp32"],
+                    "launches_on": "serving: the 2-layer float32 check"
+                    + train_note,
                     "previous_ms": flash_fp32["previous_ms"],
                     "previous_source": fa_src + "flash_attention.cu",
                     "tf32_passes": flash_fp32["tf32_passes"],

@@ -11,10 +11,13 @@ into place — a crashed writer never corrupts the latest checkpoint (the
 restart contract).
 
 Trees are nested dicts, lists and tuples whose leaves are numpy arrays,
-torch tensors or Python scalars (``None`` holds no leaf). Saving copies
+torch tensors or Python scalars (``None`` holds no leaf); a NamedTuple's
+fields are keyed by name, as ``jax.tree_util`` keys them. Saving copies
 each leaf to the host; :func:`restore_checkpoint` checks each leaf against
 a template's shape, casts it to the template's dtype and puts it on
-``device``, or on the template tensor's device.
+``device``, or on the template tensor's device; :func:`restore_into` copies
+each leaf into the template's own tensors instead, so a resume holds no
+second copy of the state on the card.
 
 ``CheckpointManager`` adds keep-last-k GC and an async save thread (the
 device step never blocks on the filesystem).
@@ -32,8 +35,8 @@ import numpy as np
 
 import torch
 
-__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
-           "CheckpointManager"]
+__all__ = ["save_checkpoint", "restore_checkpoint", "restore_into",
+           "latest_step", "CheckpointManager"]
 
 
 def _leaves(tree, prefix: Tuple[str, ...] = ()) -> Iterator[
@@ -45,8 +48,9 @@ def _leaves(tree, prefix: Tuple[str, ...] = ()) -> Iterator[
         for k in sorted(tree):
             yield from _leaves(tree[k], prefix + (str(k),))
     elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _leaves(v, prefix + (str(i),))
+        names = getattr(tree, "_fields", range(len(tree)))
+        for name, v in zip(names, tree):
+            yield from _leaves(v, prefix + (str(name),))
     else:
         yield "/".join(prefix), tree
 
@@ -59,8 +63,11 @@ def _map(fn: Callable[[str, Any], Any], tree,
     if isinstance(tree, dict):
         return {k: _map(fn, v, prefix + (str(k),)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v, prefix + (str(i),))
-                          for i, v in enumerate(tree))
+        names = getattr(tree, "_fields", range(len(tree)))
+        out = [_map(fn, v, prefix + (str(name),))
+               for name, v in zip(names, tree)]
+        return type(tree)(*out) if hasattr(tree, "_fields") \
+            else type(tree)(out)
     return fn("/".join(prefix), tree)
 
 
@@ -105,6 +112,45 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _step_dir(ckpt_dir: str, step: Optional[int]) -> str:
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    return os.path.join(ckpt_dir, f"step_{step:08d}")
+
+
+def _checked(data, key: str, shape) -> np.ndarray:
+    arr = data[key]
+    if arr.shape != tuple(shape):
+        raise ValueError(f"checkpoint leaf {key!r} has shape {arr.shape}, "
+                         f"the template {tuple(shape)}")
+    return arr
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A CPU tensor of ``arr``'s shape (``ascontiguousarray`` makes a 0-d
+    array 1-d)."""
+    return torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
+
+
+def restore_into(ckpt_dir: str, tree: Any, step: Optional[int] = None) -> Any:
+    """Copy the checkpoint's leaves into ``tree``'s tensors in place (each
+    cast to its tensor's dtype; shapes must match) and return ``tree``.
+    Every leaf of ``tree`` must be a tensor."""
+    path = _step_dir(ckpt_dir, step)
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        for key, leaf in _leaves(tree):
+            if not isinstance(leaf, torch.Tensor):
+                raise TypeError(f"leaf {key!r} is a {type(leaf).__name__}, "
+                                "not a tensor: restore_into copies into "
+                                "tensors")
+            arr = _checked(data, key, leaf.shape)
+            with torch.no_grad():
+                leaf.copy_(_tensor(arr))
+    return tree
+
+
 def restore_checkpoint(ckpt_dir: str, tree_like: Any,
                        step: Optional[int] = None,
                        device=None) -> Any:
@@ -115,21 +161,13 @@ def restore_checkpoint(ckpt_dir: str, tree_like: Any,
     gets a tensor on ``device``, or on the template's own device when
     ``device`` is None; a numpy (or scalar) template gets a numpy array.
     """
-    if step is None:
-        step = latest_step(ckpt_dir)
-        if step is None:
-            raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
-    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    path = _step_dir(ckpt_dir, step)
     with np.load(os.path.join(path, "arrays.npz")) as data:
 
         def load(key: str, like):
-            arr = data[key]
-            shape = tuple(like.shape) if hasattr(like, "shape") else ()
-            if arr.shape != shape:
-                raise ValueError(f"checkpoint leaf {key!r} has shape "
-                                 f"{arr.shape}, the template {shape}")
+            arr = _checked(data, key, getattr(like, "shape", ()))
             if isinstance(like, torch.Tensor):
-                return torch.from_numpy(np.ascontiguousarray(arr)).to(
+                return _tensor(arr).to(
                     device=like.device if device is None else device,
                     dtype=like.dtype)
             return arr.astype(np.asarray(like).dtype)
@@ -192,3 +230,6 @@ class CheckpointManager:
     def restore(self, tree_like: Any, step: Optional[int] = None,
                 device=None) -> Any:
         return restore_checkpoint(self.ckpt_dir, tree_like, step, device)
+
+    def restore_into(self, tree: Any, step: Optional[int] = None) -> Any:
+        return restore_into(self.ckpt_dir, tree, step)

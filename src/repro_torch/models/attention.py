@@ -1,9 +1,11 @@
 """Attention layer: GQA projections, RoPE, qk-norm, flash kernel, KV cache.
 
-The serving half of ``repro.models.attention``; one parameter set, two
-paths:
+The port of ``repro.models.attention``; one parameter set, three paths:
 
-  * ``attn_prefill`` — full-sequence causal attention through
+  * ``attn_train``   — full-sequence causal attention through
+    ``multihead_attention`` (the kernel forward, the plain chunked
+    recompute backward), differentiable.
+  * ``attn_prefill`` — the same attention through
     ``multihead_attention`` (the hand-written CUDA kernel on a card, the
     plain version on the CPU), and the populated KV cache.
   * ``attn_decode``  — one query token against the cache in plain torch, as
@@ -12,8 +14,7 @@ paths:
     (B, S, Hkv, hd) cache, so the cache is read once at kv-head width.
 
 The KV cache is bf16 and is written in place: prefill and decode return a
-:class:`KVCache` holding the same k/v tensors with the new length. The
-training path (``attn_train``) comes with the training slice.
+:class:`KVCache` holding the same k/v tensors with the new length.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from ..configs.base import ModelConfig
 from ..kernels.flash_attention import multihead_attention
 from .layers import dense_init, rmsnorm, rmsnorm_init, rope, softcap
 
-__all__ = ["attn_init", "attn_prefill", "attn_decode", "KVCache",
+__all__ = ["attn_init", "attn_train", "attn_prefill", "attn_decode", "KVCache",
            "init_kv_cache"]
 
 
@@ -64,6 +65,18 @@ def _project_qkv(params, cfg: ModelConfig, x, positions):
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def attn_train(params, cfg: ModelConfig, x, *, window: int = 0):
+    """x: (B, S, d) -> (B, S, d); full causal self-attention, differentiable.
+    q, k and v come out of ``_project_qkv`` contiguous (a reshape of a
+    product, a norm, ``torch.cat``), as the kernel takes them."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    out = multihead_attention(q, k, v, cfg.hd ** -0.5, True, window,
+                              cfg.attn_softcap)
+    return out.reshape(b, s, cfg.n_heads * cfg.hd) @ params["wo"]
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,

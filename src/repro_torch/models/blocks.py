@@ -1,9 +1,10 @@
 """Residual blocks: one per pattern kind.
 
 Every block is pre-norm:  h += mixer(norm(h));  h += ffn(norm(h)).
-Kinds of this slice: 'a' attention + MLP, 'l' sliding-window attention +
-MLP, 'A' attention + MoE. The mamba kinds 'm' and 'M' come with the mamba2
-slice and raise until then.
+Kinds ported: 'a' attention + MLP, 'l' sliding-window attention + MLP,
+'A' attention + MoE, in the modes "train", "prefill" and "decode". The
+mamba kinds 'm' and 'M' are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -13,14 +14,15 @@ from typing import Any, Optional
 import torch
 
 from ..configs.base import ModelConfig
-from .attention import attn_decode, attn_init, attn_prefill, init_kv_cache
+from .attention import (attn_decode, attn_init, attn_prefill, attn_train,
+                        init_kv_cache)
 from .layers import mlp_apply, mlp_init, rmsnorm, rmsnorm_init
 from .moe import moe_apply, moe_init
 
 __all__ = ["block_init", "block_apply", "block_cache_init", "is_attn",
            "is_moe", "is_mamba"]
 
-MODES = ("prefill", "decode")
+MODES = ("train", "prefill", "decode")
 
 
 def is_attn(kind: str) -> bool:
@@ -65,18 +67,21 @@ def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 def block_apply(params, cfg: ModelConfig, kind: str, h,
                 cache: Optional[Any] = None, mode: str = "prefill"):
-    """Returns (h, new_cache, aux_loss). ``mode`` is "prefill" or "decode";
-    training comes with the training slice."""
+    """Returns (h, new_cache, aux_loss). ``mode`` is "train" (no cache; the
+    cache comes back as given), "prefill" or "decode"."""
     _check_kind(kind)
     if mode not in MODES:
-        raise ValueError(f"mode {mode!r} is not ported yet; this slice "
-                         f"serves ({', '.join(MODES)})")
+        raise ValueError(f"mode {mode!r} is not one of {MODES}")
     window = cfg.window if kind == "l" else 0
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
     x = rmsnorm(params["norm_mix"], h, cfg.norm_eps)
-    attend = attn_prefill if mode == "prefill" else attn_decode
-    mix, new_cache = attend(params["attn"], cfg, x, cache, window=window)
+    if mode == "train":
+        mix, new_cache = attn_train(params["attn"], cfg, x,
+                                    window=window), cache
+    else:
+        attend = attn_prefill if mode == "prefill" else attn_decode
+        mix, new_cache = attend(params["attn"], cfg, x, cache, window=window)
     h = h + mix
 
     if is_moe(kind):

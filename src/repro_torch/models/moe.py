@@ -128,7 +128,7 @@ def _route_and_combine(cfg: ModelConfig, router, shared, xf,
         * moe.router_aux_weight
     metrics = {
         "moe/routed_tokens": keep.sum(),             # exact (required)
-        "moe/capacity_slots": torch.tensor(e * cap),  # fetched (padded)
+        "moe/capacity_slots": torch.tensor(e * cap, device=dev),  # fetched
         "moe/dropped": (~keep).sum(),
     }
     return y, aux, metrics

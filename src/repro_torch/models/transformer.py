@@ -1,7 +1,9 @@
 """The LM: embedding → layer stack → final norm → (tied) logits.
 
-The serving entry points of ``repro.models.transformer``:
+The entry points of ``repro.models.transformer``:
 
+  * :func:`loss_fn`      — next-token cross entropy + MoE aux (training)
+  * :func:`train_logits` — full (B, S, vocab) logits + aux
   * :func:`prefill_step` — last-position logits + populated caches
   * :func:`decode_step`  — one token per sequence against the caches
 
@@ -9,15 +11,23 @@ The reference stacks each pattern position's parameters over periods and
 scans them; here the stack is a plain list of per-layer dicts run in a
 Python loop (layer ``l`` has kind ``cfg.pattern[l % len(cfg.pattern)]``),
 on one card in one process, so the reference's sharding annotations have
-no counterpart. ``loss_fn``, ``train_logits`` and the chunked cross
-entropy come with the training slice.
+no counterpart.
+
+Training (mode "train") keeps float32 master parameters and casts each
+layer's to ``cfg.dtype`` inside the layer's body, as the reference's
+``_make_period_body`` does. ``cfg.remat == "block"`` runs each layer under
+``torch.utils.checkpoint`` (non-reentrant): the backward recomputes the
+layer, so every kernel of it is launched twice a step; ``"none"`` keeps the
+activations. The reference's ``"dots"`` policy (matmul outputs saved) is
+not ported and raises.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.device_common import resolve_device
@@ -25,8 +35,10 @@ from .blocks import block_apply, block_cache_init, block_init
 from .layers import compute_dtype, rmsnorm, rmsnorm_init, softcap, \
     trunc_normal
 
-__all__ = ["init_params", "init_caches", "prefill_step", "decode_step",
-           "layer_kinds"]
+__all__ = ["init_params", "init_caches", "loss_fn", "train_logits",
+           "prefill_step", "decode_step", "layer_kinds"]
+
+REMAT = ("none", "block")
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
@@ -80,6 +92,97 @@ def _run_stack(params, cfg: ModelConfig, h, mode: str, caches):
                                mode)
         new_caches.append(nc)
     return rmsnorm(params["final_norm"], h, cfg.norm_eps), new_caches
+
+
+def _train_layer(lp, cfg: ModelConfig, kind: str, h):
+    """One layer in mode "train" on its float32 master weights, cast to the
+    compute dtype here (inside the checkpointed body)."""
+    h, _, aux = block_apply(_as_compute(lp, compute_dtype(cfg.dtype)), cfg,
+                            kind, h, None, "train")
+    return h, aux
+
+
+def _train_stack(params, cfg: ModelConfig, h) -> Tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    if cfg.remat not in REMAT:
+        raise ValueError(f"remat {cfg.remat!r} is not ported; the port runs "
+                         f"{REMAT}")
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for kind, lp in zip(layer_kinds(cfg), params["layers"]):
+        if cfg.remat == "block":
+            h, a = checkpoint(_train_layer, lp, cfg, kind, h,
+                              use_reentrant=False)
+        else:
+            h, a = _train_layer(lp, cfg, kind, h)
+        aux = aux + a
+    return rmsnorm(params["final_norm"], h, cfg.norm_eps), aux
+
+
+def train_logits(params, cfg: ModelConfig, batch):
+    """Full float32 logits (B, S, vocab) against the tied embedding, and the
+    MoE aux loss."""
+    h = _embed_input(params, cfg, batch)
+    h, aux = _train_stack(params, cfg, h)
+    logits = h.float() @ params["embed"].float().T
+    return softcap(logits, cfg.logit_softcap), aux
+
+
+def _ce_chunk(hc, lc, embed_t, cfg: ModelConfig):
+    """One sequence chunk's (sum of masked log p(label), count)."""
+    logits = hc.float() @ embed_t.float()
+    logits = softcap(logits, cfg.logit_softcap)
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    cols = torch.arange(logits.shape[-1], device=logits.device)
+    label_logit = torch.sum(
+        torch.where(cols == lc.clamp(min=0)[..., None], logits, 0.0), dim=-1)
+    ll = label_logit - lse
+    mask = (lc >= 0).float()
+    return (ll * mask).sum(), mask.sum()
+
+
+def _chunked_ce(params, cfg: ModelConfig, h, labels, n_chunks: int):
+    """Cross entropy without materializing (B, S, vocab) logits.
+
+    The reference's: the sequence in ``n_chunks`` chunks, each chunk's
+    logits recomputed in the backward (its body under
+    ``torch.utils.checkpoint``), so the peak holds one chunk's logits; the
+    label's logit picked by a where over the vocab iota, as there. Labels
+    below 0 are masked out.
+    """
+    s = h.shape[1]
+    sc = s // n_chunks
+    embed_t = params["embed"].T
+    ce_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n_chunks):
+        part = slice(i * sc, (i + 1) * sc)
+        ll, n = checkpoint(_ce_chunk, h[:, part], labels[:, part], embed_t,
+                           cfg, use_reentrant=False)
+        ce_sum, cnt = ce_sum - ll, cnt + n
+    return ce_sum / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(params, cfg: ModelConfig, batch,
+            loss_chunks: Optional[int] = None):
+    """Next-token cross entropy + MoE aux. batch: tokens (or embeds) and
+    ``labels`` (B, S). Returns (loss, metrics) with ``loss/ce``,
+    ``loss/aux`` and ``loss/total``. ``loss_chunks`` None: the largest of
+    16, 8, 4, 2 that divides S into chunks of at least 256 positions, else
+    1 (the reference's rule)."""
+    h = _embed_input(params, cfg, batch)
+    h, aux = _train_stack(params, cfg, h)
+    labels = batch["labels"]
+    s = labels.shape[1]
+    if loss_chunks is None:
+        loss_chunks = 1
+        for c in (16, 8, 4, 2):
+            if s % c == 0 and s // c >= 256:
+                loss_chunks = c
+                break
+    ce = _chunked_ce(params, cfg, h, labels, loss_chunks)
+    metrics = {"loss/ce": ce, "loss/aux": aux, "loss/total": ce + aux}
+    return ce + aux, metrics
 
 
 def _logits(params, cfg: ModelConfig, h):

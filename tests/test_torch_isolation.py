@@ -10,8 +10,9 @@
   a caller happens to load modules.
 * ``chip_smoke.py`` refuses to run without a CUDA device: a non-zero exit
   and no result line.
-* The serving CLI runs end to end on the CPU
-  (``python -m repro_torch.launch.serve ... --device cpu``).
+* The serving and training CLIs run end to end on the CPU
+  (``python -m repro_torch.launch.serve ... --device cpu``,
+  ``python -m repro_torch.launch.train ... --device cpu``).
 """
 
 import ast
@@ -68,7 +69,10 @@ def test_scan_sees_the_whole_port():
                  "kernels.moe_gemm.ops", "configs.registry",
                  "configs.qwen2_moe", "models.layers", "models.attention",
                  "models.moe", "models.blocks", "models.transformer",
-                 "models.convert", "serve.engine", "launch.serve"):
+                 "models.convert", "serve.engine", "launch.serve",
+                 "data.pipeline", "train.optimizer", "train.step",
+                 "kernels.flash_attention.chunked",
+                 "runtime.fault_tolerance", "launch.train"):
         assert f"repro_torch.{name}" in mods, name
     assert len(mods) >= 50
 
@@ -117,6 +121,29 @@ def test_serve_cli_runs_on_the_cpu():
     for row in rows:
         toks = ast.literal_eval(row.split("-> ")[1])
         assert len(toks) == 5 and all(0 <= t < 128 for t in toks)
+
+
+def test_train_cli_runs_on_the_cpu(tmp_path):
+    """Three steps of qwen2-moe-a2.7b's smoke config: one logged step with
+    finite metrics, no kernel launch on the CPU, a clean exit."""
+    import json
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen2-moe-a2.7b", "--smoke", "--steps", "3", "--device", "cpu",
+         "--ckpt-dir", str(tmp_path / "ckpt")],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("arch=qwen2-moe-a2.7b-smoke layers=2")
+    assert lines[-1] == "done"
+    step0 = json.loads(lines[1])
+    assert step0["step"] == 0
+    assert all(isinstance(v, (int, float)) and v == v
+               for v in step0.values())
+    launches = json.loads(lines[-2])
+    assert sum(launches["flash_attention"].values()) == 0
+    assert sum(launches["moe_gemm"].values()) == 0
 
 
 def test_chip_smoke_refuses_without_a_gpu(tmp_path):
