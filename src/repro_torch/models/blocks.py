@@ -1,10 +1,11 @@
-"""Residual blocks: one per pattern kind.
+"""Residual blocks: one per pattern kind ('a', 'l', 'A', 'm', 'M').
 
 Every block is pre-norm:  h += mixer(norm(h));  h += ffn(norm(h)).
-Kinds ported: 'a' attention + MLP, 'l' sliding-window attention + MLP,
-'A' attention + MoE, in the modes "train", "prefill" and "decode". The
-mamba kinds 'm' and 'M' are not ported yet and raise
-``NotImplementedError``.
+The mixer is attention (full 'a' / 'A', sliding-window 'l') or mamba2 ('m',
+'M'); the FFN a dense MLP (lowercase kinds), the MoE ('A', 'M') or none
+(``d_ff == 0``, pure mamba2). Modes "train", "prefill" and "decode"; a
+mamba block's cache is its :class:`~.mamba2.SSMState`, which its prefill
+returns as the state after the prompt (the reference's leaves it at zero).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from ..configs.base import ModelConfig
 from .attention import (attn_decode, attn_init, attn_prefill, attn_train,
                         init_kv_cache)
 from .layers import mlp_apply, mlp_init, rmsnorm, rmsnorm_init
+from .mamba2 import (init_ssm_state, mamba_decode, mamba_init, mamba_prefill,
+                     mamba_train)
 from .moe import moe_apply, moe_init
 
 __all__ = ["block_init", "block_apply", "block_cache_init", "is_attn",
@@ -38,11 +41,7 @@ def is_moe(kind: str) -> bool:
 
 
 def _check_kind(kind: str) -> None:
-    if is_mamba(kind):
-        raise NotImplementedError(
-            f"block kind {kind!r} (mamba) is not ported yet: it comes with "
-            "the mamba2 slice of the port")
-    if not is_attn(kind):
+    if not (is_attn(kind) or is_mamba(kind)):
         raise ValueError(f"unknown block kind {kind!r}")
 
 
@@ -50,18 +49,27 @@ def block_init(generator, cfg: ModelConfig, kind: str, *, device, dtype):
     _check_kind(kind)
     kw = dict(device=device, dtype=dtype)
     p = {"norm_mix": rmsnorm_init(cfg.d_model, **kw),
-         "norm_ffn": rmsnorm_init(cfg.d_model, **kw),
-         "attn": attn_init(generator, cfg, **kw)}
+         "norm_ffn": rmsnorm_init(cfg.d_model, **kw)}
+    if is_attn(kind):
+        p["attn"] = attn_init(generator, cfg, **kw)
+    else:
+        p["mamba"] = mamba_init(generator, cfg, **kw)
     if is_moe(kind):
         p["moe"] = moe_init(generator, cfg, **kw)
     elif cfg.d_ff > 0:
         p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mlp, **kw)
+    # d_ff == 0 (pure mamba2): no FFN sublayer
     return p
 
 
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      *, device, dtype=torch.bfloat16):
+    """A bf16 KV cache of ``max_len`` positions for attention kinds; the
+    float32 :class:`~.mamba2.SSMState` for mamba kinds (``max_len`` and
+    ``dtype`` unused there)."""
     _check_kind(kind)
+    if is_mamba(kind):
+        return init_ssm_state(cfg, batch, device=device)
     return init_kv_cache(cfg, batch, max_len, device=device, dtype=dtype)
 
 
@@ -76,7 +84,14 @@ def block_apply(params, cfg: ModelConfig, kind: str, h,
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
     x = rmsnorm(params["norm_mix"], h, cfg.norm_eps)
-    if mode == "train":
+    if is_mamba(kind):
+        if mode == "train":
+            mix, new_cache = mamba_train(params["mamba"], cfg, x), cache
+        elif mode == "prefill":
+            mix, new_cache = mamba_prefill(params["mamba"], cfg, x)
+        else:
+            mix, new_cache = mamba_decode(params["mamba"], cfg, x, cache)
+    elif mode == "train":
         mix, new_cache = attn_train(params["attn"], cfg, x,
                                     window=window), cache
     else:
@@ -91,4 +106,5 @@ def block_apply(params, cfg: ModelConfig, kind: str, h,
     elif "mlp" in params:
         x = rmsnorm(params["norm_ffn"], h, cfg.norm_eps)
         h = h + mlp_apply(params["mlp"], x, cfg.mlp)
+    # else: pure-mamba block (d_ff == 0), mixer only
     return h, new_cache, aux

@@ -11,7 +11,9 @@ The reference stacks each pattern position's parameters over periods and
 scans them; here the stack is a plain list of per-layer dicts run in a
 Python loop (layer ``l`` has kind ``cfg.pattern[l % len(cfg.pattern)]``),
 on one card in one process, so the reference's sharding annotations have
-no counterpart.
+no counterpart. Every block kind runs in every mode; a mamba layer's
+prefill returns the state after the prompt, which the reference's leaves
+at zero (see ``blocks.py``).
 
 Training (mode "train") keeps float32 master parameters and casts each
 layer's to ``cfg.dtype`` inside the layer's body, as the reference's
@@ -194,7 +196,8 @@ def _logits(params, cfg: ModelConfig, h):
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                 device="cuda", dtype: torch.dtype = torch.bfloat16
                 ) -> List[Any]:
-    """One cache per layer (a bf16 KV cache for attention kinds)."""
+    """One cache per layer: a bf16 KV cache for attention kinds, a float32
+    ``SSMState`` (conv tail and SSM state) for mamba kinds."""
     dev = resolve_device(device)
     return [block_cache_init(cfg, kind, batch, max_len, device=dev,
                              dtype=dtype) for kind in layer_kinds(cfg)]

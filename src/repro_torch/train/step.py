@@ -49,10 +49,13 @@ def init_train_state(cfg: ModelConfig, params,
 
 
 def _grads(cfg: ModelConfig, params, batch):
-    """(gradient leaves in tree order, detached metrics) of ``loss_fn``."""
+    """(gradient leaves in tree order, detached metrics) of ``loss_fn``.
+    A leaf the loss does not use (``norm_ffn`` of a block without an FFN,
+    d_ff 0) gets a zero gradient, as ``jax.grad`` gives it."""
     tracked = tree_map(lambda p: p.detach().requires_grad_(), params)
     loss, metrics = loss_fn(tracked, cfg, batch)
-    grads = torch.autograd.grad(loss, tree_leaves(tracked))
+    grads = torch.autograd.grad(loss, tree_leaves(tracked),
+                                materialize_grads=True)
     return list(grads), {k: v.detach() for k, v in metrics.items()}
 
 

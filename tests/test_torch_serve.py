@@ -237,12 +237,6 @@ def test_init_params_shapes_and_dtype():
     assert up.abs().max() <= 2 * cfg.d_model ** -0.5 + 1e-3   # truncated
 
 
-def test_mamba_kinds_raise():
-    cfg = smoke_config("mamba2-1.3b")
-    with pytest.raises(NotImplementedError, match="mamba2 slice"):
-        init_params(cfg, device="cpu", dtype=torch.float32)
-
-
 def test_cuda_engine_without_gpu_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

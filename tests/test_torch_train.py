@@ -31,7 +31,8 @@ on CPU tensors, inside its ``torch.autograd.Function``.
 * ``make_eval_step`` against the reference's; ``make_prefill_step`` /
   ``make_decode_step`` are the model's steps.
 * ``remat="block"`` is bitwise ``"none"`` (loss and every gradient);
-  ``"dots"`` raises; mamba kinds raise.
+  ``"dots"`` raises. The mamba kinds are held in
+  ``test_torch_mamba_models.py``.
 * What the training path hands the kernels on a card passes their argument
   checks (bf16 at head dim 128), with each kernel called twice per layer
   under block remat (forward and recompute): the launch counts the chip run
@@ -66,7 +67,6 @@ from repro_torch.kernels.moe_gemm import kernel as mkernel
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 from repro_torch.models import (init_params, loss_fn, params_from_reference,
                                 train_logits, train_state_from_reference)
-from repro_torch.models.blocks import block_apply
 from repro_torch.train import AdamWConfig, make_train_step
 from repro_torch.train.optimizer import tree_leaves
 from repro_torch.train.step import _grads
@@ -372,16 +372,10 @@ def test_block_remat_is_bitwise_none(arch):
     assert all(torch.equal(a, c) for a, c in zip(g0, g1))
 
 
-def test_unported_remat_and_mamba_kinds_raise():
+def test_unported_remat_dots_raises():
     cfg, _, tp, b = _case("qwen3-8b")
     with pytest.raises(ValueError, match="dots"):
         loss_fn(tp, dataclasses.replace(cfg, remat="dots"), _torch_batch(b))
-    jamba = smoke_config("jamba-v0.1-52b")
-    with pytest.raises(NotImplementedError, match="mamba"):
-        block_apply({}, jamba, "m", torch.zeros(1, 4, jamba.d_model), None,
-                    "train")
-    with pytest.raises(NotImplementedError, match="mamba"):
-        init_params(smoke_config("mamba2-1.3b"), device="cpu")
 
 
 # --------------------------------------------------------------------------
