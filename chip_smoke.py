@@ -92,13 +92,13 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  weights at bs 128 (``tc``) and, with 16 NaNs planted, in
                  min-plus at bs 64 (``minplus``); (b) 8 gloo ranks
                  time-sharing cuda:0:
-                 the Laplacian's ring at nparts 8, bs 128 (``tc``) and 32
+                 laplacian_2d(512)'s ring at nparts 8, bs 128 (``tc``) and 32
                  (``warp``), chunk None and 2, 2D SUMMA (grid 2: ranks 4-7
                  idle, receiving the result) and Split-3D (2x2x2) at bs
                  128, and min-plus with the NaNs through the ring (chunk 2)
                  and Split-3D at bs 64. Every rank's result bitwise-equal to
-                 the one-process session's (the Laplacian's: to scipy's,
-                 which phases 3, 4b and 5 held the one-process session to);
+                 the one-process session's (the Laplacian's: to scipy's
+                 A·A, exact in float32 for its integer values);
                  no fallback or downgrade; every member rank's launches on
                  the call's route, none on an idle rank; the transport's
                  bytes summed over ranks equal to ``comm_bytes_padded``
@@ -109,16 +109,16 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
   5a. apps     — the paper's applications through ``repro_torch.apps``,
                  each on its own ``SpGEMMSession(device="cuda")`` at its
                  default bs, every launch on ``warp``, no profiler window:
-                 (a) AMG ``galerkin_product`` of laplacian_2d(1024) with
+                 (a) AMG ``galerkin_product`` of laplacian_2d(512) with
                  ``restriction_operator(a, 100)`` (8 parts, bs 32), cold
                  then two hits, bitwise against scipy's RᵀAR; (b) a
                  CountSketch stream (dim 256, A·Sᵀ) over four integer value
                  sets on the Laplacian's structure: one cold call and three
                  repacks, bitwise against scipy; (c) ``mcl`` of
-                 block_diagonal_noise(262144, 4096, 8, 0.05) on the kernel
+                 block_diagonal_noise(131072, 2048, 8, 0.05) on the kernel
                  and again on the kernel's session (all hits, bitwise); (d)
-                 ``bc_batch`` of a symmetrized block_diagonal_noise(262144,
-                 1024, 5, 0.3), 128 seeded sources, bs 16, on the kernel,
+                 ``bc_batch`` of a symmetrized block_diagonal_noise(131072,
+                 512, 5, 0.3), 128 seeded sources, bs 16, on the kernel,
                  every backward call a hit with a repack; both graphs also
                  at 65,536 vertices on the kernel and on the plain version
                  (MCL: clusters and iterations equal, operators within rtol
@@ -131,9 +131,9 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  seconds, execute ms (CUDA events), launches by route, peak
                  device memory, the largest deviation from the reference
   5b. service  — the multi-tenant SpGEMM service: (a) the serving CLI,
-                 ``launch.serve_spgemm.main(["--n", "131072", "--tenants",
+                 ``launch.serve_spgemm.main(["--n", "65536", "--tenants",
                  "4", "--requests", "4", "--waves", "2"])`` on the card
-                 (banded_clustered(131072, 3276, 6.0), integer values, bs 32:
+                 (banded_clustered(65536, 1638, 6.0), integer values, bs 32:
                  every launch on ``warp``): a prefetch, then per wave one
                  coalesced group of the shared graph and one per tenant of
                  its reweighted twin; every group hits the prefetched plan,
@@ -277,6 +277,39 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  mamba2-1.3b training step under torch.profiler, device
                  time by place (the SSD core, the layers, the cross
                  entropy, the optimizer, the backward) and its idle share
+  11b. lm_ranks — the sharding rules executed across ranks, ``ep_dp`` on a
+                 (1, P) mesh (``repro_torch.sharding``): (a) NCCL, a world
+                 of one, qwen2-moe at full width cut to 2 layers, the four
+                 prompts, a prefill and 2 decode steps; (b) 4 gloo ranks
+                 sharing cuda:0 serving qwen2-moe-a2.7b at full size (each
+                 rank draws every leaf whole from the seeded generator and
+                 keeps its slice: a quarter of the embedding, 16 of the 64
+                 experts a layer), one prompt a rank (the engine's
+                 left-padded batch), a prefill and 32 greedy decode steps;
+                 (c) 3 AdamW steps on 4 gloo ranks, full width, 2 layers,
+                 global batch 4 x 2048, int8 compression, and a sharded
+                 checkpoint of the parameters restored with
+                 ``sharding_tree=``. Each rank's prefill and first decode
+                 logits within the bf16 tolerance of the one-process port
+                 on its slab (the parent computes them first, its grouped
+                 GEMMs handed the ranks' P·cap rows, so it takes their
+                 kernel route), the greedy tokens that agree counted, the
+                 first decode step against the one-process step on its own
+                 (``decode``) route within 0.05 of the largest logit unless
+                 a router's top-k set differs between the two routes in
+                 that step (each MoE layer's top-k under both routes
+                 compared and reported), its first layer's kernels held
+                 against the plain versions at its own shapes, its launches
+                 counted by route (the experts' GEMMs see P·cap rows:
+                 decode runs on the ``prefill`` route); the training run
+                 (AdamW at lr 3e-4 from the first step) against
+                 ``make_train_step(microbatches=4)`` on the global batch:
+                 the losses, the aux loss and the gradient norm within
+                 their relative tolerances, every parameter within 2·Σlr
+                 and their mean difference within 0.03·Σlr; per rank its
+                 peak memory, the
+                 all-to-all's bytes and seconds, prefill, decode-step and
+                 step times
   12. train    — the training path (``repro_torch.train``): (a) each
                  autograd Function on the card against autograd through its
                  plain version on the card: ``multihead_attention`` (the
@@ -1591,6 +1624,10 @@ def phase_summa(dev, case, ring):
 # 8 gloo ranks time-share the card; the group's timeout bounds every wait
 # (the slowest rank's planning included), the join limit the whole spawn
 RANKS_GLOO = 8
+# the Laplacian's side across ranks: at 1024 (the main path's) the gloo
+# world took 75-100 s on an H100, a quarter of the script's 1200 s with its
+# set-up; at 512 it moves a quarter of the bytes
+RANKS_SIDE = 512
 RANKS_TIMEOUT_S = 300
 RANKS_LIMIT_S = 400
 # the ranks are stopped, and the phase fails, before the host's available
@@ -1619,14 +1656,14 @@ RANKS_CALLS = (
 
 def ranks_operand(name):
     """The ranks phase's operands, built alike in every process:
-    laplacian_2d(1024) in float32 (``laplacian_case``'s ``a``), and
+    laplacian_2d(RANKS_SIDE) in float32 (``laplacian_case``'s ``a``), and
     banded_clustered(65536, 64, 16.0) with phase 4's integer weights
     (``"banded"``), with 16 NaNs planted at seeded entries
     (``"banded_nan"``)."""
     from repro_torch.core import banded_clustered, laplacian_2d
 
     if name == "laplacian":
-        return laplacian_2d(1024).astype(np.float32)
+        return laplacian_2d(RANKS_SIDE).astype(np.float32)
     a = banded_clustered(65536, 64, 16.0, seed=0)
     a.data[:] = np.rint(2 * a.data)
     a.data[a.data == 0] = 1.0
@@ -1804,8 +1841,9 @@ class PeakRss:
         self._thread.join()
 
 
-def spawn_ranks(world, backend, calls):
-    """Run ``ranks_worker`` on ``world`` processes (spawned, a ``file://``
+def spawn_ranks(world, backend, calls, target=None):
+    """Run ``target`` (``ranks_worker`` by default: ``(rank, world,
+    backend, init_file, calls, queue)``) on ``world`` processes (spawned, a ``file://``
     init); returns per rank its rows, and the host's lowest available
     memory while they ran (sampled every half second). Every process is
     joined, or killed past RANKS_LIMIT_S or when the host's available
@@ -1818,7 +1856,7 @@ def spawn_ranks(world, backend, calls):
     q = ctx.Queue()
     with tempfile.TemporaryDirectory() as tmp:
         init = os.path.join(tmp, "init")
-        procs = [ctx.Process(target=ranks_worker,
+        procs = [ctx.Process(target=target or ranks_worker,
                              args=(r, world, backend, init, calls, q))
                  for r in range(world)]
         for p in procs:
@@ -1909,7 +1947,7 @@ def ranks_report(backend, world, calls, spawned, want):
     return launches
 
 
-def phase_ranks(dev, case):
+def phase_ranks(dev):
     """The three algorithms across processes through
     ``SpGEMMSession(group=WORLD)``, one part per rank, from the libraries
     phase 1 built: (a) NCCL with one rank per visible card (on one card a
@@ -1917,9 +1955,9 @@ def phase_ranks(dev, case):
     1D ring at nparts = world on banded_clustered(65536, 64, 16.0) at bs
     128 and in min-plus with NaNs at bs 64; (b) 8 gloo ranks time-sharing
     cuda:0: ``RANKS_CALLS``. Every rank's result bitwise-equal to the
-    one-process session's (for the Laplacian: scipy's A·A, which phases 3,
-    4b and 5 held the one-process session to, bitwise, at each of these
-    geometries); every member rank's launches on the call's route, none on
+    one-process session's (for the Laplacian: scipy's A·A, exact in float32
+    for its integer values, as phases 3, 4b and 5 hold the one-process
+    session to at side 1024); every member rank's launches on the call's route, none on
     an idle rank's; the transport's bytes summed over ranks equal to
     ``comm_bytes_padded`` (ring) or the gather share (SUMMA). Returns the
     launches by route."""
@@ -1930,8 +1968,9 @@ def phase_ranks(dev, case):
     t0 = time.perf_counter()
     banded = ranks_operand("banded_nan")
     check(np.isnan(banded.data).sum() == 16, "the NaNs were not planted")
-    want = {label: csc_digest(case["ref"]) for label, opname, _, _ in
-            RANKS_CALLS if opname == "laplacian"}
+    lap_ref = csc_digest(laplacian_case(RANKS_SIDE)["ref"])
+    want = {label: lap_ref for label, opname, _, _ in RANKS_CALLS
+            if opname == "laplacian"}
     n = torch.cuda.device_count()
     nccl_calls = (
         ("nccl_1d_bs128", "banded", dict(algorithm="1d", nparts=n,
@@ -2405,7 +2444,7 @@ def apps_bc(dev, kernel, n, nsources, n_plain):
         + killed_row["launches"] + row["launches"]
 
 
-def phase_apps(dev, side=1024, n_mcl=262144, n_bc=262144, nsources=128,
+def phase_apps(dev, side=512, n_mcl=131072, n_bc=131072, nsources=128,
                n_plain=65536):
     """The paper's applications through their entry points, each on its
     own session at its default bs (every launch on ``warp``): (a) AMG
@@ -2414,7 +2453,9 @@ def phase_apps(dev, side=1024, n_mcl=262144, n_bc=262144, nsources=128,
     BC's runs on the plain version, the kernel runs they are held against,
     and the killed and resumed runs are at ``n_plain`` vertices (at full
     size the plain runs took 47 s and 81 s, the resumes 49 s and 88 s, of
-    the script's 1200 s)."""
+    the script's 1200 s). The script's 1200 s also hold the Laplacian's
+    ``side`` at 512 and MCL's and BC's graphs at 131,072 vertices (at 1024
+    and 262,144 the phase took 289-341 s on an H100)."""
     from repro_torch.kernels.bsr_spgemm import kernel
 
     launches = {}
@@ -2432,8 +2473,9 @@ def phase_apps(dev, side=1024, n_mcl=262144, n_bc=262144, nsources=128,
 
 # the service phase's graph size: banded_clustered(n, n / 40, 6.0), the
 # serving CLI's graph, whose band grows with n, so its tiles grow as n^2:
-# at 131,072 the phase takes ~90 s of its 120 s on an H100, the CLI ~70 s
-SERVICE_N = 131072
+# at 131,072 the phase took 68-85 s on an H100, the CLI ~60 s of it; the
+# script's 1200 s hold it at 65,536
+SERVICE_N = 65536
 
 
 def service_oracle(cache, mat):
@@ -3834,6 +3876,689 @@ def phase_mamba(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 11b: lm_ranks — the sharding rules across ranks (ep_dp)
+# ---------------------------------------------------------------------------
+
+LM_RANKS_GLOO = 4
+LM_RANKS_DECODE = 32            # greedy decode steps after the prefill
+LM_RANKS_NCCL_LAYERS = 2
+LM_RANKS_NCCL_DECODE = 2
+LM_RANKS_TRAIN_LAYERS = 2
+LM_RANKS_TRAIN_STEPS = 3
+LM_RANKS_TRAIN_SEQ = 2048
+# AdamW at lr 3e-4 from the first step on both sides of the training
+# check: at warm-up scale (3e-6 a step) the parameters' check could not tell
+# a wrong gradient from rounding
+LM_RANKS_OPT = dict(warmup_steps=1)
+# the ranks' training metrics against microbatches=4, relative. The first
+# step's losses come from the same parameters on both sides: bf16
+# activations, float32 sums in other orders (the vocab-parallel cross
+# entropy's reductions), 7.7e-8 on an H100. After it the parameters are
+# apart where a near-zero gradient took the other sign, and the first
+# step at lr 3e-4 moves a random model far (its loss 12.3 -> 15.3): the
+# later losses read 1.5e-4, the aux loss 1.5e-3, the gradient norms
+# 3.2e-4 at most
+LM_RANKS_FIRST_LOSS_RTOL = 1e-6
+LM_RANKS_LOSS_RTOL = 1e-3
+LM_RANKS_AUX_RTOL = 1e-2
+LM_RANKS_GNORM_RTOL = 3e-3
+# AdamW's first step moves each element by ±lr whatever its gradient's
+# size, so two runs differ by up to 2·lr where a near-zero gradient takes
+# the other sign: the largest difference is bounded by 2·Σlr, the mean by
+# this share of Σlr (0.41-0.60 % read; a wrong-signed gradient gives
+# about 2)
+LM_RANKS_PARAM_MEAN_SHARE = 0.03
+# the first decode step against the one-process step on its own route
+# (cap rows: the `decode` kernel where P·cap takes `prefill`) may differ by
+# more than this share of the largest logit only where a router's top-k
+# set differs between the two routes in that step
+LM_RANKS_CROSS_ROUTE_REL = 0.05
+
+
+def card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def left_padded(prompts):
+    """The prompts left-padded to the longest, as ``ServeEngine`` pads
+    them: the global batch (B, S)."""
+    plen = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), plen), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, plen - len(p):] = p
+    return toks
+
+
+@contextlib.contextmanager
+def gemm_rows(p, plain=False):
+    """The model's grouped GEMMs handed ``p``·cap rows (the buckets, then
+    zero rows the ``rows`` counts exclude): the row count a rank's GEMMs
+    see after the all-to-all, so the one-process model takes the ranks'
+    kernel route and its arithmetic per row. With ``plain``, the plain
+    version (``moe_gemm_ref``: float32 sums, one rounding to the output's
+    dtype) in the kernels' place. The identity for p = 1 without it."""
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+
+    orig = moe_mod.grouped_gemm
+    inner = moe_gemm_ref if plain else orig
+
+    def wide(x, w, rows=None):
+        e, cap, d = x.shape
+        xp = torch.zeros((e, p * cap, d), dtype=x.dtype, device=x.device)
+        xp[:, :cap] = x
+        return inner(xp, w, rows)[:, :cap]
+
+    if p > 1 or plain:
+        moe_mod.grouped_gemm = wide
+    try:
+        yield
+    finally:
+        moe_mod.grouped_gemm = orig
+
+
+@contextlib.contextmanager
+def step_log(log):
+    """While ``log["on"]``, each MoE layer's router ranking appended to
+    ``log["layers"]``: every token's top k+1 expert ids and probabilities,
+    on the host (the router's own arithmetic, repeated on its inputs); and
+    each grouped GEMM the model calls held against the plain version on
+    the same inputs, ``(ok within MOE_TOL, max abs error)`` appended to
+    ``log["gemm"]``."""
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+
+    orig, gemm = moe_mod._route_and_combine, moe_mod.grouped_gemm
+
+    def checked(x, w, rows=None):
+        out = gemm(x, w, rows)
+        if log.get("on"):
+            log["gemm"].append(within(out, moe_gemm_ref(x, w, rows),
+                                      *MOE_TOL[x.dtype]))
+        return out
+
+    def logged(cfg, router, shared, xf, run_experts, ranks=None):
+        if log.get("on"):
+            logits = (xf @ router).float()
+            e = cfg.moe.n_experts_padded
+            if e > cfg.moe.n_experts:
+                logits[:, cfg.moe.n_experts:] = -1e30
+            probs, ids = torch.topk(torch.softmax(logits, dim=-1),
+                                    cfg.moe.top_k + 1, dim=-1)
+            log["layers"].append((ids.cpu(), probs.cpu()))
+        return orig(cfg, router, shared, xf, run_experts, ranks)
+
+    moe_mod._route_and_combine, moe_mod.grouped_gemm = logged, checked
+    try:
+        yield
+    finally:
+        moe_mod._route_and_combine, moe_mod.grouped_gemm = orig, gemm
+
+
+def routing_witness(a, b, k):
+    """Where two runs' first decode steps routed the same token apart:
+    ``a`` and ``b`` are :func:`step_log` layers (one token). The layers
+    whose top-k sets differ, and at the first of them the experts swapped
+    and each run's margin between its k-th and (k+1)-th probability; the
+    largest probability difference over the layers before it (the
+    rounding the routes' arithmetic leaves), and each layer's largest
+    difference of the k ranked probabilities."""
+    flipped = [i for i, (x, y) in enumerate(zip(a, b))
+               if set(x[0][0, :k].tolist()) != set(y[0][0, :k].tolist())]
+    diffs = [float((x[1][0, :k] - y[1][0, :k]).abs().max())
+             for x, y in zip(a, b)]
+    out = {"moe_layers": len(a), "flipped_layers": flipped,
+           "prob_diff_by_layer": diffs}
+    first = flipped[0] if flipped else len(a)
+    out["max_prob_diff_before"] = max(diffs[:first] or [0.0])
+    if flipped:
+        (ia, pa), (ib, pb) = a[first], b[first]
+        sa, sb = set(ia[0, :k].tolist()), set(ib[0, :k].tolist())
+        out["first"] = {"layer": first, "only_a": sorted(sa - sb),
+                        "only_b": sorted(sb - sa),
+                        "margin_a": float(pa[0, k - 1] - pa[0, k]),
+                        "margin_b": float(pb[0, k - 1] - pb[0, k]),
+                        "kth_prob_a": float(pa[0, k - 1]),
+                        "kth_prob_b": float(pb[0, k - 1])}
+    return out
+
+
+@torch.no_grad()
+def greedy_refs(params, cfg, dev, toks, world, steps, max_len, rows_of=1,
+                routing=False, plain=False):
+    """The one-process port on each rank's slab of ``toks``: the prefill's
+    logits, the first decode step's (fed the prefill's argmax) and the
+    greedy tokens of ``steps`` decode steps, the grouped GEMMs handed
+    ``rows_of``·cap rows, or the plain version (:func:`gemm_rows`); with
+    ``routing``, the first decode step's :func:`step_log`. Host tensors,
+    per rank."""
+    from repro_torch.models import decode_step, init_caches, prefill_step
+
+    b = toks.shape[0] // world
+    refs = []
+    for r in range(world):
+        slab = torch.from_numpy(toks[r * b:(r + 1) * b]).to(dev)
+        caches = init_caches(cfg, b, max_len, device=dev)
+        log = {"on": False, "layers": [], "gemm": []}
+        with gemm_rows(rows_of, plain), step_log(log):
+            logits, caches = prefill_step(params, cfg, {"tokens": slab},
+                                          caches)
+            ref = {"prefill": logits.cpu()}
+            out = [logits.argmax(-1)]
+            for i in range(steps):
+                log["on"] = routing and i == 0
+                logits, caches = decode_step(
+                    params, cfg, {"tokens": out[-1][:, None]}, caches)
+                log["on"] = False
+                if i == 0:
+                    ref["decode1"] = logits.cpu()
+                out.append(logits.argmax(-1))
+        if routing:
+            ref["routing"], ref["gemm"] = log["layers"], log["gemm"]
+        ref["tokens"] = torch.stack(out, 1).cpu()
+        refs.append(ref)
+        del caches
+    return refs
+
+
+def lm_ranks_serve(dev, rules, job, rank):
+    """One rank's serving run under the rules: this rank's slices of the
+    weights (drawn whole from the seeded generator, sliced leaf by leaf),
+    a prefill of its slab, ``job["steps"]`` greedy decode steps (the
+    first fed the one-process argmax), everything timed; the logits and
+    greedy tokens against the one-process port's on the slab with its
+    grouped GEMMs handed the ranks' P·cap rows (``job["refs"]``, the same
+    kernel routes), the first decode step also against the one-process
+    step on its own route (``job["native"]``, checked in the parent against
+    the routing witness), the kernels'
+    launches by route, the first layer's kernels against their plain
+    versions at this rank's shapes, the transfers by kind."""
+    from repro_torch.core.collectives import mesh_comm
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.moe_gemm import kernel as mg
+    from repro_torch.models import init_caches
+    from repro_torch.sharding import use_rules
+    from repro_torch.sharding.placement import (batch_slab,
+                                                init_params_sharded)
+    from repro_torch.train import make_decode_step, make_prefill_step
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg, ref = job["cfg"], job["refs"][rank]
+    comm = mesh_comm(rules.mesh)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params_sharded(
+        cfg, rules, torch.Generator(device=dev).manual_seed(0), device=dev,
+        dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    held = sum(t.numel() for t in tree_leaves(params))
+    toks = batch_slab(torch.from_numpy(job["tokens"]), rules).to(dev)
+    caches = init_caches(cfg, toks.shape[0], job["max_len"], device=dev)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    fa.reset_launches()
+    mg.reset_launches()
+    comm.reset_counts()
+    with Capture() as cap, use_rules(rules), torch.no_grad():
+        cap.phase = "prefill"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, {"tokens": toks}, caches)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        comm_prefill = {"bytes": dict(comm.sent), "s": dict(comm.seconds),
+                        "calls": dict(comm.calls)}
+        comm.reset_counts()
+        first = logits.cpu()
+        own = [logits.argmax(-1)]
+        cap.phase, step_ms = "decode", []
+        for i in range(job["steps"]):
+            feed = ref["tokens"][:, 0].to(dev) if i == 0 else own[-1]
+            t0 = time.perf_counter()
+            logits, caches = decode(params, {"tokens": feed[:, None]},
+                                    caches)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            if i == 0:
+                cap.capturing = False
+                dec1 = logits.cpu()
+            own.append(logits.argmax(-1))
+        comm_decode = {"bytes": dict(comm.sent), "s": dict(comm.seconds),
+                       "calls": dict(comm.calls)}
+    routes = dict(mg.moe_gemm.route_launches)
+    attn_routes = dict(fa.flash_attention.route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    tokens = torch.stack(own, 1).cpu()
+    ok_p, err_p = within(first, ref["prefill"], *TOL[torch.bfloat16])
+    ok_d, err_d = within(dec1, ref["decode1"], *TOL[torch.bfloat16])
+    # against the one-process decode step on its own route (cap rows: the
+    # `decode` kernel where P·cap takes `prefill`): the two kernels round
+    # each GEMM's bf16 output in other places, and a router near-tie in a
+    # later layer can then pick another expert (the parent checks which)
+    native = job["native"][rank]
+    err_n = float((dec1 - native["decode1"]).abs().max())
+    errs = check_captured(cap, f"lm_ranks rank {rank}")
+    del params, caches, cap, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"init_s": init_s, "params_held": held,
+            "param_bytes_held": 2 * held, "slab": list(toks.shape),
+            "peak_memory_allocated": peak, "prefill_ms": prefill_ms,
+            "decode_step_ms": step_ms, "comm_prefill": comm_prefill,
+            "comm_decode": comm_decode, "moe_gemm_route_launches": routes,
+            "flash_attention_route_launches": attn_routes,
+            "kernel_vs_plain_err": errs,
+            "prefill_logits_ok": ok_p, "prefill_max_abs_err": err_p,
+            "prefill_bitwise": bitwise(first, ref["prefill"]),
+            "decode1_logits_ok": ok_d, "decode1_max_abs_err": err_d,
+            "decode1_bitwise": bitwise(dec1, ref["decode1"]),
+            "decode1_native_max_abs_err": err_n,
+            "decode1_native_rel": err_n / float(
+                native["decode1"].abs().max()),
+            "native_tokens_agree": int((tokens[:, :2]
+                                        == native["tokens"][:, :2]).sum()),
+            "finite": bool(torch.isfinite(first).all()
+                           and torch.isfinite(dec1).all()),
+            "tokens": tokens.tolist(),
+            "tokens_agree": int((tokens == ref["tokens"]).sum()),
+            "tokens_total": int(tokens.numel())}
+
+
+def lm_ranks_train(dev, rules, job, rank):
+    """One rank's training run under the rules: float32 master slices from
+    the seeded generator, ``LM_RANKS_TRAIN_STEPS`` AdamW steps with int8
+    compression on the rank's slab of each global batch (timed), the
+    losses and the parameters against the one-process oracle (its whole
+    leaves shared from the parent's card), then the parameters saved
+    sharded (gathered whole on rank 0, written once) and restored with
+    ``sharding_tree=``, bitwise."""
+    from repro_torch.checkpoint import restore_checkpoint, save_sharded
+    from repro_torch.core.collectives import mesh_comm
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.moe_gemm import kernel as mg
+    from repro_torch.sharding import use_rules
+    from repro_torch.sharding.placement import (batch_slab, global_params,
+                                                init_params_sharded,
+                                                local_slice, named_shardings,
+                                                param_specs)
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg, oracle = job["cfg"], job["oracle"]
+    comm = mesh_comm(rules.mesh)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params_sharded(
+        cfg, rules, torch.Generator(device=dev).manual_seed(0), device=dev,
+        dtype=torch.float32)
+    state = init_train_state(cfg, params, compress=True)
+    step = make_train_step(cfg, AdamWConfig(**LM_RANKS_OPT),
+                           compress_grads=True)
+    fa.reset_launches()
+    mg.reset_launches()
+    comm.reset_counts()
+    metrics, step_ms = [], []
+    with use_rules(rules):
+        for batch in job["batches"]:
+            slab = {k: batch_slab(torch.from_numpy(v), rules).to(dev)
+                    for k, v in batch.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, slab)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            metrics.append({k: float(v) for k, v in m.items()})
+    routes = dict(mg.moe_gemm.route_launches)
+    attn_routes = dict(fa.flash_attention.route_launches)
+    comm_steps = {"bytes": dict(comm.sent), "s": dict(comm.seconds),
+                  "calls": dict(comm.calls)}
+    peak = torch.cuda.max_memory_allocated()
+    losses = ("loss/total", "loss/ce", "loss/aux")
+    rel = [{k: abs(got[k] - want[k]) / abs(want[k])
+            for k in losses + ("opt/grad_norm",)}
+           for got, want in zip(metrics, oracle["metrics"])]
+    tols = [{k: LM_RANKS_FIRST_LOSS_RTOL for k in losses}] + [
+        {"loss/total": LM_RANKS_LOSS_RTOL, "loss/ce": LM_RANKS_LOSS_RTOL,
+         "loss/aux": LM_RANKS_AUX_RTOL}] * (len(rel) - 1)
+    metrics_ok = len(metrics) == len(oracle["metrics"]) and all(
+        r[k] <= t.get(k, LM_RANKS_GNORM_RTOL)
+        for r, t in zip(rel, tols) for k in r)
+    # the AdamW update moves an element by at most lr (1 + wd·|p|) a step;
+    # two runs whose gradients differ in rounding differ by at most twice
+    lrs = [m["opt/lr"] for m in metrics]
+    bound = 2.0 * sum(lrs) * 1.01
+    mean_bound = LM_RANKS_PARAM_MEAN_SHARE * sum(lrs)
+    worst, mean_num, count = 0.0, 0.0, 0
+    specs = param_specs(cfg, rules)
+    for leaf, whole, (_, spec) in zip(tree_leaves(state.params),
+                                      oracle["params"], specs):
+        d = (leaf - local_slice(whole, spec, rules)).abs()
+        worst = max(worst, float(d.max()))
+        mean_num += float(d.sum())
+        count += d.numel()
+    shardings = named_shardings(global_params(cfg, torch.float32), rules)
+    t0 = time.perf_counter()
+    save_sharded(job["ckpt_dir"], LM_RANKS_TRAIN_STEPS, state.params,
+                 shardings)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = restore_checkpoint(job["ckpt_dir"],
+                              global_params(cfg, torch.float32),
+                              device=dev, sharding_tree=shardings)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same = all(bitwise(a, b) for a, b in zip(tree_leaves(back),
+                                               tree_leaves(state.params)))
+    mean = mean_num / max(count, 1)
+    out = {"steps": len(metrics), "metrics": metrics, "step_ms": step_ms,
+           "metrics_ok": metrics_ok, "metrics_rel": rel,
+           "params_ok": worst <= bound and mean <= mean_bound,
+           "peak_memory_allocated": peak,
+           "params_held": sum(t.numel() for t in tree_leaves(params)),
+           "param_max_abs_diff": worst, "param_mean_abs_diff": mean,
+           "param_bound": bound, "param_mean_bound": mean_bound,
+           "comm_steps": comm_steps, "moe_gemm_route_launches": routes,
+           "flash_attention_route_launches": attn_routes,
+           "checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
+           "restored_bitwise": same}
+    del state, params, back
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_ranks_worker(rank, world, backend, init_file, job, queue):
+    """One rank of the lm_ranks phase: join the group on
+    ``cuda:(rank % device_count)`` (the host when ``job["device"]`` is
+    "cpu", a rehearsal), build the (1, world) mesh under ``ep_dp`` and run
+    the job's serving and training parts."""
+    import datetime
+
+    import torch.distributed as dist
+
+    try:
+        torch.set_num_threads(1)   # the ranks share the host's cores
+        if backend == "nccl":   # one host, no network: bootstrap on loopback
+            os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        if job["device"] == "cuda":
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+            dev = torch.device("cuda", torch.cuda.current_device())
+        else:
+            dev = torch.device("cpu")
+        dist.init_process_group(
+            backend, init_method=f"file://{init_file}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=RANKS_TIMEOUT_S))
+        from repro_torch.launch.mesh import make_local_mesh
+        from repro_torch.sharding import ShardingRules
+
+        rules = ShardingRules.for_mesh(make_local_mesh(1, world), "ep_dp")
+        out = {}
+        if "serve" in job:
+            out["serve"] = lm_ranks_serve(dev, rules, job["serve"], rank)
+        if "train" in job:
+            out["train"] = lm_ranks_train(dev, rules, job["train"], rank)
+        queue.put((rank, "ok", out))
+    except Exception:  # report, then fail the phase in the parent
+        queue.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def lm_serve_checks(rows, cfg, steps, label):
+    """Every rank's logits within tolerance, finite, and its launches: one
+    prefill's attention on ``tc``, 3 grouped GEMMs a MoE layer a forward on
+    the route of the received rows (P·cap)."""
+    from repro_torch.kernels.moe_gemm import kernel as mg
+
+    n_moe = sum(1 for k in cfg.pattern if k in "AM") * cfg.n_periods
+    n_attn = sum(1 for k in cfg.pattern if k in "aAl") * cfg.n_periods
+    launches = {"flash_attention": {}, "moe_gemm": {}}
+    for r, row in enumerate(rows):
+        check(row["prefill_logits_ok"] and row["decode1_logits_ok"]
+              and row["finite"], f"{label} rank {r}: logits off the "
+              f"one-process port's (prefill {row['prefill_max_abs_err']}, "
+              f"decode {row['decode1_max_abs_err']}) or not finite")
+        check(row["flash_attention_route_launches"] == {"tc": n_attn,
+                                                       "fp32": 0},
+              f"{label} rank {r}: attention launches "
+              f"{row['flash_attention_route_launches']}")
+        slab = row["slab"][0]
+        world = len(rows)
+        caps = {"prefill": _lm_cap(cfg, slab * row["slab"][1]),
+                "decode": _lm_cap(cfg, slab)}
+        want = dict.fromkeys(mg.ROUTES, 0)
+        for phase, fwd in (("prefill", 1), ("decode", steps)):
+            want[mg.route(torch.bfloat16, world * caps[phase])] += \
+                3 * n_moe * fwd
+        check(row["moe_gemm_route_launches"] == want,
+              f"{label} rank {r}: moe_gemm launches "
+              f"{row['moe_gemm_route_launches']}, expected {want}")
+        for kind in ("flash_attention", "moe_gemm"):
+            for k, v in row[f"{kind}_route_launches"].items():
+                launches[kind][k] = launches[kind].get(k, 0) + v
+    return launches
+
+
+def _lm_cap(cfg, tokens):
+    from repro_torch.models.moe import _capacity
+
+    return _capacity(cfg.moe, tokens)
+
+
+def phase_lm_ranks(dev, arch="qwen2-moe-a2.7b"):
+    """The sharding rules executed across ranks under ``ep_dp`` on a
+    (1, P) mesh: (a) NCCL, a world of one (2 layers at full width, the four
+    prompts, a prefill and 2 decode steps) against the one-process port,
+    its rank running while the parent computes (b)'s and (c)'s references;
+    (b) qwen2-moe-a2.7b at full size served on 4 gloo ranks sharing
+    cuda:0, one prompt a rank (the engine's left-padded global batch), a
+    prefill and ``LM_RANKS_DECODE`` greedy decode steps, each rank against
+    the one-process port on its slab (its grouped GEMMs handed 4·cap rows,
+    the ranks' route; the first decode step also on its own route, each
+    MoE layer's top-k of the token compared between the two routes); (c)
+    ``LM_RANKS_TRAIN_STEPS`` AdamW steps (lr 3e-4 from the first) at full
+    width, 2 layers, global batch 4 x 2048, int8 compression, against
+    ``make_train_step(microbatches=4)``, and a sharded checkpoint
+    of the parameters. Returns the launches by kernel and route."""
+    import concurrent.futures
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, init_train_state, \
+        make_train_step
+    from repro_torch.train.optimizer import tree_leaves
+
+    t_phase = time.perf_counter()
+    smi = card()
+    rng = np.random.default_rng(0)
+    full = get_config(arch)
+    prompts = [rng.integers(0, full.vocab, size=n).astype(np.int32)
+               for n in LM_LENS]
+    toks = left_padded(prompts)
+    max_len = toks.shape[1] + LM_RANKS_DECODE + 1
+    launches = {"flash_attention": {}, "moe_gemm": {}}
+
+    def add(got):
+        for kind in launches:
+            for k, v in got[kind].items():
+                launches[kind][k] = launches[kind].get(k, 0) + v
+
+    # (a) NCCL, a world of one: its rank (~5 GB of the card) runs while
+    # the parent computes (b)'s and (c)'s one-process references
+    t_a = time.perf_counter()
+    cfg_a = dataclasses.replace(full, n_layers=LM_RANKS_NCCL_LAYERS)
+    params = init_params(cfg_a, torch.Generator(device=dev).manual_seed(0),
+                         device=dev, dtype=torch.bfloat16)
+    refs = greedy_refs(params, cfg_a, dev, toks, 1, LM_RANKS_NCCL_DECODE,
+                       max_len)
+    del params
+    torch.cuda.empty_cache()
+    job = {"device": dev.type,
+           "serve": {"cfg": cfg_a, "tokens": toks, "max_len": max_len,
+                     "steps": LM_RANKS_NCCL_DECODE, "refs": refs,
+                     "native": refs}}
+
+    def nccl_world():
+        rows, _ = spawn_ranks(1, "nccl", job, target=lm_ranks_worker)
+        return [r["serve"] for r in rows], time.perf_counter() - t_a
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    nccl = pool.submit(nccl_world)
+    pool.shutdown(wait=False)
+
+    # (b) the one-process port on each rank's slab, then 4 gloo ranks
+    t0 = time.perf_counter()
+    params = init_params(full, torch.Generator(device=dev).manual_seed(0),
+                         device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    refs = greedy_refs(params, full, dev, toks, LM_RANKS_GLOO,
+                       LM_RANKS_DECODE, max_len, rows_of=LM_RANKS_GLOO,
+                       routing=True)
+    native = greedy_refs(params, full, dev, toks, LM_RANKS_GLOO, 1, max_len,
+                         routing=True)
+    plain = greedy_refs(params, full, dev, toks, LM_RANKS_GLOO, 1, max_len,
+                        routing=True, plain=True)
+    # where the ranks' route, the one-process decode route and the plain
+    # float32 GEMMs part: each rank's first decode step routed through each
+    witness = []
+    for r, n, q in zip(refs, native, plain):
+        runs = {"ranks_route": r, "decode_route": n, "plain": q}
+        # every grouped GEMM of the kernel routes' first decode step
+        w = {f"{k}_gemm": {"calls": len(runs[k]["gemm"]),
+                           "outside_tol": sum(not ok for ok, _ in
+                                              runs[k]["gemm"]),
+                           "max_abs_err": max(e for _, e in runs[k]["gemm"])}
+             for k in ("ranks_route", "decode_route")}
+        for a, b in (("ranks_route", "decode_route"),
+                     ("plain", "ranks_route"), ("plain", "decode_route")):
+            w[f"{a}/{b}"] = routing_witness(
+                runs[a]["routing"], runs[b]["routing"], full.moe.top_k)
+            w[f"{a}/{b}"]["decode1_rel"] = float(
+                (runs[a]["decode1"] - runs[b]["decode1"]).abs().max()
+                / runs[b]["decode1"].abs().max())
+        witness.append(w)
+    for run in (*refs, *native):
+        del run["routing"], run["gemm"]
+    del plain
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_refs = time.perf_counter() - t0
+    serve_job = {"cfg": full, "tokens": toks, "max_len": max_len,
+                 "steps": LM_RANKS_DECODE, "refs": refs, "native": native}
+
+    # (c) the one-process oracle: microbatches=4 on the global batch
+    t0 = time.perf_counter()
+    cfg_c = train_cfg(LM_RANKS_TRAIN_LAYERS)
+    get = train_batches(cfg_c, dev, seq=LM_RANKS_TRAIN_SEQ,
+                        batch=LM_RANKS_GLOO)
+    batches = [{k: v.cpu().numpy() for k, v in get(i).items()}
+               for i in range(LM_RANKS_TRAIN_STEPS)]
+    check(all((b["labels"] >= 0).all() for b in batches),
+          "the training batches mask a label")
+    state = init_train_state(cfg_c, train_params(cfg_c, dev), compress=True)
+    step = make_train_step(cfg_c, AdamWConfig(**LM_RANKS_OPT),
+                           compress_grads=True, microbatches=LM_RANKS_GLOO)
+    oracle_metrics = []
+    for b in batches:
+        state, m = step(state, {k: torch.from_numpy(v).to(dev)
+                                for k, v in b.items()})
+        oracle_metrics.append({k: float(v) for k, v in m.items()})
+    oracle_params = tree_leaves(state.params)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_oracle = time.perf_counter() - t0
+
+    rows, t_nccl = nccl.result()
+    emit({"phase": "lm_ranks_nccl", "card": smi, "layers": cfg_a.n_layers,
+          "batch": list(toks.shape), "seconds": t_nccl, "rank": rows[0]})
+    add(lm_serve_checks(rows, cfg_a, LM_RANKS_NCCL_DECODE, "lm_ranks nccl"))
+
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root, prefix="lm_ranks.") as ckpt:
+        job = {"device": dev.type, "serve": serve_job,
+               "train": {"cfg": cfg_c, "batches": batches,
+                         "oracle": {"metrics": oracle_metrics,
+                                    "params": oracle_params},
+                         "ckpt_dir": ckpt}}
+        t0 = time.perf_counter()
+        per_rank, lowest = spawn_ranks(LM_RANKS_GLOO, "gloo", job,
+                                       target=lm_ranks_worker)
+        t_ranks = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, files in os.walk(ckpt) for f in files)
+    del oracle_params, job
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = [r["serve"] for r in per_rank]
+    train = [r["train"] for r in per_rank]
+    emit({"phase": "lm_ranks_serve", "card": smi, "arch": arch,
+          "ranks": LM_RANKS_GLOO, "backend": "gloo", "mesh": [1, 4],
+          "profile": "ep_dp", "global_batch": list(toks.shape),
+          "one_process_init_s": t_init, "one_process_refs_s": t_refs,
+          "cross_route_routing": witness, "per_rank": serve})
+    emit({"phase": "lm_ranks_train", "card": smi, "arch": arch,
+          "layers": cfg_c.n_layers, "ranks": LM_RANKS_GLOO,
+          "global_batch": [LM_RANKS_GLOO, LM_RANKS_TRAIN_SEQ],
+          "oracle": "make_train_step(microbatches=4), compress_grads, "
+                    "AdamWConfig(warmup_steps=1)",
+          "oracle_metrics": oracle_metrics, "oracle_s": t_oracle,
+          "checkpoint_bytes_on_disk": ckpt_bytes, "per_rank": train})
+    add(lm_serve_checks(serve, full, LM_RANKS_DECODE, "lm_ranks gloo"))
+    moe_layers = sum(1 for k in full.pattern if k in "AM") * full.n_periods
+    for r, (row, w) in enumerate(zip(serve, witness)):
+        for k in ("ranks_route_gemm", "decode_route_gemm"):
+            check(w[k]["calls"] == 3 * moe_layers
+                  and w[k]["outside_tol"] == 0, f"lm_ranks rank {r}'s slab, "
+                  f"one process: {k}: a first-decode grouped GEMM off its "
+                  f"plain version {w[k]}")
+        check(row["decode1_native_rel"] <= LM_RANKS_CROSS_ROUTE_REL
+              or w["ranks_route/decode_route"]["flipped_layers"],
+              f"lm_ranks gloo rank {r}: the first "
+              f"decode step is {row['decode1_native_rel']} of the largest "
+              "logit off the one-process decode route with no router "
+              "choosing other experts between the two")
+    n_moe = cfg_c.n_layers             # every layer of the arch is 'A'
+    for r, row in enumerate(train):
+        check(row["metrics_ok"], f"lm_ranks train rank {r}: metrics "
+              f"{row['metrics']} against the one-process {oracle_metrics}")
+        check(row["params_ok"], f"lm_ranks train rank {r}: the parameters "
+              f"are {row['param_max_abs_diff']} (mean "
+              f"{row['param_mean_abs_diff']}) off the one-process run "
+              f"(bounds {row['param_bound']}, {row['param_mean_bound']})")
+        # a step: the forward and remat's recompute of each layer
+        want_attn = {"tc": 2 * n_moe * LM_RANKS_TRAIN_STEPS, "fp32": 0}
+        check(row["flash_attention_route_launches"] == want_attn,
+              f"lm_ranks train rank {r}: attention launches "
+              f"{row['flash_attention_route_launches']}")
+        check(row["moe_gemm_route_launches"]["prefill"]
+              == 6 * n_moe * LM_RANKS_TRAIN_STEPS
+              and sum(row["moe_gemm_route_launches"].values())
+              == row["moe_gemm_route_launches"]["prefill"],
+              f"lm_ranks train rank {r}: moe_gemm launches "
+              f"{row['moe_gemm_route_launches']}")
+        check(row["restored_bitwise"], f"lm_ranks train rank {r}: restore")
+        add({"flash_attention": row["flash_attention_route_launches"],
+             "moe_gemm": row["moe_gemm_route_launches"]})
+    emit({"phase": "lm_ranks", "card": smi, "ranks_s": t_ranks,
+          "lowest_available_host_bytes": lowest,
+          "route_launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 10b: the training path
 # ---------------------------------------------------------------------------
 
@@ -4551,8 +5276,15 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
+
+    def lap(name):
+        """The script's seconds so far, once ``name`` has ended."""
+        emit({"phase": "clock", "after": name,
+              "seconds": time.perf_counter() - t0})
+
     try:
         infos = phase_build()
+        lap("build")
         grid_err = phase_kernel(dev)
         case = laplacian_case()
         sess, plan, args, launches, ring, ring_ms = phase_main_path(dev,
@@ -4560,26 +5292,43 @@ def main():
         timing = measure_kernel(dev, plan, args)
         check(timing["route"] == "tc", "the bs-128 main path is off the tc "
               "route")
+        lap("main_path")
         semirings = phase_semirings(dev, sess)
+        lap("semirings")
         del sess, plan, args      # the SpGEMM session's cached entries
         torch.cuda.empty_cache()
         minplus_main = phase_minplus_main(dev)
+        lap("minplus_main")
         default = phase_default_bs(dev, case, ring_ms)
+        lap("default_bs")
         summa_launches = phase_summa(dev, case, ring)
-        rank_launches = phase_ranks(dev, case)
+        lap("summa")
+        rank_launches = phase_ranks(dev)
+        lap("ranks")
         del case
         torch.cuda.empty_cache()
         app_launches = phase_apps(dev)
+        lap("apps")
         service_launches = phase_service(dev)
+        lap("service")
         phase_build_lm(infos)
         flash_grid_err = phase_flash_grid(dev)
         phase_serve_smoke()
         moe_grid_err = phase_moe_grid(dev)
+        lap("lm_grids")
         (routes, attn_routes, flash, flash_fp32, gemms,
          fp32) = phase_lm_serve(dev)
+        lap("lm_serve")
         split = phase_minplus_split(dev)
+        lap("minplus_split")
         mamba_routes, mamba_attn_routes, jamba_err = phase_mamba(dev)
+        lap("mamba")
+        # after minplus_split's in-process profile: run before it, this
+        # phase left that profile with no kernel record (on an H100)
+        lm_ranks = phase_lm_ranks(dev)
+        lap("lm_ranks")
         train = phase_train(dev)
+        lap("train")
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -4623,14 +5372,23 @@ def main():
     # check)
     by_path = {
         "flash_attention": {
-            r: {"serve": attn_routes[r], "mamba": mamba_attn_routes[r],
+            r: {"serve": attn_routes[r],
+                "lm_ranks": lm_ranks["flash_attention"].get(r, 0),
+                "mamba": mamba_attn_routes[r],
                 "train": train["full_width"]["flash_attention"][r]
                 + train["f32"]["flash_attention"][r]} for r in attn_routes},
         "moe_gemm": {
-            r: {"serve": routes[r], "mamba": mamba_routes[r],
+            r: {"serve": routes[r],
+                "lm_ranks": lm_ranks["moe_gemm"].get(r, 0),
+                "mamba": mamba_routes[r],
                 "train": train["full_width"]["moe_gemm"][r]
                 + train["f32"]["moe_gemm"][r]} for r in routes}}
-    train_note = ("; jamba-v0.1-52b at full width, one period: one "
+    train_note = ("; lm_ranks (every rank): the NCCL world of one's prefill "
+                  "and 2 decode steps (2 layers, 4 prompts), 4 gloo ranks "
+                  "serving qwen2-moe-a2.7b at full size (a prefill and 32 "
+                  "decode steps; the experts' GEMMs see P·cap rows, so "
+                  "decode runs on the prefill route) and 3 training steps "
+                  "(2 layers); jamba-v0.1-52b at full width, one period: one "
                   "generate; training: the 6 steps of qwen2-moe-a2.7b at full "
                   "width, 4 layers, S 4096, B 2, remat block (the forward "
                   "and the backward's recompute); the float32 routes: the "

@@ -1,2 +1,2 @@
 from .store import (CheckpointManager, latest_step, restore_checkpoint,
-                    restore_into, save_checkpoint)
+                    restore_into, save_checkpoint, save_sharded)

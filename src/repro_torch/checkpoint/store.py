@@ -21,6 +21,12 @@ second copy of the state on the card.
 
 ``CheckpointManager`` adds keep-last-k GC and an async save thread (the
 device step never blocks on the filesystem).
+
+Across ranks (``sharding.placement``): ``sharding_tree=`` on a restore is
+a tree of ``NamedSharding`` mirroring a template of *whole* leaves, and
+each rank gets its slice of each leaf; :func:`save_sharded` gathers every
+rank's slices into whole leaves on one rank, which writes them once in
+this format, so either package reads the checkpoint whole.
 """
 
 from __future__ import annotations
@@ -35,8 +41,8 @@ import numpy as np
 
 import torch
 
-__all__ = ["save_checkpoint", "restore_checkpoint", "restore_into",
-           "latest_step", "CheckpointManager"]
+__all__ = ["save_checkpoint", "save_sharded", "restore_checkpoint",
+           "restore_into", "latest_step", "CheckpointManager"]
 
 
 def _leaves(tree, prefix: Tuple[str, ...] = ()) -> Iterator[
@@ -104,6 +110,33 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any) -> str:
     return final
 
 
+def save_sharded(ckpt_dir: str, step: int, tree: Any, sharding_tree: Any,
+                 root: int = 0) -> Optional[str]:
+    """Every rank of the tree's mesh calls it with its slices ``tree`` and
+    their ``NamedSharding`` tree: each leaf is gathered whole on global
+    rank ``root`` and copied to the host, one leaf at a time, and ``root``
+    writes the whole tree with :func:`save_checkpoint`. Every rank returns
+    after the write (the path on ``root``, None elsewhere)."""
+    import torch.distributed as dist
+
+    from ..sharding.placement import gather_full
+
+    shard_of = dict(_leaves(sharding_tree))
+    me = dist.get_rank()
+
+    def whole(key, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        shd = shard_of[key]
+        full = gather_full(leaf, shd.spec, shd.rules, root=root)
+        return None if full is None else _to_host(full)
+
+    host = _map(whole, tree)
+    path = save_checkpoint(ckpt_dir, step, host) if me == root else None
+    dist.barrier()
+    return path
+
+
 def latest_step(ckpt_dir: str) -> Optional[int]:
     if not os.path.isdir(ckpt_dir):
         return None
@@ -153,19 +186,26 @@ def restore_into(ckpt_dir: str, tree: Any, step: Optional[int] = None) -> Any:
 
 def restore_checkpoint(ckpt_dir: str, tree_like: Any,
                        step: Optional[int] = None,
-                       device=None) -> Any:
+                       device=None, sharding_tree: Any = None) -> Any:
     """Restore into the structure of ``tree_like``.
 
     Each leaf must have its template's shape (a mismatch raises
     ``ValueError``) and is cast to the template's dtype. A tensor template
     gets a tensor on ``device``, or on the template's own device when
     ``device`` is None; a numpy (or scalar) template gets a numpy array.
+    ``sharding_tree``: a tree of ``sharding.placement.NamedSharding``
+    mirroring ``tree_like`` (whole-leaf templates, e.g. on the ``meta``
+    device): each leaf comes back as this rank's slice.
     """
     path = _step_dir(ckpt_dir, step)
+    shard_of = dict(_leaves(sharding_tree)) if sharding_tree is not None \
+        else {}
     with np.load(os.path.join(path, "arrays.npz")) as data:
 
         def load(key: str, like):
             arr = _checked(data, key, getattr(like, "shape", ()))
+            if shard_of.get(key) is not None:
+                arr = shard_of[key].slice(arr)
             if isinstance(like, torch.Tensor):
                 return _tensor(arr).to(
                     device=like.device if device is None else device,
@@ -228,8 +268,9 @@ class CheckpointManager:
             raise err
 
     def restore(self, tree_like: Any, step: Optional[int] = None,
-                device=None) -> Any:
-        return restore_checkpoint(self.ckpt_dir, tree_like, step, device)
+                device=None, sharding_tree: Any = None) -> Any:
+        return restore_checkpoint(self.ckpt_dir, tree_like, step, device,
+                                  sharding_tree)
 
     def restore_into(self, tree: Any, step: Optional[int] = None) -> Any:
         return restore_into(self.ckpt_dir, tree, step)

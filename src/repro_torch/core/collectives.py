@@ -35,10 +35,26 @@ ranks in step: :func:`agree` (did any rank fail a stage?),
 :func:`all_same` (do the ranks hold the same fingerprints?) and
 :func:`gather_rows` / :func:`gather_csc` (every rank's decoded output
 piece, on every rank).
+
+The language model's collectives over a ``DeviceMesh``'s dims are
+:class:`MeshComm`'s (one per mesh, :func:`mesh_comm`): an all-to-all over
+the ranks of one or more dims, an all-gather, and a reduce (sum or max),
+all built on the transport's point-to-point exchange, so gloo stages every
+payload through pinned host memory a piece at a time here too and every
+wait is bounded by the group's timeout. A reduce is a reduce-scatter (each
+rank sums or maxes its chunk from every rank, in rank order) and an
+all-gather of the reduced chunks: every rank gets the same bits, and a NaN
+on any rank survives a max. Their autograd forms, for the paths a gradient
+crosses ranks on: :func:`all_to_all` (backward: the reverse all-to-all),
+:func:`all_gather_cat` (backward: a reduce-scatter), :func:`reduce_scatter`
+(backward: an all-gather) and :func:`psum` (backward: the identity — the
+sum feeds an objective every rank holds whole, and each rank carries the
+gradient back to its own term).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -48,12 +64,22 @@ import torch.distributed as dist
 from .sparse import CSC, from_coo
 
 __all__ = ["Transport", "Pending", "wire_device", "agree", "all_same",
-           "gather_rows", "gather_csc", "mesh_index", "dim_ranks"]
+           "gather_rows", "gather_csc", "mesh_index", "dim_ranks",
+           "MeshComm", "mesh_comm", "all_to_all",
+           "all_gather_cat", "reduce_scatter", "psum"]
 
-# transfer kinds the transport counts bytes for
-KINDS = ("ring", "gather", "merge", "result")
+# transfer kinds the transport counts bytes for: the SpGEMM engines' four,
+# then the language model's — "a2a" the MoE's bucket exchange (there and
+# back), "rows" the live-row counts sent along with it, "vocab" the
+# vocab-sharded embedding's, cross entropy's and logits' traffic, "reduce"
+# every other reduce and gather (gradients, the aux loss, metrics, norms)
+KINDS = ("ring", "gather", "merge", "result", "a2a", "rows", "vocab",
+         "reduce")
 # the largest piece a transfer moves at once outside NCCL (Transport)
 PIECE_BYTES = 64 << 20
+# MeshComm.reduce gathers tensors of at most this many elements whole (one
+# round) rather than reduce-scattering them (two rounds)
+SMALL_REDUCE = 4096
 
 
 def wire_device(group=None) -> torch.device:
@@ -73,12 +99,15 @@ def mesh_index(mesh) -> Optional[int]:
     return int(np.ravel_multi_index(tuple(coord), tuple(mesh.mesh.shape)))
 
 
-def dim_ranks(mesh, dim: str) -> List[int]:
-    """The global ranks of this rank's line along mesh dim ``dim``, in that
-    dim's order (this rank among them)."""
+def dim_ranks(mesh, dim) -> List[int]:
+    """The global ranks of this rank's line along mesh dim ``dim`` (or its
+    sub-mesh over a sequence of dims, the other dims at this rank's
+    coordinate), in C order over the mesh's dims: the order a tensor dim
+    split over several axes is laid out in (this rank among them)."""
+    dims = (dim,) if isinstance(dim, str) else tuple(dim)
     coord = list(mesh.get_coordinate())
-    d = mesh.mesh_dim_names.index(dim)
-    idx = tuple(slice(None) if i == d else c for i, c in enumerate(coord))
+    idx = tuple(slice(None) if n in dims else c
+                for n, c in zip(mesh.mesh_dim_names, coord))
     return [int(r) for r in mesh.mesh[idx].reshape(-1).tolist()]
 
 
@@ -334,3 +363,248 @@ def gather_csc(coo: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]],
     allr = np.concatenate(pieces, axis=0)
     vals = allr[:, 2].astype(np.int32).view(np.float32)
     return from_coo(allr[:, 0], allr[:, 1], vals, shape)
+
+
+# ---------------------------------------------------------------------------
+# the language model's collectives over a mesh's dims
+# ---------------------------------------------------------------------------
+
+class MeshComm:
+    """All-to-all, all-gather and reduce over the ranks of a
+    ``DeviceMesh``'s dims, for tensors on this rank's device.
+
+    ``sent`` / ``received`` count payload bytes per kind (:data:`KINDS`)
+    over every device's transport; ``seconds`` the host wall time spent in
+    each kind's collectives (the staging copies included), and ``calls``
+    their number. Every member of a collective must call it, with blocks
+    of the shapes its peers send: what a rank sends to a peer has the shape
+    of what it receives from that peer."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.sent: Dict[str, int] = dict.fromkeys(KINDS, 0)
+        self.received: Dict[str, int] = dict.fromkeys(KINDS, 0)
+        self.seconds: Dict[str, float] = dict.fromkeys(KINDS, 0.0)
+        self.calls: Dict[str, int] = dict.fromkeys(KINDS, 0)
+        self._transports: Dict[torch.device, Transport] = {}
+        self._ranks: Dict[Tuple[str, ...], List[int]] = {}
+
+    def reset_counts(self) -> None:
+        for k in KINDS:
+            self.sent[k] = self.received[k] = self.calls[k] = 0
+            self.seconds[k] = 0.0
+
+    def ranks(self, dims: Sequence[str]) -> List[int]:
+        key = tuple(dims)
+        if key not in self._ranks:
+            self._ranks[key] = dim_ranks(self.mesh, key)
+        return self._ranks[key]
+
+    def size(self, dims: Sequence[str]) -> int:
+        return len(self.ranks(dims))
+
+    def index(self, dims: Sequence[str]) -> int:
+        """This rank's position among :meth:`ranks` ``(dims)``."""
+        return self.ranks(dims).index(dist.get_rank())
+
+    def _transport(self, device: torch.device) -> Transport:
+        if device not in self._transports:
+            t = Transport(device)
+            t.sent, t.received = self.sent, self.received
+            self._transports[device] = t
+        return self._transports[device]
+
+    def _timed(self, kind: str, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        self.seconds[kind] += time.perf_counter() - t0
+        self.calls[kind] += 1
+        return out
+
+    def exchange(self, blocks: Sequence[torch.Tensor], dims: Sequence[str],
+                 kind: str) -> List[torch.Tensor]:
+        """All-to-all: ``blocks[i]`` goes to member i of :meth:`ranks`
+        ``(dims)``; returns the block each member sent this rank, in member
+        order (this rank's own block as it is)."""
+        ranks = self.ranks(dims)
+        me = ranks.index(dist.get_rank())
+        if len(ranks) == 1:
+            return [blocks[0]]
+        t = self._transport(blocks[0].device)
+
+        def run():
+            blk = [b.contiguous() for b in blocks]
+            pend = t._exchange(
+                kind,
+                [(r, blk[i], 0) for i, r in enumerate(ranks) if i != me],
+                [(r, tuple(blk[i].shape), blk[i].dtype, 0)
+                 for i, r in enumerate(ranks) if i != me])
+            got = iter(pend.wait())
+            return [blk[i] if i == me else next(got)
+                    for i in range(len(ranks))]
+
+        return self._timed(kind, run)
+
+    def gather(self, x: torch.Tensor, dims: Sequence[str],
+               kind: str) -> torch.Tensor:
+        """Every member's ``x`` stacked in member order: (P, *x.shape)."""
+        ranks = self.ranks(dims)
+        if len(ranks) == 1:
+            return x[None]
+        t = self._transport(x.device)
+        return self._timed(kind, lambda: t.gather_start(
+            x.contiguous(), ranks, kind).wait())
+
+    def gather_to(self, x: torch.Tensor, dims: Sequence[str], root: int,
+                  kind: str = "reduce") -> Optional[List[torch.Tensor]]:
+        """Every member's ``x`` (same shape on each), in member order, on
+        the member whose global rank is ``root``; None on the others."""
+        ranks = self.ranks(dims)
+        me = dist.get_rank()
+        if len(ranks) == 1:
+            return [x]
+        t = self._transport(x.device)
+        x = x.contiguous()
+        if me != root:
+            self._timed(kind, lambda: t._exchange(kind, [(root, x, 1)],
+                                                  []).wait())
+            return None
+        got = iter(self._timed(kind, lambda: t._exchange(
+            kind, [], [(r, tuple(x.shape), x.dtype, 1) for r in ranks
+                       if r != me]).wait()))
+        return [x if r == me else next(got) for r in ranks]
+
+    def reduce(self, x: torch.Tensor, dims: Sequence[str], op: str = "sum",
+               kind: str = "reduce") -> torch.Tensor:
+        """The element-wise sum or max of every member's ``x`` (same shape
+        on each), the same bits on every member: each member reduces one
+        chunk from every member in member order, then the chunks are
+        gathered (a tensor of at most ``SMALL_REDUCE`` elements is
+        gathered whole and reduced in member order on every member).
+        ``max`` keeps a NaN wherever it sits."""
+        fn = {"sum": torch.add, "max": torch.maximum}[op]
+        p = self.size(dims)
+        if p == 1:
+            return x.clone()
+        if x.numel() <= SMALL_REDUCE:
+            # one round: every member reduces every block, in member order
+            got = self.gather(x.reshape(-1), dims, kind)
+            red = got[0]
+            for g in got[1:]:
+                red = fn(red, g)
+            return red.reshape(x.shape)
+        flat = x.reshape(-1)
+        n = flat.numel()
+        c = max(-(-n // p), 1)
+        padded = torch.zeros(c * p, dtype=x.dtype, device=x.device)
+        padded[:n] = flat
+        got = self.exchange(list(padded.view(p, c)), dims, kind)
+        red = got[0]
+        for g in got[1:]:
+            red = fn(red, g)
+        return self.gather(red, dims, kind).reshape(-1)[:n].reshape(x.shape)
+
+
+_COMMS: Dict[int, Tuple[object, MeshComm]] = {}
+
+
+def mesh_comm(mesh) -> MeshComm:
+    """The one :class:`MeshComm` of ``mesh`` in this process."""
+    if id(mesh) not in _COMMS or _COMMS[id(mesh)][0] is not mesh:
+        _COMMS[id(mesh)] = (mesh, MeshComm(mesh))
+    return _COMMS[id(mesh)][1]
+
+
+def _tiled_a2a(comm, x, dims, split_dim, cat_dim, kind):
+    p = comm.size(dims)
+    got = comm.exchange(list(x.chunk(p, dim=split_dim)), dims, kind)
+    return torch.cat(got, dim=cat_dim)
+
+
+def _reduce_scatter(comm, x, dims, kind):
+    got = comm.exchange(list(x.chunk(comm.size(dims), dim=0)), dims, kind)
+    out = got[0]
+    for g in got[1:]:
+        out = out + g
+    return out
+
+
+def _gather_cat(comm, x, dims, kind):
+    g = comm.gather(x, dims, kind)
+    return g.reshape((-1,) + tuple(x.shape[1:]))
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dims, split_dim, cat_dim, kind):
+        ctx.args = (comm, dims, split_dim, cat_dim, kind)
+        return _tiled_a2a(comm, x, dims, split_dim, cat_dim, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, dims, split_dim, cat_dim, kind = ctx.args
+        return (_tiled_a2a(comm, g, dims, cat_dim, split_dim, kind),
+                None, None, None, None, None)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dims, kind):
+        ctx.args = (comm, dims, kind)
+        return _gather_cat(comm, x, dims, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, dims, kind = ctx.args
+        return _reduce_scatter(comm, g, dims, kind), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dims, kind):
+        ctx.args = (comm, dims, kind)
+        return _reduce_scatter(comm, x, dims, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, dims, kind = ctx.args
+        return _gather_cat(comm, g, dims, kind), None, None, None
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dims, kind):
+        return comm.reduce(x, dims, "sum", kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+def all_to_all(x, comm: MeshComm, dims, split_dim: int, cat_dim: int,
+               kind: str = "a2a"):
+    """``jax.lax.all_to_all(tiled=True)`` over ``dims``: ``x`` cut into P
+    blocks along ``split_dim``, block i sent to member i, the received
+    blocks joined along ``cat_dim`` in member order. Backward: the reverse
+    all-to-all."""
+    return _AllToAll.apply(x, comm, tuple(dims), split_dim, cat_dim, kind)
+
+
+def all_gather_cat(x, comm: MeshComm, dims, kind: str = "reduce"):
+    """Every member's ``x`` joined along dim 0 in member order. Backward:
+    the gradient's member blocks summed over members (a reduce-scatter)."""
+    return _AllGather.apply(x, comm, tuple(dims), kind)
+
+
+def reduce_scatter(x, comm: MeshComm, dims, kind: str = "reduce"):
+    """``x`` (P·b, …) cut into P blocks along dim 0; member i gets the sum
+    over members of their block i, in member order. Backward: an
+    all-gather."""
+    return _ReduceScatter.apply(x, comm, tuple(dims), kind)
+
+
+def psum(x, comm: MeshComm, dims, kind: str = "reduce"):
+    """The sum over members (same bits on each). Backward: the identity —
+    the sum feeds an objective that every member holds whole, and each
+    member carries the gradient back to its own term."""
+    return _PSum.apply(x, comm, tuple(dims), kind)

@@ -28,15 +28,24 @@ __all__ = ["params_from_reference", "train_state_from_reference"]
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
 def params_from_reference(np_params, cfg: ModelConfig, device="cuda",
-                          dtype: Optional[torch.dtype] = None):
+                          dtype: Optional[torch.dtype] = None, rules=None):
     """Numpy reference tree -> the port's ``{"embed", "final_norm",
     "layers"}`` on ``device``, in ``dtype`` (None keeps each array's own
-    dtype)."""
+    dtype). ``rules`` (``sharding.ShardingRules``): only this rank's slice
+    of each leaf (``sharding.placement.place``) goes to the device."""
     dev = resolve_device(device)
+    if rules is not None:
+        from ..sharding.placement import place
+
+        host = params_from_reference(np_params, cfg, "cpu")
+        return _tree_map(lambda t: t.to(device=dev, dtype=dtype or t.dtype),
+                         place(host, rules))
 
     def put(a):
         t = torch.from_numpy(np.array(a))   # a writable copy

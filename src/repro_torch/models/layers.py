@@ -6,17 +6,22 @@ with the reference's parameter names. Init draws each tensor in float32
 from an explicit ``torch.Generator`` on the target device and casts it to
 the requested dtype before the next one is drawn. The draws do not match
 ``jax.random``'s: tests hand the reference's weights over through
-``models.convert.params_from_reference``.
+``models.convert.params_from_reference``. Inside :func:`on_draw` every
+tensor ``trunc_normal`` draws passes through a hook before it is kept (how
+``sharding.placement`` keeps only a rank's slice of each leaf).
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
 
 __all__ = [
     "compute_dtype", "trunc_normal", "dense_init", "rmsnorm_init", "rmsnorm",
-    "rope", "mlp_init", "gate_act", "mlp_apply", "softcap",
+    "rope", "mlp_init", "gate_act", "mlp_apply", "softcap", "on_draw",
 ]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -27,12 +32,29 @@ def compute_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+_draws = threading.local()
+
+
+@contextlib.contextmanager
+def on_draw(hook):
+    """Within the block, ``trunc_normal`` returns ``hook(t)`` for each
+    tensor ``t`` it draws."""
+    prev = getattr(_draws, "hook", None)
+    _draws.hook = hook
+    try:
+        yield
+    finally:
+        _draws.hook = prev
+
+
 def trunc_normal(generator, shape, scale: float, *, device, dtype):
     """Normal draws truncated to [-2, 2], times ``scale``, drawn in float32
     and returned in ``dtype``."""
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return t.mul_(scale).to(dtype)
+    t = t.mul_(scale).to(dtype)
+    hook = getattr(_draws, "hook", None)
+    return t if hook is None else hook(t)
 
 
 def dense_init(generator, in_dim: int, out_dim: int, *, device, dtype):

@@ -20,18 +20,41 @@ mask, and an ``index_add_`` into the buckets. The combine adds each
 token's k contributions through a gather by the inverse sort and a sum
 over k, not an ``index_add_``: on a card ``index_add_`` adds with atomics
 in an order that changes from run to run, and greedy serving must repeat
-its tokens exactly. The expert-parallel ``shard_map`` path waits for the
-multi-rank backend.
+its tokens exactly.
+
+Across ranks (``sharding.use_rules``, each rank holding its slab of a
+batch split over ``rules.batch``), :func:`moe_apply` takes one of two
+paths, by the reference's condition on the *global* batch:
+
+  * ``_moe_shard_map`` (the ``ep_dp`` profile: experts sharded over the
+    model axis) — the reference's explicit expert parallelism. Each rank
+    routes its own slab with a capacity from its own token count, one
+    tiled all-to-all sends each expert's (E, C, d) bucket block to the
+    expert's owner, which receives (E/P, P·C, d), runs its experts, and a
+    reverse all-to-all brings the outputs home. Each source block's live
+    rows are a prefix of that block, not of the P·C rows, so the rows
+    counts travel with the buckets and the owner packs the live rows to
+    the front of each expert before the grouped GEMMs (and unpacks after):
+    the ``rows`` contract holds, and an expert no token reached costs no
+    weight read. ``aux`` is averaged and the metrics summed over all ranks.
+  * experts replicated (``dp_only``) — the reference's default path over
+    the global batch: the capacity comes from the global token count, and
+    each assignment's place in its expert's queue counts the assignments
+    of the ranks before it, so the same assignments are dropped as in one
+    process; the load-balance loss uses the global counts and mean
+    probabilities.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from ..configs.base import ModelConfig, MoEConfig
+from ..core.collectives import all_to_all, mesh_comm, psum
 from ..kernels.moe_gemm import grouped_gemm
+from ..sharding.rules import check_executable, current_rules
 from .layers import dense_init, gate_act, mlp_apply, mlp_init, trunc_normal
 
 __all__ = ["moe_init", "moe_apply"]
@@ -73,18 +96,37 @@ def _expert_ffn(cfg: ModelConfig, bkts, rows, eg, eu, ed):
     return grouped_gemm(h, ed, rows)
 
 
+class _Ranks:
+    """The ranks that split the batch (the global path's peers)."""
+
+    def __init__(self, comm, dims):
+        self.comm, self.dims = comm, tuple(dims)
+        self.size = comm.size(self.dims)
+
+    def before(self, counts):
+        """Per expert, the assignments of the ranks before this one."""
+        every = self.comm.gather(counts, self.dims, "reduce")
+        return every[:self.comm.index(self.dims)].sum(0)
+
+    def psum(self, x):
+        return psum(x, self.comm, self.dims)
+
+
 def _route_and_combine(cfg: ModelConfig, router, shared, xf,
-                       run_experts: Callable):
+                       run_experts: Callable, ranks: Optional[_Ranks] = None):
     """Routing + capacity bucketing + combine on a flat (T, d) slab.
 
     ``run_experts``: ((E, C, d) buckets, (E,) int32 live rows per expert)
-    -> (E, C, d) outputs.
+    -> (E, C, d) outputs. ``ranks``: the slab is this rank's part of a
+    global batch of ``ranks.size`` equal slabs, routed as one (global
+    capacity and queue places, global aux and metrics).
     """
     moe = cfg.moe
     t, d = xf.shape
     e = moe.n_experts_padded
     k = moe.top_k
-    cap = _capacity(moe, t)
+    t_all = t * (ranks.size if ranks else 1)
+    cap = _capacity(moe, t_all)
     dev = xf.device
 
     logits = (xf @ router).float()                           # (T, E)
@@ -103,9 +145,12 @@ def _route_and_combine(cfg: ModelConfig, router, shared, xf,
     st_, sg = flat_t[order], flat_g[order]
     bounds = torch.searchsorted(se, torch.arange(e + 1, device=dev))
     run_start = bounds[:-1]                                  # (E,)
-    rows = (bounds[1:] - run_start).clamp(max=cap).int()     # live rows
+    counts = bounds[1:] - run_start
+    room = cap - ranks.before(counts) if ranks else \
+        torch.full_like(counts, cap)                         # queue left
+    rows = torch.minimum(counts, room.clamp(min=0)).int()    # live rows
     rank = torch.arange(t * k, device=dev) - run_start[se]
-    keep = rank < cap                                        # capacity drop
+    keep = rank < room[se]                                   # capacity drop
     slot = se * cap + rank.clamp(0, cap - 1)                 # (T*k,)
 
     buckets = torch.zeros((e * cap, d), dtype=xf.dtype, device=dev)
@@ -121,30 +166,105 @@ def _route_and_combine(cfg: ModelConfig, router, shared, xf,
         y = y + mlp_apply(shared, xf, cfg.mlp)
 
     # ---- aux: load balancing + paper-style traffic accounting --------------
-    frac_tokens = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
-        0, flat_e, torch.ones(t * k, dtype=torch.float32, device=dev)) \
-        / (t * k)
-    aux = moe.n_experts * torch.sum(frac_tokens * probs.mean(0)) \
+    tokens = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
+        0, flat_e, torch.ones(t * k, dtype=torch.float32, device=dev))
+    mean_probs = probs.mean(0)
+    routed, dropped = keep.sum(), (~keep).sum()
+    if ranks:
+        tokens = ranks.psum(tokens)
+        mean_probs = ranks.psum(probs.sum(0)) / t_all
+        routed, dropped = ranks.psum(torch.stack([routed, dropped])).unbind()
+    frac_tokens = tokens / (t_all * k)
+    aux = moe.n_experts * torch.sum(frac_tokens * mean_probs) \
         * moe.router_aux_weight
     metrics = {
-        "moe/routed_tokens": keep.sum(),             # exact (required)
+        "moe/routed_tokens": routed,                 # exact (required)
         "moe/capacity_slots": torch.tensor(e * cap, device=dev),  # fetched
-        "moe/dropped": (~keep).sum(),
+        "moe/dropped": dropped,
     }
     return y, aux, metrics
 
 
-def moe_apply(params, cfg: ModelConfig, x) -> Tuple[torch.Tensor,
-                                                    torch.Tensor, dict]:
-    """x: (B, S, d) -> (y, aux_loss, metrics)."""
+def _packing(rows_in: torch.Tensor, cap: int):
+    """For received (E/P, P·C, d) buckets whose source block s holds
+    ``rows_in[s, e]`` live rows of expert e at its front: the gather index
+    that moves every expert's live rows to its front (source order kept),
+    its inverse, and the (E/P,) live-row totals."""
+    p, el = rows_in.shape
+    pos = torch.arange(p * cap, device=rows_in.device) % cap
+    live = pos[None, :] < rows_in.t().repeat_interleave(cap, dim=1)
+    order = torch.sort((~live).to(torch.int32), dim=1, stable=True).indices
+    inverse = torch.empty_like(order).scatter_(
+        1, order, torch.arange(p * cap, device=order.device)
+        .expand(el, -1).contiguous())
+    return order, inverse, live.sum(1).int()
+
+
+def _take_rows(x, index):
+    return x.gather(1, index[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def _moe_shard_map(params, cfg: ModelConfig, x, rules):
+    """Explicit EP on this rank's (b, s, d) slab: local routing, a tiled
+    all-to-all of the bucket blocks to the experts' owners over
+    ``rules.expert_axis``, the local experts (``params``' expert leaves are
+    this rank's E/P), the reverse all-to-all. Under ``ep_dp`` the expert
+    axis is part of data parallelism, so the sequence stays whole."""
+    comm = mesh_comm(rules.mesh)
+    ep = (rules.expert_axis,)
+    p = comm.size(ep)
     b, s, d = x.shape
     eg = params.get("experts_gate")
     shared = params.get("shared") if cfg.moe.n_shared else None
+
+    def run(bkts, rows):
+        cap = bkts.shape[1]
+        recv = all_to_all(bkts, comm, ep, 0, 1, "a2a")    # (E/P, P·C, d)
+        rows_in = torch.stack(comm.exchange(list(rows.chunk(p)), ep, "rows"))
+        order, inverse, live = _packing(rows_in, cap)
+        out = _expert_ffn(cfg, _take_rows(recv, order), live, eg,
+                          params["experts_up"], params["experts_down"])
+        return all_to_all(_take_rows(out, inverse), comm, ep, 1, 0, "a2a")
+
+    y, aux, metrics = _route_and_combine(
+        cfg, params["router"], shared, x.reshape(b * s, d), run)
+    every = tuple(dict.fromkeys(tuple(rules.batch or ()) + ep))
+    # one reduce for the aux loss and the metrics: float64 holds the counts
+    # exactly
+    summed = psum(torch.stack([aux.double()] + [v.double() for v in
+                                                metrics.values()]),
+                  comm, every)
+    aux = summed[0].float() / comm.size(every)
+    return y.reshape(b, s, d), aux, {
+        k: v.long() for k, v in zip(metrics, summed[1:].unbind())}
+
+
+def moe_apply(params, cfg: ModelConfig, x) -> Tuple[torch.Tensor,
+                                                    torch.Tensor, dict]:
+    """x: (B, S, d) -> (y, aux_loss, metrics). Under rules, ``x`` is this
+    rank's slab of a global batch of ``B * rules.batch_size``."""
+    b, s, d = x.shape
+    moe = cfg.moe
+    rules = current_rules()
+    ranks = None
+    if rules is not None:
+        # the reference's condition, less two clauses that hold here:
+        # check_executable refuses every TP profile, and batch_slab refuses
+        # a global batch the batch axes do not divide
+        check_executable(rules)
+        if (rules.ep_shard_map and rules.expert_axis is not None
+                and rules.mesh is not None
+                and moe.n_experts_padded
+                % rules.axis_size(rules.expert_axis) == 0):
+            return _moe_shard_map(params, cfg, x, rules)
+        ranks = _Ranks(mesh_comm(rules.mesh), rules.batch)
+    eg = params.get("experts_gate")
+    shared = params.get("shared") if moe.n_shared else None
 
     def run(bkts, rows):
         return _expert_ffn(cfg, bkts, rows, eg, params["experts_up"],
                            params["experts_down"])
 
     y, aux, metrics = _route_and_combine(
-        cfg, params["router"], shared, x.reshape(b * s, d), run)
+        cfg, params["router"], shared, x.reshape(b * s, d), run, ranks)
     return y.reshape(b, s, d), aux, metrics

@@ -22,6 +22,28 @@ layer's to ``cfg.dtype`` inside the layer's body, as the reference's
 layer, so every kernel of it is launched twice a step; ``"none"`` keeps the
 activations. The reference's ``"dots"`` policy (matmul outputs saved) is
 not ported and raises.
+
+Across ranks (``sharding.use_rules`` with an executed profile: ``ep_dp`` or
+``dp_only`` on a ``(data=1, model=P)`` mesh), every entry point takes this
+rank's slab of a global batch split over ``rules.batch`` and this rank's
+parameter slices (``sharding.placement``). Where the rules shard the tied
+embedding's vocab over the model axis (``ep_dp``):
+
+  * the input embedding gathers the token ids over the axis, looks up the
+    rows this rank holds (zeros elsewhere) and reduce-scatters: each
+    token's sum is its one nonzero row, exactly;
+  * the cross entropy is vocab-parallel: each chunk's hidden states are
+    gathered over the axis (the reference's ``batch_nm``), each rank
+    scores them against its vocab columns, and the max, the sum of
+    exponentials and the label's logit are reduced over the axis; every
+    rank then holds the global loss, and the gather's backward (a
+    reduce-scatter) brings each rank its slab's gradient;
+  * the serving logits are the gathered last positions against the local
+    columns, redistributed by an all-to-all to each rank's slab, full
+    vocab.
+
+Otherwise the cross entropy is each rank's own sum over the global label
+count. With no rules every path is the one-process code.
 """
 
 from __future__ import annotations
@@ -32,7 +54,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..core.collectives import (all_gather_cat, all_to_all, mesh_comm, psum,
+                                reduce_scatter)
 from ..core.device_common import resolve_device
+from ..sharding.placement import spec_axes
+from ..sharding.rules import (_spec_for, check_executable, current_rules,
+                              use_rules)
 from .blocks import block_apply, block_cache_init, block_init
 from .layers import compute_dtype, rmsnorm, rmsnorm_init, softcap, \
     trunc_normal
@@ -70,12 +97,54 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             "layers": layers}
 
 
+def _vocab_split(cfg: ModelConfig):
+    """(comm, axes) when the rules in force shard the embedding's vocab,
+    else None."""
+    rules = current_rules()
+    if rules is None:
+        return None
+    axes = spec_axes(_spec_for("embed", (cfg.vocab, cfg.d_model), rules)[0])
+    if rules.axis_size(axes[0] if axes else None) <= 1:
+        return None
+    return mesh_comm(rules.mesh), axes
+
+
+def _batch_ranks(cfg: ModelConfig):
+    """(comm, batch axes) when the rules in force split the batch over more
+    than one rank, else None."""
+    rules = current_rules()
+    if rules is None or rules.batch_size <= 1:
+        return None
+    return mesh_comm(rules.mesh), tuple(rules.batch)
+
+
 def _embed_input(params, cfg: ModelConfig, batch):
+    check_executable(current_rules())
+    split = _vocab_split(cfg)
     if cfg.input_kind == "embeds":
         h = batch["embeds"]
+    elif split:
+        comm, axes = split
+        emb = params["embed"]                             # (V/P, d)
+        ids = comm.gather(batch["tokens"], axes, "vocab")
+        ids = ids.reshape((-1,) + tuple(ids.shape[2:])) \
+            - comm.index(axes) * emb.shape[0]
+        hit = (ids >= 0) & (ids < emb.shape[0])
+        rows = emb[ids.clamp(0, emb.shape[0] - 1)]
+        h = reduce_scatter(torch.where(hit[..., None], rows,
+                                       torch.zeros((), dtype=rows.dtype,
+                                                   device=rows.device)),
+                           comm, axes, "vocab")
     else:
         h = params["embed"][batch["tokens"]]
     return h.to(compute_dtype(cfg.dtype))
+
+
+def _vocab_logits(emb, cfg: ModelConfig, h, comm, axes):
+    """(B_all, …, V/P) float32 logits of the gathered ``h`` against this
+    rank's vocab rows ``emb``, and the first column's id."""
+    logits = softcap(h.float() @ emb.float().T, cfg.logit_softcap)
+    return logits, comm.index(axes) * emb.shape[0]
 
 
 def _as_compute(tree, dtype):
@@ -96,11 +165,14 @@ def _run_stack(params, cfg: ModelConfig, h, mode: str, caches):
     return rmsnorm(params["final_norm"], h, cfg.norm_eps), new_caches
 
 
-def _train_layer(lp, cfg: ModelConfig, kind: str, h):
+def _train_layer(lp, cfg: ModelConfig, kind: str, h, rules=None):
     """One layer in mode "train" on its float32 master weights, cast to the
-    compute dtype here (inside the checkpointed body)."""
-    h, _, aux = block_apply(_as_compute(lp, compute_dtype(cfg.dtype)), cfg,
-                            kind, h, None, "train")
+    compute dtype here (inside the checkpointed body), under ``rules``: the
+    backward's recompute runs on autograd's device thread, which does not
+    see the caller's thread-local rules."""
+    with use_rules(rules):
+        h, _, aux = block_apply(_as_compute(lp, compute_dtype(cfg.dtype)),
+                                cfg, kind, h, None, "train")
     return h, aux
 
 
@@ -113,9 +185,9 @@ def _train_stack(params, cfg: ModelConfig, h) -> Tuple[torch.Tensor,
     for kind, lp in zip(layer_kinds(cfg), params["layers"]):
         if cfg.remat == "block":
             h, a = checkpoint(_train_layer, lp, cfg, kind, h,
-                              use_reentrant=False)
+                              current_rules(), use_reentrant=False)
         else:
-            h, a = _train_layer(lp, cfg, kind, h)
+            h, a = _train_layer(lp, cfg, kind, h, current_rules())
         aux = aux + a
     return rmsnorm(params["final_norm"], h, cfg.norm_eps), aux
 
@@ -125,6 +197,14 @@ def train_logits(params, cfg: ModelConfig, batch):
     MoE aux loss."""
     h = _embed_input(params, cfg, batch)
     h, aux = _train_stack(params, cfg, h)
+    split = _vocab_split(cfg)
+    if split:
+        comm, axes = split
+        logits, _ = _vocab_logits(params["embed"], cfg,
+                                  all_gather_cat(h, comm, axes, "vocab"),
+                                  comm, axes)
+        return all_to_all(logits, comm, axes, 0, logits.ndim - 1,
+                          "vocab"), aux
     logits = h.float() @ params["embed"].float().T
     return softcap(logits, cfg.logit_softcap), aux
 
@@ -138,6 +218,25 @@ def _ce_chunk(hc, lc, embed_t, cfg: ModelConfig):
     cols = torch.arange(logits.shape[-1], device=logits.device)
     label_logit = torch.sum(
         torch.where(cols == lc.clamp(min=0)[..., None], logits, 0.0), dim=-1)
+    ll = label_logit - lse
+    mask = (lc >= 0).float()
+    return (ll * mask).sum(), mask.sum()
+
+
+def _ce_chunk_vocab(hc, lc, emb, cfg: ModelConfig, comm, axes):
+    """:func:`_ce_chunk` of the gathered chunk ``hc`` against this rank's
+    vocab columns, the max, the sum of exponentials and the label's logit
+    reduced over ``axes`` (the max without a gradient: the log-sum-exp
+    does not depend on it)."""
+    logits, v0 = _vocab_logits(emb, cfg, hc, comm, axes)
+    m = comm.reduce(torch.amax(logits, dim=-1, keepdim=True).detach(), axes,
+                    "max", "vocab")
+    lse = torch.log(psum(torch.sum(torch.exp(logits - m), dim=-1), comm,
+                         axes, "vocab")) + m[..., 0]
+    cols = torch.arange(logits.shape[-1], device=logits.device) + v0
+    label_logit = psum(torch.sum(
+        torch.where(cols == lc.clamp(min=0)[..., None], logits, 0.0),
+        dim=-1), comm, axes, "vocab")
     ll = label_logit - lse
     mask = (lc >= 0).float()
     return (ll * mask).sum(), mask.sum()
@@ -157,11 +256,28 @@ def _chunked_ce(params, cfg: ModelConfig, h, labels, n_chunks: int):
     embed_t = params["embed"].T
     ce_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    split = _vocab_split(cfg)
+    if split:
+        comm, axes = split
+        g = comm.gather(labels, axes, "vocab")
+        labels = g.reshape((-1,) + tuple(g.shape[2:]))
     for i in range(n_chunks):
         part = slice(i * sc, (i + 1) * sc)
-        ll, n = checkpoint(_ce_chunk, h[:, part], labels[:, part], embed_t,
-                           cfg, use_reentrant=False)
+        if split:
+            hc = all_gather_cat(h[:, part], comm, axes, "vocab")
+            ll, n = checkpoint(_ce_chunk_vocab, hc, labels[:, part],
+                               params["embed"], cfg, comm, axes,
+                               use_reentrant=False)
+        else:
+            ll, n = checkpoint(_ce_chunk, h[:, part], labels[:, part],
+                               embed_t, cfg, use_reentrant=False)
         ce_sum, cnt = ce_sum - ll, cnt + n
+    dp = None if split else _batch_ranks(cfg)
+    if dp:
+        # this rank's sum over the global count; the psum's backward hands
+        # each rank the gradient of its own term
+        ce_sum = psum(ce_sum, *dp)
+        cnt = dp[0].reduce(cnt, dp[1], "sum", "reduce")
     return ce_sum / torch.clamp(cnt, min=1.0)
 
 
@@ -188,7 +304,18 @@ def loss_fn(params, cfg: ModelConfig, batch,
 
 
 def _logits(params, cfg: ModelConfig, h):
-    """Last-position logits in float32 against the tied embedding."""
+    """Last-position logits in float32 against the tied embedding (this
+    rank's slab, full vocab, under vocab-sharding rules)."""
+    split = _vocab_split(cfg)
+    if split:
+        comm, axes = split
+        last = comm.gather(h[:, -1], axes, "vocab")
+        logits, _ = _vocab_logits(params["embed"], cfg,
+                                  last.reshape(-1, last.shape[-1]), comm,
+                                  axes)
+        p = comm.size(axes)
+        return torch.cat(comm.exchange(list(logits.chunk(p)), axes, "vocab"),
+                         dim=1)
     logits = h[:, -1].float() @ params["embed"].float().T
     return softcap(logits, cfg.logit_softcap)
 

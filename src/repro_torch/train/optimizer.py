@@ -15,6 +15,11 @@ updated; the train loop goes back to its last checkpoint then.
 Gradient compression (int8 with error feedback): :func:`compress_int8`
 quantizes a gradient per tensor and carries the quantization error to the
 next step in a residual buffer (the EF-SGD family).
+
+Across ranks a leaf may be this rank's slice of a whole one
+(``sharding.placement``): ``sharded`` (a ``MeshComm`` and each leaf's
+shard axes) makes the global norm sum each sliced leaf's squares over its
+axes, and ``reduce_max`` makes the int8 scale the max over the whole leaf.
 """
 
 from __future__ import annotations
@@ -95,12 +100,21 @@ def cosine_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * 0.5 * (1.0 + torch.cos(math.pi * prog))
 
 
-def _global_norm(grads) -> torch.Tensor:
+def _global_norm(grads, sharded=None) -> torch.Tensor:
     """sqrt of the sum over leaves (in tree order) of each leaf's sum of
-    squares in float32."""
+    squares in float32. ``sharded``: ``(comm, [axes of each leaf])`` —
+    the squares of leaves sliced over axes are summed over those ranks."""
     total = 0
-    for g in tree_leaves(grads):
-        total = total + torch.sum(torch.square(g.float()))
+    over: dict = {}
+    axes = sharded[1] if sharded else None
+    for i, g in enumerate(tree_leaves(grads)):
+        sq = torch.sum(torch.square(g.float()))
+        if axes and axes[i]:
+            over[axes[i]] = over.get(axes[i], 0) + sq
+        else:
+            total = total + sq
+    for ax, sq in over.items():
+        total = total + sharded[0].reduce(sq, ax, "sum", "reduce")
     return torch.sqrt(total)
 
 
@@ -117,17 +131,18 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads,
-                 state: OptState) -> Tuple[Any, OptState, dict]:
+def adamw_update(cfg: AdamWConfig, params, grads, state: OptState,
+                 sharded=None) -> Tuple[Any, OptState, dict]:
     """One AdamW step with global-norm clipping and the cosine schedule.
 
     Updates ``params``, ``state.mu`` and ``state.nu`` in place (see the
     module docstring) and returns ``(params, OptState(mu, nu, step + 1),
     {"opt/grad_norm", "opt/lr"})``. Each gradient is clipped as
     :func:`clip_by_global_norm` clips it, one leaf at a time, so no second
-    copy of the gradients is held.
+    copy of the gradients is held. ``sharded``: as for
+    :func:`_global_norm`.
     """
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads, sharded)
     scale = _clip_scale(gnorm, cfg.grad_clip)
     step = state.step + 1
     lr = cosine_schedule(cfg, step)
@@ -152,11 +167,18 @@ def adamw_update(cfg: AdamWConfig, params, grads,
 # int8 gradient compression with error feedback
 # ---------------------------------------------------------------------------
 
-def compress_int8(g: torch.Tensor, residual: torch.Tensor):
+def compress_int8(g: torch.Tensor, residual: torch.Tensor,
+                  reduce_max: Callable = None):
     """Per-tensor symmetric int8 quantization; returns (q, scale, new_res).
-    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    ``torch.round`` rounds half to even, as ``jnp.round`` does.
+    ``reduce_max``: the max of a slice's largest |value| over the ranks
+    holding the leaf's other slices (a NaN on any of them kept, as
+    ``jnp.max`` keeps it)."""
     gf = g.float() + residual
-    scale = torch.max(torch.abs(gf)) / 127.0 + 1e-12
+    amax = torch.max(torch.abs(gf))
+    if reduce_max is not None:
+        amax = reduce_max(amax)
+    scale = amax / 127.0 + 1e-12
     q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
     new_res = gf - q.float() * scale
     return q, scale, new_res

@@ -13,6 +13,16 @@ Gradient compression quantizes each gradient to int8 and dequantizes it on
 the same device, as the reference does on one host (there the int8 tensors
 are what a data-parallel all-reduce would move); the quantization error is
 carried to the next step in ``state.residual``.
+
+Under ``sharding.use_rules`` (an executed profile, each rank holding its
+slab of the batch and its slices of the state) each rank's loss is its
+share of the global one, so a leaf's gradient is summed over the batch
+ranks that do not split it: a replicated leaf's over all of them, while an
+expert or vocab slice's gradient is whole already (the all-to-all's and
+the gather's backward deliver every rank's contribution to its owner).
+Then, as the reference quantizes the reduced gradient, each leaf is
+compressed with its scale the max over the whole leaf, the residual
+sliced like its leaf, and the global norm sums the slices' squares.
 """
 
 from __future__ import annotations
@@ -22,7 +32,10 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 
 from ..configs.base import ModelConfig
+from ..core.collectives import mesh_comm
 from ..models.transformer import decode_step, loss_fn, prefill_step
+from ..sharding.placement import param_specs, spec_axes
+from ..sharding.rules import check_executable, current_rules
 from .optimizer import (AdamWConfig, OptState, adamw_init, adamw_update,
                         compress_int8, decompress_int8, tree_leaves,
                         tree_map)
@@ -59,6 +72,20 @@ def _grads(cfg: ModelConfig, params, batch):
     return list(grads), {k: v.detach() for k, v in metrics.items()}
 
 
+def _rank_plan(cfg: ModelConfig, rules):
+    """(comm, per leaf: the axes it is sliced over, the batch axes its
+    gradient is summed over), leaves in tree order."""
+    comm = mesh_comm(rules.mesh)
+    split, summed = [], []
+    for _, spec in param_specs(cfg, rules):
+        axes = tuple(a for e in spec for a in spec_axes(e)
+                     if rules.axis_size(a) > 1)
+        split.append(axes)
+        summed.append(tuple(a for a in rules.batch if a not in axes
+                            and rules.axis_size(a) > 1))
+    return comm, split, summed
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
                     compress_grads: bool = False,
                     microbatches: int = 1) -> Callable:
@@ -68,8 +95,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     divided by the count; each metric is the mean over the parts."""
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+    plans: dict = {}
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        rules = current_rules()
+        check_executable(rules)
         if microbatches > 1:
             b = next(iter(batch.values())).shape[0]
             if b % microbatches:
@@ -93,12 +123,25 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
         else:
             grads, metrics = _grads(cfg, state.params, batch)
 
+        sharded = None
+        split = [()] * len(grads)
+        if rules is not None:
+            if rules not in plans:
+                plans[rules] = _rank_plan(cfg, rules)
+            comm, split, summed = plans[rules]
+            grads = [comm.reduce(g, ax, "sum", "reduce") if ax else g
+                     for g, ax in zip(grads, summed)]
+            sharded = (comm, split)
+
         if compress_grads:
             if state.residual is None:
                 raise ValueError("compress_grads needs a state made with "
                                  "init_train_state(..., compress=True)")
             for i, r in enumerate(tree_leaves(state.residual)):
-                q, s, new_r = compress_int8(grads[i], r)
+                over = None if not split[i] else (
+                    lambda m, ax=split[i]: sharded[0].reduce(
+                        m, ax, "max", "reduce"))
+                q, s, new_r = compress_int8(grads[i], r, over)
                 grads[i] = decompress_int8(q, s)
                 r.copy_(new_r)
 
@@ -106,7 +149,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
         grad_tree = tree_map(lambda _: next(it), state.params)
         del grads
         params, opt, opt_metrics = adamw_update(
-            opt_cfg, state.params, grad_tree, state.opt)
+            opt_cfg, state.params, grad_tree, state.opt, sharded)
         return TrainState(params, opt, state.residual), \
             {**metrics, **opt_metrics}
 

@@ -1,0 +1,265 @@
+"""Rank worker for ``tests/test_torch_lm_ranks.py``: one process of a gloo
+group on the CPU, running the port's language model across ranks under
+``sharding.use_rules`` and handing each result back to the parent.
+
+It imports only ``repro_torch``, torch and numpy — never ``jax`` or
+``repro``. Parameters arrive as numpy trees in the port's layout (whole
+leaves; each rank keeps its slice through ``place``), configs as the
+port's ``ModelConfig``, batches as global numpy arrays (each rank takes its
+slab through ``batch_slab``).
+
+Cases (dicts, run in order; every rank runs every case), each with
+``"mesh"`` ``(data, model)`` and ``"profile"``:
+
+* ``{"kind": "moe", "cfg", "params", "x"}`` — ``moe_apply`` on the rank's
+  slab of ``x``: ``{"y", "aux", "metrics", "bytes"}``;
+* ``{"kind": "serve", "cfg", "params", "tokens", "prompt_len"}`` —
+  ``make_prefill_step`` on the slab's first ``prompt_len`` tokens, then
+  ``make_decode_step`` on each later token: ``{"prefill", "decode"}``
+  (this rank's logits);
+* ``{"kind": "train", "cfg", "params", "batches", "compress",
+  "microbatches", "ckpt_dir"}`` — ``make_train_step`` over the batches:
+  ``{"metrics", "params"}`` (the params gathered whole on rank 0), and,
+  with ``ckpt_dir``, the state saved sharded before and after the steps
+  (``save_sharded``, steps 0 and 1) and restored with ``sharding_tree=``:
+  ``"restored_equal"`` (bitwise against the live slices) and
+  ``"slices"`` (this rank's restored slices of a few leaves);
+* ``{"kind": "thread_grad", "cfg", "params", "batch"}`` — ``loss_fn``
+  under the rules, its gradient taken once on this thread and once from
+  another thread (as autograd's device thread recomputes a checkpointed
+  layer on a card): ``{"same": bool}``;
+* ``{"kind": "refuse"}`` — ``prefill`` under the rules: the error's text;
+* ``{"kind": "stall"}`` — rank 0 starts an all-to-all that rank 1 never
+  joins: the error's type and the seconds until it was raised.
+"""
+
+import datetime
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+GROUP_TIMEOUT_S = 30
+SLICE_KEYS = ("params/embed", "params/layers/0/moe/experts_up",
+              "opt/mu/layers/0/moe/experts_down", "residual/embed")
+
+
+def _rules(case):
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding import ShardingRules
+
+    return ShardingRules.for_mesh(make_local_mesh(*case["mesh"]),
+                                  case["profile"])
+
+
+def _params(case, rules, dtype=torch.float32):
+    from repro_torch.sharding.placement import place
+
+    host = _as_torch(case["params"], dtype)
+    return place(host, rules)
+
+
+def _as_torch(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _as_torch(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_as_torch(v, dtype) for v in tree]
+    return torch.from_numpy(np.array(tree)).to(dtype)
+
+
+def _slab(x, rules):
+    from repro_torch.sharding.placement import batch_slab
+
+    return batch_slab(torch.from_numpy(np.asarray(x)), rules).contiguous()
+
+
+def _moe(case, rules):
+    from repro_torch.core.collectives import mesh_comm
+    from repro_torch.models.moe import moe_apply
+    from repro_torch.sharding import use_rules
+
+    comm = mesh_comm(rules.mesh)
+    comm.reset_counts()
+    params = _params(case, rules)
+    with use_rules(rules):
+        y, aux, metrics = moe_apply(params, case["cfg"],
+                                    _slab(case["x"], rules))
+    return {"y": y.numpy(), "aux": float(aux),
+            "metrics": {k: int(v) for k, v in metrics.items()},
+            "bytes": {"sent": dict(comm.sent),
+                      "received": dict(comm.received)}}
+
+
+def _serve(case, rules):
+    from repro_torch.models import init_caches
+    from repro_torch.sharding import use_rules
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    cfg = case["cfg"]
+    params = _params(case, rules)
+    toks = _slab(case["tokens"], rules)
+    n = case["prompt_len"]
+    caches = init_caches(cfg, toks.shape[0], toks.shape[1], device="cpu")
+    with use_rules(rules):
+        logits, caches = make_prefill_step(cfg)(
+            params, {"tokens": toks[:, :n]}, caches)
+        out = {"prefill": logits.numpy(), "decode": []}
+        for i in range(n, toks.shape[1]):
+            logits, caches = make_decode_step(cfg)(
+                params, {"tokens": toks[:, i:i + 1]}, caches)
+            out["decode"].append(logits.numpy())
+    return out
+
+
+def _whole(tree, rules, specs):
+    """The whole leaves on rank 0 (None elsewhere), as numpy."""
+    from repro_torch.sharding.placement import gather_full
+    from repro_torch.train.optimizer import tree_leaves
+
+    out = []
+    for leaf, (_, spec) in zip(tree_leaves(tree), specs):
+        full = gather_full(leaf, spec, rules, root=0)
+        out.append(None if full is None else full.numpy())
+    return out
+
+
+def _train(case, rules):
+    from repro_torch.checkpoint import restore_checkpoint, save_sharded
+    from repro_torch.checkpoint.store import _leaves
+    from repro_torch.sharding import leaf_pspecs, use_rules
+    from repro_torch.sharding.placement import global_params, named_shardings
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+
+    cfg = case["cfg"]
+    params = _params(case, rules)
+    state = init_train_state(cfg, params, compress=case["compress"])
+    step_fn = make_train_step(cfg, AdamWConfig(warmup_steps=1),
+                              compress_grads=case["compress"],
+                              microbatches=case.get("microbatches", 1))
+    ckpt = case.get("ckpt_dir")
+    whole_state = None
+    if ckpt:
+        # the state's whole-leaf template and its shardings, by path
+        g = global_params(cfg, torch.float32)
+        whole_state = init_train_state(cfg, g, compress=case["compress"])
+        shardings = named_shardings(whole_state, rules)
+        save_sharded(ckpt, 0, state, shardings)
+    metrics = []
+    with use_rules(rules):
+        for b in case["batches"]:
+            state, m = step_fn(state, {k: _slab(v, rules)
+                                       for k, v in b.items()})
+            metrics.append({k: float(v) for k, v in m.items()})
+    out = {"metrics": metrics,
+           "params": _whole(state.params, rules,
+                            leaf_pspecs(global_params(cfg), rules))}
+    if ckpt:
+        save_sharded(ckpt, 1, state, shardings)
+        back = restore_checkpoint(ckpt, whole_state, step=1, device="cpu",
+                                  sharding_tree=shardings)
+        live = dict(_leaves(state))
+        got = dict(_leaves(back))
+        out["restored_equal"] = all(
+            torch.equal(torch.as_tensor(live[k]), torch.as_tensor(got[k]))
+            for k in live)
+        out["slices"] = {k: got[k].numpy() for k in SLICE_KEYS if k in got}
+    return out
+
+
+def _thread_grad(case, rules):
+    import threading
+
+    from repro_torch.models import loss_fn
+    from repro_torch.sharding import use_rules
+    from repro_torch.train.optimizer import tree_leaves
+
+    params = _params(case, rules)
+    batch = {k: _slab(v, rules) for k, v in case["batch"].items()}
+    grads = []
+    for threaded in (False, True):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        it = iter(leaves)
+        from repro_torch.train.optimizer import tree_map
+        tracked = tree_map(lambda _: next(it), params)
+        with use_rules(rules):
+            loss, _ = loss_fn(tracked, case["cfg"], batch)
+        out = {}
+
+        def run():
+            try:
+                out["g"] = torch.autograd.grad(loss, leaves,
+                                               materialize_grads=True)
+            except Exception as e:  # reported to the parent
+                out["error"] = repr(e)
+
+        if threaded:
+            t = threading.Thread(target=run)
+            t.start()
+            t.join()
+        else:
+            run()
+        if "error" in out:
+            return {"same": False, "error": out["error"]}
+        grads.append(out["g"])
+    return {"same": all(torch.equal(a, b) for a, b in zip(*grads))}
+
+
+def _refuse(case, rules):
+    from repro_torch.models import init_caches, prefill_step
+    from repro_torch.sharding import use_rules
+
+    cfg = case["cfg"]
+    try:
+        with use_rules(rules):
+            prefill_step(_as_torch(case["params"], torch.float32), cfg,
+                         {"tokens": torch.zeros((1, 4), dtype=torch.int64)},
+                         init_caches(cfg, 1, 4, device="cpu"))
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
+def _stall(timeout_s):
+    from repro_torch.core.collectives import mesh_comm
+    from repro_torch.launch.mesh import make_local_mesh
+
+    comm = mesh_comm(make_local_mesh(1, 2))
+    if dist.get_rank() != 0:
+        time.sleep(timeout_s + 2)        # alive, but never joins
+        return ("skipped", 0.0)
+    t0 = time.perf_counter()
+    try:
+        comm.exchange([torch.zeros(4), torch.zeros(4)], ("model",), "a2a")
+    except Exception as e:  # the type is the result
+        return (type(e).__name__, time.perf_counter() - t0)
+    return (None, time.perf_counter() - t0)
+
+
+def run_case(case, timeout_s):
+    if case["kind"] == "stall":
+        return _stall(timeout_s)
+    rules = _rules(case)
+    return {"moe": _moe, "serve": _serve, "train": _train,
+            "thread_grad": _thread_grad,
+            "refuse": _refuse}[case["kind"]](case, rules)
+
+
+def main(rank, world, init_file, cases, queue, timeout_s=GROUP_TIMEOUT_S):
+    """One rank: join the gloo group through ``init_file`` (every wait
+    bounded by ``timeout_s``), run ``cases``, put ``(rank, "ok",
+    results)`` (or ``(rank, "error", traceback)``) on ``queue``."""
+    torch.set_num_threads(1)  # ranks share the host's cores
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"file://{init_file}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=timeout_s))
+        queue.put((rank, "ok", [run_case(c, timeout_s) for c in cases]))
+    except Exception:  # report to the parent, whatever failed
+        queue.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
