@@ -310,6 +310,27 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  peak memory, the
                  all-to-all's bytes and seconds, prefill, decode-step and
                  step times
+  11c. fsdp    — FSDP over ``data > 1`` in 4 spawned gloo ranks sharing the
+                 card (each layer's parameter slices gathered in bf16
+                 inside its checkpointed body, the gradients reduce-scattered
+                 in float32): (a) musicgen-large at full size (3.22 B
+                 parameters) under ``dp_only`` on a ``(4, 1)`` mesh, from
+                 one float32 draw a rank: a 512-token prefill a rank and 2
+                 greedy decode steps against the one-process port on each
+                 rank's prompt (logits within ``TOL``, every greedy token
+                 equal), then an AdamW step of one 2048-token sequence a
+                 rank against the one-process ``make_train_step
+                 (microbatches=4)`` (phase 11b's bounds), each rank holding
+                 at most 26 % of the model's parameter and moment bytes;
+                 (b) qwen2-moe-a2.7b at full width, 2 layers, under
+                 ``ep_dp`` on ``(2, 2)`` (FSDP and expert parallelism
+                 together), 2 steps of 4 x 2048 with int8 compression against
+                 ``microbatches=4``. Exact launches (the forward and
+                 remat's recompute) and exact ``fsdp`` bytes and calls per
+                 rank (bf16 gathers, the float32 embedding, float32
+                 reduce-scatters; one transfer a layer); per rank the state
+                 held, peak memory, step, prefill and decode-step ms and
+                 the transfers by kind
   12. train    — the training path (``repro_torch.train``): (a) each
                  autograd Function on the card against autograd through its
                  plain version on the card: ``multihead_attention`` (the
@@ -1841,60 +1862,105 @@ class PeakRss:
         self._thread.join()
 
 
-def spawn_ranks(world, backend, calls, target=None):
-    """Run ``target`` (``ranks_worker`` by default: ``(rank, world,
-    backend, init_file, calls, queue)``) on ``world`` processes (spawned, a ``file://``
-    init); returns per rank its rows, and the host's lowest available
-    memory while they ran (sampled every half second). Every process is
-    joined, or killed past RANKS_LIMIT_S or when the host's available
-    memory falls below RANKS_MIN_FREE, and any rank's failure fails the
-    phase."""
-    import queue as queues
-    import tempfile
+def rank_main(target, rank, world, backend, init_file, jobs, queue):
+    """A spawned rank: ``target`` on each calls the queue ``jobs`` hands it,
+    each in a process group of its own (``init_file`` numbered), until
+    None. The calls travel through a queue, not as the process's
+    arguments: the parent writes a process's arguments into a pipe that
+    the child reads only once it has imported this module, so arguments
+    larger than the pipe held each start until the rank before it had
+    imported (~7.5 s a rank on an H100 host)."""
+    for n, calls in enumerate(iter(jobs.get, None)):
+        target(rank, world, backend, f"{init_file}.{n}", calls, queue)
 
-    ctx = torch.multiprocessing.get_context("spawn")
-    q = ctx.Queue()
-    with tempfile.TemporaryDirectory() as tmp:
-        init = os.path.join(tmp, "init")
-        procs = [ctx.Process(target=target or ranks_worker,
-                             args=(r, world, backend, init, calls, q))
-                 for r in range(world)]
-        for p in procs:
+
+class RankPool:
+    """``world`` spawned processes, started at once, that run ``target``
+    (``ranks_worker`` by default: ``(rank, world, backend, init_file,
+    calls, queue)``) on each calls handed to :meth:`run`, one after
+    another, without starting again: a phase can compute between two runs
+    what the next needs, and the ranks import while the phase computes
+    the first. Closing ends them (joined, or killed)."""
+
+    def __init__(self, world, backend, target=None):
+        import tempfile
+
+        ctx = torch.multiprocessing.get_context("spawn")
+        self.world, self.backend = world, backend
+        self.q, self.jobs = ctx.Queue(), ctx.Queue()
+        self.jobs.cancel_join_thread()   # a dead rank leaves its calls
+        self.tmp = tempfile.TemporaryDirectory()
+        init = os.path.join(self.tmp.name, "init")
+        self.procs = [ctx.Process(target=rank_main,
+                                  args=(target or ranks_worker, r, world,
+                                        backend, init, self.jobs, self.q))
+                      for r in range(world)]
+        for p in self.procs:
             p.start()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def run(self, calls):
+        """Every rank's rows for ``calls``, and the host's lowest available
+        memory while they ran (sampled every half second). Past
+        RANKS_LIMIT_S, or when the host's available memory falls below
+        RANKS_MIN_FREE, the ranks are killed; any rank's failure fails the
+        phase."""
+        import queue as queues
+
+        backend, world, procs = self.backend, self.world, self.procs
+        for _ in procs:
+            self.jobs.put(calls)
         got, low, lowest = {}, None, None
         deadline = time.monotonic() + RANKS_LIMIT_S
-        try:
-            while len(got) < world and time.monotonic() < deadline:
-                free = host_available()
-                lowest = free if lowest is None else min(lowest, free)
-                if free is not None and free < RANKS_MIN_FREE:
-                    low = (free, [process_rss(p.pid) for p in procs])
+        while len(got) < world and time.monotonic() < deadline:
+            free = host_available()
+            lowest = free if lowest is None else min(lowest, free)
+            if free is not None and free < RANKS_MIN_FREE:
+                low = (free, [process_rss(p.pid) for p in procs])
+                break
+            try:
+                rank, status, payload = self.q.get(timeout=0.5)
+            except queues.Empty:
+                if all(p.exitcode is not None for p in procs):
                     break
-                try:
-                    rank, status, payload = q.get(timeout=0.5)
-                except queues.Empty:
-                    if all(p.exitcode is not None for p in procs):
-                        break
-                    continue
-                got[rank] = (status, payload)
-            if low is not None:
-                for p in procs:
-                    p.kill()
-        finally:
+                continue
+            got[rank] = (status, payload)
+        bad = {r: p for r, (s, p) in got.items() if s != "ok"}
+        if low is not None or len(got) < world or bad:
             for p in procs:
-                p.join(timeout=max(deadline - time.monotonic(), 1.0))
-                if p.is_alive():
-                    p.kill()
-                    p.join(timeout=10)
-    check(low is None, f"{backend}: the host's available memory fell to "
-          f"{low and low[0]} bytes; the ranks' RSS was {low and low[1]} "
-          f"(the parent's {process_rss(os.getpid())})")
-    check(len(got) == world, f"{backend}: {world - len(got)} rank(s) "
-          f"reported nothing within {RANKS_LIMIT_S} s")
-    bad = {r: p for r, (s, p) in got.items() if s != "ok"}
-    check(not bad, "\n".join(f"{backend} rank {r}:\n{p}"
-                             for r, p in bad.items()))
-    return [got[r][1] for r in range(world)], lowest
+                p.kill()
+        check(low is None, f"{backend}: the host's available memory fell "
+              f"to {low and low[0]} bytes; the ranks' RSS was "
+              f"{low and low[1]} (the parent's {process_rss(os.getpid())})")
+        check(len(got) == world, f"{backend}: {world - len(got)} rank(s) "
+              f"reported nothing within {RANKS_LIMIT_S} s")
+        check(not bad, "\n".join(f"{backend} rank {r}:\n{p}"
+                                 for r, p in bad.items()))
+        return [got[r][1] for r in range(world)], lowest
+
+    def close(self):
+        for _ in self.procs:
+            self.jobs.put(None)
+        deadline = time.monotonic() + 60
+        for p in self.procs:
+            p.join(timeout=max(deadline - time.monotonic(), 1.0))
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        self.tmp.cleanup()
+
+
+def spawn_ranks(world, backend, calls, target=None):
+    """``calls`` run once on a :class:`RankPool` of ``world`` processes:
+    per rank its rows, and the host's lowest available memory while they
+    ran."""
+    with RankPool(world, backend, target) as pool:
+        return pool.run(calls)
 
 
 def ranks_report(backend, world, calls, spawned, want):
@@ -3768,7 +3834,7 @@ def check_captured(cap, name):
               f"{tuple(q.shape)}, k {tuple(k.shape)} ({err})")
     errs = {fa.route(q.dtype, q.shape[3]): err}
     for phase in ("prefill", "decode"):
-        for x, w, rows in cap.gemm[phase]:
+        for x, w, rows in cap.gemm.get(phase, ()):
             ok, err = within(mg.moe_gemm(x, w, rows),
                              moe_gemm_ref(x, w, rows), *MOE_TOL[x.dtype])
             check(ok, f"{name}: {phase} grouped GEMM kernel != plain "
@@ -4065,11 +4131,13 @@ def greedy_refs(params, cfg, dev, toks, world, steps, max_len, rows_of=1,
     return refs
 
 
-def lm_ranks_serve(dev, rules, job, rank):
+def lm_ranks_serve(dev, rules, job, rank, params=None):
     """One rank's serving run under the rules: this rank's slices of the
-    weights (drawn whole from the seeded generator, sliced leaf by leaf),
-    a prefill of its slab, ``job["steps"]`` greedy decode steps (the
-    first fed the one-process argmax), everything timed; the logits and
+    weights (drawn whole from the seeded generator, sliced leaf by leaf;
+    or ``params``, slices already held, e.g. float32 masters, which the
+    model casts to bf16 as it gathers them), a prefill of its slab,
+    ``job["steps"]`` greedy decode steps (the first fed the one-process
+    argmax), everything timed; the logits and
     greedy tokens against the one-process port's on the slab with its
     grouped GEMMs handed the ranks' P·cap rows (``job["refs"]``, the same
     kernel routes), the first decode step also against the one-process
@@ -4091,12 +4159,15 @@ def lm_ranks_serve(dev, rules, job, rank):
     comm = mesh_comm(rules.mesh)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = init_params_sharded(
-        cfg, rules, torch.Generator(device=dev).manual_seed(0), device=dev,
-        dtype=torch.bfloat16)
+    if params is None:
+        params = init_params_sharded(
+            cfg, rules, torch.Generator(device=dev).manual_seed(0),
+            device=dev, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     held = sum(t.numel() for t in tree_leaves(params))
+    held_bytes = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(params))
     toks = batch_slab(torch.from_numpy(job["tokens"]), rules).to(dev)
     caches = init_caches(cfg, toks.shape[0], job["max_len"], device=dev)
     prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
@@ -4146,7 +4217,7 @@ def lm_ranks_serve(dev, rules, job, rank):
     gc.collect()
     torch.cuda.empty_cache()
     return {"init_s": init_s, "params_held": held,
-            "param_bytes_held": 2 * held, "slab": list(toks.shape),
+            "param_bytes_held": held_bytes, "slab": list(toks.shape),
             "peak_memory_allocated": peak, "prefill_ms": prefill_ms,
             "decode_step_ms": step_ms, "comm_prefill": comm_prefill,
             "comm_decode": comm_decode, "moe_gemm_route_launches": routes,
@@ -4168,14 +4239,17 @@ def lm_ranks_serve(dev, rules, job, rank):
             "tokens_total": int(tokens.numel())}
 
 
-def lm_ranks_train(dev, rules, job, rank):
+def lm_ranks_train(dev, rules, job, rank, params=None):
     """One rank's training run under the rules: float32 master slices from
-    the seeded generator, ``LM_RANKS_TRAIN_STEPS`` AdamW steps with int8
-    compression on the rank's slab of each global batch (timed), the
-    losses and the parameters against the one-process oracle (its whole
-    leaves shared from the parent's card), then the parameters saved
-    sharded (gathered whole on rank 0, written once) and restored with
-    ``sharding_tree=``, bitwise."""
+    the seeded generator, an AdamW step on the rank's slab of each global
+    batch (timed; int8 compression unless ``job["compress"]`` is False),
+    the losses and the parameters against the one-process oracle (its
+    whole leaves shared from the parent's card), the state's bytes held
+    (parameters, moments, residual), then, with a ``job["ckpt_dir"]``, the
+    parameters saved sharded (gathered whole on rank 0, written once) and
+    restored with ``sharding_tree=``, bitwise. ``params``: this rank's
+    float32 slices already drawn (a serving run before may have used
+    them)."""
     from repro_torch.checkpoint import restore_checkpoint, save_sharded
     from repro_torch.core.collectives import mesh_comm
     from repro_torch.kernels.flash_attention import kernel as fa
@@ -4192,12 +4266,14 @@ def lm_ranks_train(dev, rules, job, rank):
     cfg, oracle = job["cfg"], job["oracle"]
     comm = mesh_comm(rules.mesh)
     torch.cuda.reset_peak_memory_stats()
-    params = init_params_sharded(
-        cfg, rules, torch.Generator(device=dev).manual_seed(0), device=dev,
-        dtype=torch.float32)
-    state = init_train_state(cfg, params, compress=True)
+    if params is None:
+        params = init_params_sharded(
+            cfg, rules, torch.Generator(device=dev).manual_seed(0),
+            device=dev, dtype=torch.float32)
+    compress = job.get("compress", True)
+    state = init_train_state(cfg, params, compress=compress)
     step = make_train_step(cfg, AdamWConfig(**LM_RANKS_OPT),
-                           compress_grads=True)
+                           compress_grads=compress)
     fa.reset_launches()
     mg.reset_launches()
     comm.reset_counts()
@@ -4218,7 +4294,8 @@ def lm_ranks_train(dev, rules, job, rank):
                   "calls": dict(comm.calls)}
     peak = torch.cuda.max_memory_allocated()
     losses = ("loss/total", "loss/ce", "loss/aux")
-    rel = [{k: abs(got[k] - want[k]) / abs(want[k])
+    # relative; a model without MoE has an aux loss of 0 on both sides
+    rel = [{k: abs(got[k] - want[k]) / (abs(want[k]) or 1.0)
             for k in losses + ("opt/grad_norm",)}
            for got, want in zip(metrics, oracle["metrics"])]
     tols = [{k: LM_RANKS_FIRST_LOSS_RTOL for k in losses}] + [
@@ -4240,24 +4317,28 @@ def lm_ranks_train(dev, rules, job, rank):
         worst = max(worst, float(d.max()))
         mean_num += float(d.sum())
         count += d.numel()
-    shardings = named_shardings(global_params(cfg, torch.float32), rules)
-    t0 = time.perf_counter()
-    save_sharded(job["ckpt_dir"], LM_RANKS_TRAIN_STEPS, state.params,
-                 shardings)
-    save_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    back = restore_checkpoint(job["ckpt_dir"],
-                              global_params(cfg, torch.float32),
-                              device=dev, sharding_tree=shardings)
-    torch.cuda.synchronize()
-    restore_s = time.perf_counter() - t0
-    same = all(bitwise(a, b) for a, b in zip(tree_leaves(back),
-                                               tree_leaves(state.params)))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves((state.params, state.opt.mu,
+                                            state.opt.nu, state.residual)))
+    save_s = restore_s = same = back = None
+    if job.get("ckpt_dir"):
+        shardings = named_shardings(global_params(cfg, torch.float32), rules)
+        t0 = time.perf_counter()
+        save_sharded(job["ckpt_dir"], len(metrics), state.params, shardings)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = restore_checkpoint(job["ckpt_dir"],
+                                  global_params(cfg, torch.float32),
+                                  device=dev, sharding_tree=shardings)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = all(bitwise(a, b) for a, b in zip(
+            tree_leaves(back), tree_leaves(state.params)))
     mean = mean_num / max(count, 1)
     out = {"steps": len(metrics), "metrics": metrics, "step_ms": step_ms,
            "metrics_ok": metrics_ok, "metrics_rel": rel,
            "params_ok": worst <= bound and mean <= mean_bound,
-           "peak_memory_allocated": peak,
+           "peak_memory_allocated": peak, "state_bytes_held": state_bytes,
            "params_held": sum(t.numel() for t in tree_leaves(params)),
            "param_max_abs_diff": worst, "param_mean_abs_diff": mean,
            "param_bound": bound, "param_mean_bound": mean_bound,
@@ -4272,14 +4353,17 @@ def lm_ranks_train(dev, rules, job, rank):
 
 
 def lm_ranks_worker(rank, world, backend, init_file, job, queue):
-    """One rank of the lm_ranks phase: join the group on
+    """One rank of the lm_ranks and fsdp phases: join the group on
     ``cuda:(rank % device_count)`` (the host when ``job["device"]`` is
-    "cpu", a rehearsal), build the (1, world) mesh under ``ep_dp`` and run
-    the job's serving and training parts."""
+    "cpu", a rehearsal), build the job's ``(data, model)`` mesh (``(1,
+    world)`` by default) under its profile (``ep_dp`` by default) and run
+    the job's serving and training parts (with ``job["shared_init"]``,
+    both on one float32 draw of this rank's slices)."""
     import datetime
 
     import torch.distributed as dist
 
+    clock = {"entry": time.time()}     # the host's wall clock
     try:
         torch.set_num_threads(1)   # the ranks share the host's cores
         if backend == "nccl":   # one host, no network: bootstrap on loopback
@@ -4296,16 +4380,41 @@ def lm_ranks_worker(rank, world, backend, init_file, job, queue):
         from repro_torch.launch.mesh import make_local_mesh
         from repro_torch.sharding import ShardingRules
 
-        rules = ShardingRules.for_mesh(make_local_mesh(1, world), "ep_dp")
-        out = {}
+        rules = ShardingRules.for_mesh(
+            make_local_mesh(*job.get("mesh", (1, world))),
+            job.get("profile", "ep_dp"))
+        clock["group"] = time.time()
+        out, params = {"clock": clock}, None
+        if job.get("shared_init"):
+            # one float32 draw: served from (gathered as bf16), then trained
+            from repro_torch.sharding.placement import init_params_sharded
+
+            t0 = time.perf_counter()
+            params = init_params_sharded(
+                job["train"]["cfg"], rules,
+                torch.Generator(device=dev).manual_seed(0), device=dev,
+                dtype=torch.float32)
+            torch.cuda.synchronize()
+            out["init_s"] = time.perf_counter() - t0
         if "serve" in job:
-            out["serve"] = lm_ranks_serve(dev, rules, job["serve"], rank)
+            out["serve"] = lm_ranks_serve(dev, rules, job["serve"], rank,
+                                          params)
         if "train" in job:
-            out["train"] = lm_ranks_train(dev, rules, job["train"], rank)
+            out["train"] = lm_ranks_train(dev, rules, job["train"], rank,
+                                          params)
+        del params
+        clock["done"] = time.time()
         queue.put((rank, "ok", out))
     except Exception:  # report, then fail the phase in the parent
         queue.put((rank, "error", traceback.format_exc()))
     finally:
+        # drop the parent's tensors shared through CUDA IPC (the oracle's
+        # parameters) before this process ends, so that the parent can
+        # free them (``torch.cuda.ipc_collect``)
+        job.clear()
+        gc.collect()
+        if torch.cuda.is_initialized():
+            torch.cuda.empty_cache()      # the next calls, or the parent's
         if dist.is_initialized():
             dist.destroy_process_group()
 
@@ -4330,12 +4439,13 @@ def lm_serve_checks(rows, cfg, steps, label):
               f"{row['flash_attention_route_launches']}")
         slab = row["slab"][0]
         world = len(rows)
-        caps = {"prefill": _lm_cap(cfg, slab * row["slab"][1]),
-                "decode": _lm_cap(cfg, slab)}
         want = dict.fromkeys(mg.ROUTES, 0)
         for phase, fwd in (("prefill", 1), ("decode", steps)):
-            want[mg.route(torch.bfloat16, world * caps[phase])] += \
-                3 * n_moe * fwd
+            if n_moe:
+                cap = _lm_cap(cfg, slab * (row["slab"][1]
+                                           if phase == "prefill" else 1))
+                want[mg.route(torch.bfloat16, world * cap)] += \
+                    3 * n_moe * fwd
         check(row["moe_gemm_route_launches"] == want,
               f"{label} rank {r}: moe_gemm launches "
               f"{row['moe_gemm_route_launches']}, expected {want}")
@@ -4554,6 +4664,327 @@ def phase_lm_ranks(dev, arch="qwen2-moe-a2.7b"):
     emit({"phase": "lm_ranks", "card": smi, "ranks_s": t_ranks,
           "lowest_available_host_bytes": lowest,
           "route_launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11c: fsdp — parameters ZeRO-sharded over data > 1
+# ---------------------------------------------------------------------------
+
+FSDP_ARCH = "musicgen-large"
+FSDP_RANKS = 4
+# musicgen-large's training steps: each moves 19.35 GB a rank through gloo
+# (24–35 s on an H100); a second put the script over its time budget on a
+# slower H100 host, so the later steps are checked on qwen2-moe
+# (FSDP_MOE_STEPS)
+FSDP_STEPS = 1
+FSDP_SEQ = 2048                 # one sequence a rank
+FSDP_PROMPT = 512               # one prompt a rank
+FSDP_DECODE = 2                 # greedy decode steps after the prefill
+FSDP_MOE_LAYERS = 2
+FSDP_MOE_STEPS = 2
+# the largest share of the whole model's parameter and moment bytes a rank
+# may hold (a quarter, and the replicated norms)
+FSDP_STATE_SHARE = 0.26
+
+
+def fsdp_wire(cfg, rules):
+    """The elements a rank sends to gather every FSDP leaf of the model
+    once, its slice to each ``data`` peer: ``(embedding, layers)``. The
+    ``fsdp`` kind's bytes are these times the wire's element size."""
+    from repro_torch.checkpoint.store import _leaves
+    from repro_torch.sharding import fsdp_dim, leaf_pspecs
+    from repro_torch.sharding.placement import global_params, spec_axes
+
+    whole = global_params(cfg)
+    numel = {path: leaf.numel() for path, leaf in _leaves(whole)}
+    peers = rules.fsdp_size - 1
+    embed = layers = 0
+    for path, spec in leaf_pspecs(whole, rules):
+        if fsdp_dim(spec, rules) is None:
+            continue
+        split = 1
+        for e in spec:
+            for ax in spec_axes(e):
+                split *= rules.axis_size(ax)
+        n = peers * numel[path] // split
+        if path == "embed":
+            embed += n
+        else:
+            layers += n
+    return embed, layers
+
+
+def fsdp_oracle(dev, cfg, compress, steps, params=None):
+    """The one-process port's ``make_train_step(microbatches=4)`` on the
+    global batch of ``FSDP_RANKS`` x ``FSDP_SEQ`` for ``steps`` steps
+    from ``params`` (``train_params`` when None; updated in place):
+    (batches as numpy, metrics, the parameters' leaves on the card,
+    seconds, peak memory). Everything else it held is freed."""
+    from repro_torch.train import AdamWConfig, init_train_state, \
+        make_train_step
+    from repro_torch.train.optimizer import tree_leaves
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    get = train_batches(cfg, dev, seq=FSDP_SEQ, batch=FSDP_RANKS)
+    batches = [{k: v.cpu().numpy() for k, v in get(i).items()}
+               for i in range(steps)]
+    check(all((b["labels"] >= 0).all() for b in batches),
+          "the fsdp training batches mask a label")
+    if params is None:
+        params = train_params(cfg, dev)
+    state = init_train_state(cfg, params, compress=compress)
+    del params
+    step = make_train_step(cfg, AdamWConfig(**LM_RANKS_OPT),
+                           compress_grads=compress, microbatches=FSDP_RANKS)
+    metrics = []
+    for b in batches:
+        state, m = step(state, {k: torch.from_numpy(v).to(dev)
+                                for k, v in b.items()})
+        metrics.append({k: float(v) for k, v in m.items()})
+    params = tree_leaves(state.params)
+    peak = torch.cuda.max_memory_allocated()
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return batches, metrics, params, time.perf_counter() - t0, peak
+
+
+def fsdp_train_checks(rows, cfg, rules, compress, steps, label,
+                      max_share=None):
+    """Every rank's training run against the one-process oracle (the
+    lm_ranks phase's bounds), its state's share of the whole model's (at
+    most ``max_share``, when given), its launches (the forward and remat's
+    recompute of each layer) and its ``fsdp`` bytes and calls: each layer
+    gathered twice a step in the compute dtype, the float32 embedding
+    once, every gradient reduce-scattered in float32."""
+    from repro_torch.models.transformer import _fsdp_dims
+    from repro_torch.sharding.placement import global_params
+    from repro_torch.train.optimizer import tree_leaves
+
+    n = sum(t.numel() for t in tree_leaves(global_params(cfg)))
+    whole = n * 4 * (4 if compress else 3)   # params, moments (residual)
+    embed, layers = fsdp_wire(cfg, rules)
+    n_embed = 1 if embed else 0
+    # one gather a layer (its leaves in one transfer)
+    n_fsdp = len({path.split("/")[1] for path in _fsdp_dims(cfg, rules)
+                  if path != "embed"})
+    step_bytes = 4 * embed + 2 * 2 * layers + 4 * (embed + layers)
+    step_calls = 2 * (n_embed + n_fsdp) + n_fsdp
+    n_attn = sum(1 for k in cfg.pattern if k in "aAl") * cfg.n_periods
+    n_moe = sum(1 for k in cfg.pattern if k in "AM") * cfg.n_periods
+    for r, row in enumerate(rows):
+        check(row["metrics_ok"], f"{label} rank {r}: metrics "
+              f"{row['metrics_rel']} off the one-process run")
+        check(row["params_ok"], f"{label} rank {r}: the parameters are "
+              f"{row['param_max_abs_diff']} (mean "
+              f"{row['param_mean_abs_diff']}) off the one-process run "
+              f"(bounds {row['param_bound']}, {row['param_mean_bound']})")
+        row["whole_state_bytes"] = whole
+        row["state_share"] = row["state_bytes_held"] / whole
+        check(max_share is None or row["state_share"] <= max_share,
+              f"{label} rank {r}: holds {row['state_share']} of the "
+              "model's state")
+        check(row["flash_attention_route_launches"]
+              == {"tc": 2 * n_attn * steps, "fp32": 0},
+              f"{label} rank {r}: attention launches "
+              f"{row['flash_attention_route_launches']}")
+        mg = row["moe_gemm_route_launches"]
+        check(mg.get("prefill", 0) == 6 * n_moe * steps
+              and sum(mg.values()) == mg.get("prefill", 0),
+              f"{label} rank {r}: moe_gemm launches {mg}")
+        comm = row["comm_steps"]
+        check(len(row["metrics"]) == steps
+              and comm["bytes"]["fsdp"] == steps * step_bytes
+              and comm["calls"]["fsdp"] == steps * step_calls,
+              f"{label} rank {r}: fsdp {comm['bytes']['fsdp']} bytes in "
+              f"{comm['calls']['fsdp']} calls, expected "
+              f"{steps * step_bytes} in {steps * step_calls}")
+    return {"flash_attention": sum_routes(
+        r["flash_attention_route_launches"] for r in rows),
+        "moe_gemm": sum_routes(r["moe_gemm_route_launches"] for r in rows)}
+
+
+def spawn_split(rows, start, end):
+    """Per rank, where a spawn's wall went (host clock, seconds): from the
+    parent's start to the rank's entry (the process, its imports and the
+    job's arguments), joining the group, its work, and from its result to
+    the parent's last join (the processes' exit)."""
+    return [{"start": r["clock"]["entry"] - start,
+             "group": r["clock"]["group"] - r["clock"]["entry"],
+             "work": r["clock"]["done"] - r["clock"]["group"],
+             "end": end - r["clock"]["done"]} for r in rows]
+
+
+def sum_routes(rows):
+    out = {}
+    for row in rows:
+        for k, v in row.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def released():
+    """Free what this process holds of the card's memory, tensors it shared
+    with ranks through CUDA IPC included (they stay allocated here until
+    ``ipc_collect`` after the ranks drop them); the bytes still
+    allocated."""
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def stand_in_rules(shape, profile):
+    """``profile``'s rules on a stand-in ``(data, model)`` mesh of
+    ``shape`` (sizes only: no coordinate)."""
+    from repro_torch.sharding import ShardingRules
+
+    mesh = type("Mesh", (), {"axis_names": ("data", "model"),
+                             "shape": dict(zip(("data", "model"), shape))})()
+    return ShardingRules.for_mesh(mesh, profile)
+
+
+def fsdp_run(pool, job):
+    """``job`` on the pool's ranks: (rows, lowest available host memory,
+    seconds, the wall's split per rank); the parent's memory released
+    after."""
+    t0, w0 = time.perf_counter(), time.time()
+    rows, lowest = pool.run(job)
+    seconds = time.perf_counter() - t0
+    split = spawn_split(rows, w0, time.time())
+    job.clear()
+    released()
+    return rows, lowest, seconds, split
+
+
+def fsdp_musicgen(dev, pool, smi):
+    """Part (a) of :func:`phase_fsdp`: the one-process references from the
+    float32 masters the ranks draw (each layer cast to bf16, as the ranks'
+    gathers cast it), each rank's prompt served, then training from the
+    same masters; then the ranks. Returns the launches by kernel and
+    route."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    cfg = get_config(FSDP_ARCH)
+    check(cfg.remat == "block", f"remat {cfg.remat}")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab,
+                                             (FSDP_RANKS, FSDP_PROMPT))
+    max_len = FSDP_PROMPT + FSDP_DECODE + 1
+    params = train_params(cfg, dev)
+    refs = greedy_refs(params, cfg, dev, toks, FSDP_RANKS, FSDP_DECODE,
+                       max_len)
+    t_refs = time.perf_counter() - t0
+    batches, metrics, oracle, t_oracle, oracle_peak = fsdp_oracle(
+        dev, cfg, False, FSDP_STEPS, params)
+    del params
+    held = released()
+    rows, lowest, t_ranks, split = fsdp_run(pool, {
+        "device": dev.type, "mesh": (FSDP_RANKS, 1), "profile": "dp_only",
+        "shared_init": True,
+        "serve": {"cfg": cfg, "tokens": toks, "max_len": max_len,
+                  "steps": FSDP_DECODE, "refs": refs, "native": refs},
+        "train": {"cfg": cfg, "batches": batches, "compress": False,
+                  "oracle": {"metrics": metrics, "params": oracle},
+                  "ckpt_dir": None}})
+    del oracle
+    serve = [r["serve"] for r in rows]
+    train = [dict(r["train"], init_s=r["init_s"]) for r in rows]
+    rules = stand_in_rules((FSDP_RANKS, 1), "dp_only")
+    launches = lm_serve_checks(serve, cfg, FSDP_DECODE, "fsdp musicgen")
+    embed, layers = fsdp_wire(cfg, rules)
+    # float32 masters: the embedding gathered in float32, the layers in bf16
+    forward = 4 * embed + 2 * layers
+    for r, row in enumerate(serve):
+        check(row["tokens_agree"] == row["tokens_total"],
+              f"fsdp musicgen rank {r}: {row['tokens_agree']} of "
+              f"{row['tokens_total']} greedy tokens as the one-process "
+              "port's")
+        check(row["comm_prefill"]["bytes"]["fsdp"] == forward
+              and row["comm_decode"]["bytes"]["fsdp"]
+              == FSDP_DECODE * forward,
+              f"fsdp musicgen rank {r}: fsdp bytes "
+              f"{row['comm_prefill']['bytes']['fsdp']} / "
+              f"{row['comm_decode']['bytes']['fsdp']}, expected {forward} "
+              "a forward")
+    emit({"phase": "fsdp_musicgen_serve", "card": smi, "arch": FSDP_ARCH,
+          "ranks": FSDP_RANKS, "backend": "gloo", "mesh": [FSDP_RANKS, 1],
+          "profile": "dp_only", "prompt": [FSDP_RANKS, FSDP_PROMPT],
+          "decode_steps": FSDP_DECODE, "one_process_refs_s": t_refs,
+          "per_rank": serve})
+    trained = fsdp_train_checks(train, cfg, rules, False, FSDP_STEPS,
+                                "fsdp musicgen", FSDP_STATE_SHARE)
+    emit({"phase": "fsdp_musicgen_train", "card": smi, "arch": FSDP_ARCH,
+          "layers": cfg.n_layers, "ranks": FSDP_RANKS,
+          "mesh": [FSDP_RANKS, 1], "profile": "dp_only",
+          "global_batch": [FSDP_RANKS, FSDP_SEQ],
+          "oracle": "make_train_step(microbatches=4), "
+                    "AdamWConfig(warmup_steps=1)",
+          "oracle_metrics": metrics, "oracle_s": t_oracle,
+          "oracle_peak_memory_allocated": oracle_peak,
+          "ranks_s": t_ranks, "ranks_split_s": split,
+          "lowest_available_host_bytes": lowest,
+          "parent_memory_allocated_at_run": held, "per_rank": train})
+    return {k: sum_routes([launches[k], trained[k]]) for k in launches}
+
+
+def fsdp_qwen(dev, pool, smi):
+    """Part (b) of :func:`phase_fsdp`: FSDP and expert parallelism together.
+    Returns the launches by kernel and route."""
+    cfg = train_cfg(FSDP_MOE_LAYERS)
+    batches, metrics, oracle, t_oracle, oracle_peak = fsdp_oracle(
+        dev, cfg, True, FSDP_MOE_STEPS)
+    held = released()
+    rows, lowest, t_ranks, split = fsdp_run(pool, {
+        "device": dev.type, "mesh": (2, 2), "profile": "ep_dp",
+        "train": {"cfg": cfg, "batches": batches, "compress": True,
+                  "oracle": {"metrics": metrics, "params": oracle},
+                  "ckpt_dir": None}})
+    del oracle
+    train = [r["train"] for r in rows]
+    launches = fsdp_train_checks(train, cfg, stand_in_rules((2, 2), "ep_dp"),
+                                 True, FSDP_MOE_STEPS, "fsdp qwen2-moe")
+    emit({"phase": "fsdp_qwen_train", "card": smi, "arch": TRAIN_ARCH,
+          "layers": cfg.n_layers, "ranks": FSDP_RANKS, "mesh": [2, 2],
+          "profile": "ep_dp", "global_batch": [FSDP_RANKS, FSDP_SEQ],
+          "oracle": "make_train_step(microbatches=4), compress_grads, "
+                    "AdamWConfig(warmup_steps=1)",
+          "oracle_metrics": metrics, "oracle_s": t_oracle,
+          "oracle_peak_memory_allocated": oracle_peak,
+          "ranks_s": t_ranks, "ranks_split_s": split,
+          "lowest_available_host_bytes": lowest,
+          "parent_memory_allocated_at_run": held, "per_rank": train})
+    return launches
+
+
+def phase_fsdp(dev):
+    """FSDP over ``data > 1``, in 4 spawned gloo ranks sharing the card (one
+    :class:`RankPool`, started first: the ranks import while (a)'s
+    references are computed): (a) musicgen-large at full size (48 layers,
+    3.22 B parameters, 51.5 GB of float32 state with gradients) under
+    ``dp_only`` on a ``(4, 1)`` mesh: ``FSDP_STEPS`` AdamW step (lr 3e-4
+    from the first), one sequence of ``FSDP_SEQ`` tokens a rank, against
+    the one-process ``make_train_step(microbatches=4)`` on the same global
+    batch (run first here, its memory freed before the ranks start);
+    before it, from the same float32 masters (each rank its slices of one
+    draw, gathered as bf16), a prefill of a ``FSDP_PROMPT``-token prompt a
+    rank and ``FSDP_DECODE`` greedy decode steps against the one-process
+    port on each rank's prompt; (b) qwen2-moe-a2.7b at full width,
+    ``FSDP_MOE_LAYERS`` layers, under ``ep_dp`` on ``(2, 2)`` (FSDP and
+    expert parallelism together), ``FSDP_MOE_STEPS`` steps of 4 x ``FSDP_SEQ``
+    with int8 compression against ``microbatches=4``. Returns the launches
+    by kernel and route."""
+    t_phase = time.perf_counter()
+    smi = card()
+    released()                  # what an earlier phase's ranks shared
+    with RankPool(FSDP_RANKS, "gloo", target=lm_ranks_worker) as pool:
+        a = fsdp_musicgen(dev, pool, smi)
+        b = fsdp_qwen(dev, pool, smi)
+    launches = {k: sum_routes([a[k], b[k]]) for k in a}
+    emit({"phase": "fsdp", "card": smi, "route_launches": launches,
           "seconds": time.perf_counter() - t_phase})
     return launches
 
@@ -5327,6 +5758,8 @@ def main():
         # phase left that profile with no kernel record (on an H100)
         lm_ranks = phase_lm_ranks(dev)
         lap("lm_ranks")
+        fsdp = phase_fsdp(dev)
+        lap("fsdp")
         train = phase_train(dev)
         lap("train")
         smi = subprocess.run(
@@ -5374,12 +5807,14 @@ def main():
         "flash_attention": {
             r: {"serve": attn_routes[r],
                 "lm_ranks": lm_ranks["flash_attention"].get(r, 0),
+                "fsdp": fsdp["flash_attention"].get(r, 0),
                 "mamba": mamba_attn_routes[r],
                 "train": train["full_width"]["flash_attention"][r]
                 + train["f32"]["flash_attention"][r]} for r in attn_routes},
         "moe_gemm": {
             r: {"serve": routes[r],
                 "lm_ranks": lm_ranks["moe_gemm"].get(r, 0),
+                "fsdp": fsdp["moe_gemm"].get(r, 0),
                 "mamba": mamba_routes[r],
                 "train": train["full_width"]["moe_gemm"][r]
                 + train["f32"]["moe_gemm"][r]} for r in routes}}
@@ -5388,7 +5823,12 @@ def main():
                   "serving qwen2-moe-a2.7b at full size (a prefill and 32 "
                   "decode steps; the experts' GEMMs see P·cap rows, so "
                   "decode runs on the prefill route) and 3 training steps "
-                  "(2 layers); jamba-v0.1-52b at full width, one period: one "
+                  "(2 layers); fsdp (every rank): 4 gloo ranks, "
+                  "musicgen-large at full size under dp_only on (4, 1) (a "
+                  "prefill and 2 decode steps, then a training step, the "
+                  "forward and remat's recompute) and qwen2-moe-a2.7b at "
+                  "full width, 2 layers, under ep_dp on (2, 2) (2 training "
+                  "steps); jamba-v0.1-52b at full width, one period: one "
                   "generate; training: the 6 steps of qwen2-moe-a2.7b at full "
                   "width, 4 layers, S 4096, B 2, remat block (the forward "
                   "and the backward's recompute); the float32 routes: the "

@@ -47,9 +47,11 @@ all-gather of the reduced chunks: every rank gets the same bits, and a NaN
 on any rank survives a max. Their autograd forms, for the paths a gradient
 crosses ranks on: :func:`all_to_all` (backward: the reverse all-to-all),
 :func:`all_gather_cat` (backward: a reduce-scatter), :func:`reduce_scatter`
-(backward: an all-gather) and :func:`psum` (backward: the identity — the
-sum feeds an objective every rank holds whole, and each rank carries the
-gradient back to its own term).
+(backward: an all-gather), :func:`fsdp_gather` (parameter slices cast and
+gathered, each along its FSDP dim, in one transfer; backward: one float32
+reduce-scatter) and :func:`psum` (backward: the identity — the sum feeds an
+objective every rank holds whole, and each rank carries the gradient back
+to its own term).
 """
 
 from __future__ import annotations
@@ -66,15 +68,17 @@ from .sparse import CSC, from_coo
 __all__ = ["Transport", "Pending", "wire_device", "agree", "all_same",
            "gather_rows", "gather_csc", "mesh_index", "dim_ranks",
            "MeshComm", "mesh_comm", "all_to_all",
-           "all_gather_cat", "reduce_scatter", "psum"]
+           "all_gather_cat", "reduce_scatter", "fsdp_gather", "psum"]
 
 # transfer kinds the transport counts bytes for: the SpGEMM engines' four,
 # then the language model's — "a2a" the MoE's bucket exchange (there and
 # back), "rows" the live-row counts sent along with it, "vocab" the
-# vocab-sharded embedding's, cross entropy's and logits' traffic, "reduce"
-# every other reduce and gather (gradients, the aux loss, metrics, norms)
+# vocab-sharded embedding's, cross entropy's and logits' traffic, "fsdp"
+# the FSDP gathers of parameter slices and their gradients'
+# reduce-scatters, "reduce" every other reduce and gather (gradients, the
+# aux loss, metrics, norms)
 KINDS = ("ring", "gather", "merge", "result", "a2a", "rows", "vocab",
-         "reduce")
+         "fsdp", "reduce")
 # the largest piece a transfer moves at once outside NCCL (Transport)
 PIECE_BYTES = 64 << 20
 # MeshComm.reduce gathers tensors of at most this many elements whole (one
@@ -521,12 +525,17 @@ def _tiled_a2a(comm, x, dims, split_dim, cat_dim, kind):
     return torch.cat(got, dim=cat_dim)
 
 
-def _reduce_scatter(comm, x, dims, kind):
-    got = comm.exchange(list(x.chunk(comm.size(dims), dim=0)), dims, kind)
+def _sum_members(got):
+    """The received blocks summed in member order."""
     out = got[0]
     for g in got[1:]:
         out = out + g
     return out
+
+
+def _reduce_scatter(comm, x, dims, kind):
+    return _sum_members(comm.exchange(list(x.chunk(comm.size(dims), dim=0)),
+                                      dims, kind))
 
 
 def _gather_cat(comm, x, dims, kind):
@@ -571,6 +580,40 @@ class _ReduceScatter(torch.autograd.Function):
         return _gather_cat(comm, g, dims, kind), None, None, None
 
 
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, dims, at, dtype, *xs):
+        ctx.args = (comm, dims, at, [x.dtype for x in xs])
+        p = comm.size(dims)
+        flat = torch.cat([x.to(dtype).reshape(-1) for x in xs])
+        got = comm.gather(flat, dims, "fsdp")               # (P, n)
+        out, off = [], 0
+        for x, d in zip(xs, at):
+            n = x.numel()
+            shape = list(x.shape)
+            shape[d] *= p
+            out.append(got[:, off:off + n].reshape((p,) + tuple(x.shape))
+                       .movedim(0, d).reshape(shape))
+            off += n
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        comm, dims, at, dtypes = ctx.args
+        p = comm.size(dims)
+        # member i's block of every leaf, flattened in leaf order
+        parts = [g.float().chunk(p, dim=d) for g, d in zip(gs, at)]
+        red = _sum_members(comm.exchange(
+            [torch.cat([c[i].reshape(-1) for c in parts]) for i in range(p)],
+            dims, "fsdp"))
+        grads, off = [], 0
+        for c, dt in zip(parts, dtypes):
+            n = c[0].numel()
+            grads.append(red[off:off + n].reshape(c[0].shape).to(dt))
+            off += n
+        return (None, None, None, None, *grads)
+
+
 class _PSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, comm, dims, kind):
@@ -601,6 +644,17 @@ def reduce_scatter(x, comm: MeshComm, dims, kind: str = "reduce"):
     over members of their block i, in member order. Backward: an
     all-gather."""
     return _ReduceScatter.apply(x, comm, tuple(dims), kind)
+
+
+def fsdp_gather(xs: Sequence[torch.Tensor], comm: MeshComm, dims,
+                at: Sequence[int], dtype: torch.dtype) -> List[torch.Tensor]:
+    """Parameter slices gathered whole, in one transfer: every member's
+    ``xs`` cast to ``dtype`` (so the wire carries the compute dtype), leaf
+    ``j`` joined along dim ``at[j]`` in member order. Backward: each whole
+    leaf's cotangent in float32, its member blocks along ``at[j]`` summed
+    over members in member order (one float32 reduce-scatter for all the
+    leaves), returned in each slice's dtype. Counted under ``"fsdp"``."""
+    return list(_FsdpGather.apply(comm, tuple(dims), tuple(at), dtype, *xs))
 
 
 def psum(x, comm: MeshComm, dims, kind: str = "reduce"):

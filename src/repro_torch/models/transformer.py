@@ -24,10 +24,27 @@ activations. The reference's ``"dots"`` policy (matmul outputs saved) is
 not ported and raises.
 
 Across ranks (``sharding.use_rules`` with an executed profile: ``ep_dp`` or
-``dp_only`` on a ``(data=1, model=P)`` mesh), every entry point takes this
+``dp_only`` on a ``(data, model)`` mesh), every entry point takes this
 rank's slab of a global batch split over ``rules.batch`` and this rank's
-parameter slices (``sharding.placement``). Where the rules shard the tied
-embedding's vocab over the model axis (``ep_dp``):
+parameter slices (``sharding.placement``). Where the rules split a leaf
+over the FSDP axis (``data`` larger than 1), the slices are gathered where
+they are used (``collectives.fsdp_gather``):
+
+  * each layer's leaves inside the layer's body: float32 masters cast to
+    the compute dtype before the gather, so the wire carries bf16 (the
+    reference pins the cast to the FSDP sharding for the same reason).
+    Under remat ``block`` the gather is inside the checkpointed body, so
+    the backward's recompute gathers again and no rank keeps a whole layer
+    between its forward and its backward; the gather's backward is a
+    float32 reduce-scatter, which sums each slice's gradient over ``data``;
+  * the tied embedding once a forward, in its own dtype (the cross entropy
+    reads the float32 master, as the reference reads
+    ``params["embed"].astype(float32)``), shared by the input lookup and
+    the cross entropy; under ``ep_dp`` it is then this rank's vocab rows
+    whole, and the vocab path below runs over ``model``.
+
+Where the rules shard the tied embedding's vocab over the model axis
+(``ep_dp``):
 
   * the input embedding gathers the token ids over the axis, looks up the
     rows this rank holds (zeros elsewhere) and reduce-scatters: each
@@ -43,23 +60,26 @@ embedding's vocab over the model axis (``ep_dp``):
     vocab.
 
 Otherwise the cross entropy is each rank's own sum over the global label
-count. With no rules every path is the one-process code.
+count; with the vocab split the sums of the model line are reduced over
+the batch axes the split leaves out (``data``). With no rules every path is
+the one-process code.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from ..core.collectives import (all_gather_cat, all_to_all, mesh_comm, psum,
-                                reduce_scatter)
+from ..core.collectives import (all_gather_cat, all_to_all, fsdp_gather,
+                                mesh_comm, psum, reduce_scatter)
 from ..core.device_common import resolve_device
-from ..sharding.placement import spec_axes
+from ..sharding.placement import param_specs, spec_axes
 from ..sharding.rules import (_spec_for, check_executable, current_rules,
-                              use_rules)
+                              fsdp_dim, use_rules)
 from .blocks import block_apply, block_cache_init, block_init
 from .layers import compute_dtype, rmsnorm, rmsnorm_init, softcap, \
     trunc_normal
@@ -109,13 +129,40 @@ def _vocab_split(cfg: ModelConfig):
     return mesh_comm(rules.mesh), axes
 
 
-def _batch_ranks(cfg: ModelConfig):
-    """(comm, batch axes) when the rules in force split the batch over more
-    than one rank, else None."""
+def _batch_ranks(covered=()):
+    """(comm, the batch axes of more than one rank, less ``covered``), or
+    None when there are none."""
     rules = current_rules()
-    if rules is None or rules.batch_size <= 1:
+    if rules is None:
         return None
-    return mesh_comm(rules.mesh), tuple(rules.batch)
+    axes = tuple(a for a in rules.batch
+                 if a not in covered and rules.axis_size(a) > 1)
+    return (mesh_comm(rules.mesh), axes) if axes else None
+
+
+@functools.lru_cache(maxsize=None)
+def _fsdp_dims(cfg: ModelConfig, rules) -> Dict[str, int]:
+    """``{leaf path: dim}`` of the leaves ``rules`` split over the FSDP
+    axis (empty without FSDP)."""
+    if rules is None or rules.fsdp is None or rules.fsdp_size <= 1:
+        return {}
+    dims = ((path, fsdp_dim(spec, rules))
+            for path, spec in param_specs(cfg, rules))
+    return {path: d for path, d in dims if d is not None}
+
+
+def _whole_embed(params, cfg: ModelConfig):
+    """``params`` with the embedding gathered whole over the FSDP axis, in
+    its own dtype, when the rules split it (once a forward: the input
+    lookup and the cross entropy share it); else ``params``."""
+    rules = current_rules()
+    d = _fsdp_dims(cfg, rules).get("embed")
+    if d is None:
+        return params
+    emb = params["embed"]
+    whole, = fsdp_gather([emb], mesh_comm(rules.mesh), (rules.fsdp,), [d],
+                         emb.dtype)
+    return {**params, "embed": whole}
 
 
 def _embed_input(params, cfg: ModelConfig, batch):
@@ -147,32 +194,63 @@ def _vocab_logits(emb, cfg: ModelConfig, h, comm, axes):
     return logits, comm.index(axes) * emb.shape[0]
 
 
-def _as_compute(tree, dtype):
-    """float32 weights cast to the compute dtype (mixed precision, as the
-    reference casts its float32 master); other dtypes as they are."""
-    if isinstance(tree, dict):
-        return {k: _as_compute(v, dtype) for k, v in tree.items()}
-    return tree.to(dtype) if tree.dtype == torch.float32 else tree
+def _cast(tree, path: str, dtype, dims, split) -> dict:
+    """``tree`` with float32 leaves cast to ``dtype``, other dtypes as they
+    are; a leaf whose path is in ``dims`` is left out (None) and listed in
+    ``split[its cast dtype]`` as ``(dict, key, slice, FSDP dim)``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _cast(v, f"{path}/{k}", dtype, dims, split)
+            continue
+        cast = dtype if v.dtype == torch.float32 else v.dtype
+        if f"{path}/{k}" in dims:
+            out[k] = None                       # gathered by the caller
+            split.setdefault(cast, []).append(
+                (out, k, v, dims[f"{path}/{k}"]))
+        else:
+            out[k] = v.to(cast)
+    return out
+
+
+def _layer_weights(lp, cfg: ModelConfig, layer: int):
+    """Layer ``layer``'s weights for its body: float32 masters cast to the
+    compute dtype (mixed precision, as the reference casts its float32
+    master), other dtypes as they are; under FSDP the leaves the rules
+    split over the FSDP axis cast, then gathered whole, in one transfer
+    (:func:`fsdp_gather`)."""
+    rules = current_rules()
+    split: Dict[torch.dtype, list] = {}
+    weights = _cast(lp, f"layers/{layer}", compute_dtype(cfg.dtype),
+                    _fsdp_dims(cfg, rules), split)
+    for cast, leaves in split.items():
+        whole = fsdp_gather([v for _, _, v, _ in leaves],
+                            mesh_comm(rules.mesh), (rules.fsdp,),
+                            [d for _, _, _, d in leaves], cast)
+        for (out, k, _, _), w in zip(leaves, whole):
+            out[k] = w
+    return weights
 
 
 def _run_stack(params, cfg: ModelConfig, h, mode: str, caches):
-    dtype = compute_dtype(cfg.dtype)
     new_caches = []
-    for kind, lp, cache in zip(layer_kinds(cfg), params["layers"], caches):
-        h, nc, _ = block_apply(_as_compute(lp, dtype), cfg, kind, h, cache,
-                               mode)
+    for i, (kind, lp, cache) in enumerate(zip(layer_kinds(cfg),
+                                              params["layers"], caches)):
+        h, nc, _ = block_apply(_layer_weights(lp, cfg, i), cfg, kind, h,
+                               cache, mode)
         new_caches.append(nc)
     return rmsnorm(params["final_norm"], h, cfg.norm_eps), new_caches
 
 
-def _train_layer(lp, cfg: ModelConfig, kind: str, h, rules=None):
-    """One layer in mode "train" on its float32 master weights, cast to the
-    compute dtype here (inside the checkpointed body), under ``rules``: the
-    backward's recompute runs on autograd's device thread, which does not
-    see the caller's thread-local rules."""
+def _train_layer(lp, cfg: ModelConfig, kind: str, layer: int, h,
+                 rules=None):
+    """One layer in mode "train" on its float32 master weights, cast (and
+    under FSDP gathered) here, inside the checkpointed body, under
+    ``rules``: the backward's recompute runs on autograd's device thread,
+    which does not see the caller's thread-local rules."""
     with use_rules(rules):
-        h, _, aux = block_apply(_as_compute(lp, compute_dtype(cfg.dtype)),
-                                cfg, kind, h, None, "train")
+        h, _, aux = block_apply(_layer_weights(lp, cfg, layer), cfg, kind,
+                                h, None, "train")
     return h, aux
 
 
@@ -182,12 +260,12 @@ def _train_stack(params, cfg: ModelConfig, h) -> Tuple[torch.Tensor,
         raise ValueError(f"remat {cfg.remat!r} is not ported; the port runs "
                          f"{REMAT}")
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for kind, lp in zip(layer_kinds(cfg), params["layers"]):
+    for i, (kind, lp) in enumerate(zip(layer_kinds(cfg), params["layers"])):
         if cfg.remat == "block":
-            h, a = checkpoint(_train_layer, lp, cfg, kind, h,
+            h, a = checkpoint(_train_layer, lp, cfg, kind, i, h,
                               current_rules(), use_reentrant=False)
         else:
-            h, a = _train_layer(lp, cfg, kind, h, current_rules())
+            h, a = _train_layer(lp, cfg, kind, i, h, current_rules())
         aux = aux + a
     return rmsnorm(params["final_norm"], h, cfg.norm_eps), aux
 
@@ -195,6 +273,7 @@ def _train_stack(params, cfg: ModelConfig, h) -> Tuple[torch.Tensor,
 def train_logits(params, cfg: ModelConfig, batch):
     """Full float32 logits (B, S, vocab) against the tied embedding, and the
     MoE aux loss."""
+    params = _whole_embed(params, cfg)
     h = _embed_input(params, cfg, batch)
     h, aux = _train_stack(params, cfg, h)
     split = _vocab_split(cfg)
@@ -272,10 +351,10 @@ def _chunked_ce(params, cfg: ModelConfig, h, labels, n_chunks: int):
             ll, n = checkpoint(_ce_chunk, h[:, part], labels[:, part],
                                embed_t, cfg, use_reentrant=False)
         ce_sum, cnt = ce_sum - ll, cnt + n
-    dp = None if split else _batch_ranks(cfg)
+    dp = _batch_ranks(split[1] if split else ())
     if dp:
-        # this rank's sum over the global count; the psum's backward hands
-        # each rank the gradient of its own term
+        # this rank's (or its vocab line's) sum over the global count; the
+        # psum's backward hands each rank the gradient of its own term
         ce_sum = psum(ce_sum, *dp)
         cnt = dp[0].reduce(cnt, dp[1], "sum", "reduce")
     return ce_sum / torch.clamp(cnt, min=1.0)
@@ -288,6 +367,7 @@ def loss_fn(params, cfg: ModelConfig, batch,
     ``loss/aux`` and ``loss/total``. ``loss_chunks`` None: the largest of
     16, 8, 4, 2 that divides S into chunks of at least 256 positions, else
     1 (the reference's rule)."""
+    params = _whole_embed(params, cfg)
     h = _embed_input(params, cfg, batch)
     h, aux = _train_stack(params, cfg, h)
     labels = batch["labels"]
@@ -334,6 +414,7 @@ def prefill_step(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                  caches):
     """batch: ``{"tokens": (B, S)}`` (or ``"embeds"``); returns the last
     position's (B, vocab) float32 logits and the caches."""
+    params = _whole_embed(params, cfg)
     h = _embed_input(params, cfg, batch)
     h, new_caches = _run_stack(params, cfg, h, "prefill", caches)
     return _logits(params, cfg, h), new_caches
@@ -343,6 +424,7 @@ def decode_step(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                 caches):
     """batch: one token per sequence, ``{"tokens": (B, 1)}``; caches from
     prefill. Returns (B, vocab) float32 logits and the caches."""
+    params = _whole_embed(params, cfg)
     h = _embed_input(params, cfg, batch)
     h, new_caches = _run_stack(params, cfg, h, "decode", caches)
     return _logits(params, cfg, h), new_caches

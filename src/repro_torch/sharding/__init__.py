@@ -10,9 +10,9 @@ The collectives the model runs across ranks are in
 """
 
 from .rules import (AXIS_DATA, AXIS_MODEL, AXIS_POD, ShardingRules,
-                    check_executable, current_rules, leaf_pspecs,
-                    mesh_sizes, param_pspecs, shard, use_rules)
+                    check_executable, current_rules, fsdp_dim,
+                    leaf_pspecs, mesh_sizes, param_pspecs, shard, use_rules)
 
 __all__ = ["AXIS_POD", "AXIS_DATA", "AXIS_MODEL", "ShardingRules",
            "use_rules", "current_rules", "shard", "param_pspecs",
-           "leaf_pspecs", "mesh_sizes", "check_executable"]
+           "leaf_pspecs", "mesh_sizes", "check_executable", "fsdp_dim"]

@@ -106,13 +106,19 @@ def _assemble(slices, spec, rules: ShardingRules, axes, coord):
 def gather_full(x: torch.Tensor, spec, rules: ShardingRules,
                 root: int = 0) -> Optional[torch.Tensor]:
     """The whole leaf from every rank's slice ``x``, on global rank
-    ``root`` (None on the others; every rank holding a slice calls it)."""
+    ``root`` (None on the others; every rank holding a slice calls it).
+    Only the ranks of ``root``'s line over the leaf's axes send: on the
+    other lines (a leaf split over ``data`` is replicated over ``model``)
+    the same slices are replicas, and those ranks move nothing."""
     from ..core.collectives import mesh_comm
 
     axes = [a for e in spec for a in spec_axes(e) if rules.axis_size(a) > 1]
     if not axes:
         return x
-    slices = mesh_comm(rules.mesh).gather_to(x, axes, root, "reduce")
+    comm = mesh_comm(rules.mesh)
+    if root not in comm.ranks(axes):
+        return None
+    slices = comm.gather_to(x, axes, root, "reduce")
     if slices is None:
         return None
     return _assemble(slices, spec, rules, axes, coordinate(rules))

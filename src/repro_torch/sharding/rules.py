@@ -26,7 +26,9 @@ Entry points:
   * :func:`shard` — the reference's activation constraint; the identity
     here (see its docstring).
   * :func:`check_executable` — what the port executes across ranks: the
-    ``ep_dp`` and ``dp_only`` profiles on a ``(data=1, model=P)`` mesh.
+    profiles without tensor parallelism (``ep_dp``, ``dp_only``) on any
+    mesh, FSDP over ``data`` included.
+  * :func:`fsdp_dim` — the dim of a leaf split over the FSDP axis.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from typing import Dict, Optional, Tuple
 __all__ = [
     "AXIS_POD", "AXIS_DATA", "AXIS_MODEL",
     "ShardingRules", "use_rules", "current_rules", "shard", "param_pspecs",
-    "mesh_sizes", "check_executable", "leaf_pspecs",
+    "mesh_sizes", "check_executable", "leaf_pspecs", "fsdp_dim",
 ]
 
 AXIS_POD = "pod"
@@ -179,8 +181,9 @@ def shard(x, *logical: Optional[str]):
 def check_executable(rules: Optional[ShardingRules]) -> None:
     """Raise ``NotImplementedError`` unless the port executes ``rules``
     across ranks: no tensor parallelism (the ``default``, ``serve_tp`` and
-    ``ep_sharded`` profiles are ROADMAP item A8c) and no FSDP over a
-    ``data`` axis larger than 1 (item A8b). A profile the port does not
+    ``ep_sharded`` profiles are ROADMAP item A8c). FSDP over a ``data``
+    axis of any size is executed (each leaf's slices gathered where the
+    model uses them, ``models.transformer``). A profile the port does not
     execute is never silently replicated."""
     if rules is None:
         return
@@ -189,10 +192,20 @@ def check_executable(rules: Optional[ShardingRules]) -> None:
             f"tensor/sequence parallelism over {rules.tp!r} (profiles "
             "default, serve_tp, ep_sharded) is not executed by the port: "
             "ROADMAP item A8c")
-    if rules.fsdp is not None and rules.fsdp_size > 1:
-        raise NotImplementedError(
-            f"FSDP over {rules.fsdp!r} of size {rules.fsdp_size} (a mesh "
-            "with data > 1) is not executed by the port: ROADMAP item A8b")
+
+
+def fsdp_dim(spec, rules: ShardingRules) -> Optional[int]:
+    """The dim of a leaf with ``spec`` that is split over ``rules.fsdp``
+    (an axis of more than one rank), or None: the leaf is whole along that
+    axis (no ``"fsdp"`` in its rule, or a dim the axis does not divide,
+    which ``_spec_for`` leaves whole)."""
+    if rules.fsdp is None or rules.fsdp_size <= 1:
+        return None
+    for d, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        if rules.fsdp in axes:
+            return d
+    return None
 
 
 # ---------------------------------------------------------------------------

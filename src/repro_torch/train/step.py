@@ -19,7 +19,10 @@ slab of the batch and its slices of the state) each rank's loss is its
 share of the global one, so a leaf's gradient is summed over the batch
 ranks that do not split it: a replicated leaf's over all of them, while an
 expert or vocab slice's gradient is whole already (the all-to-all's and
-the gather's backward deliver every rank's contribution to its owner).
+the gather's backward deliver every rank's contribution to its owner), and
+an FSDP slice's sum over ``data`` is the float32 reduce-scatter of its
+gather's backward (``collectives.fsdp_gather``), leaving the other batch
+axes (``model`` under ``ep_dp`` / ``dp_only``) to the sum here.
 Then, as the reference quantizes the reduced gradient, each leaf is
 compressed with its scale the max over the whole leaf, the residual
 sliced like its leaf, and the global norm sums the slices' squares.

@@ -29,11 +29,26 @@ Cases (dicts, run in order; every rank runs every case), each with
   another thread (as autograd's device thread recomputes a checkpointed
   layer on a card): ``{"same": bool}``;
 * ``{"kind": "refuse"}`` — ``prefill`` under the rules: the error's text;
+* ``{"kind": "fsdp_gather", "shapes", "dims", "seed"}`` — one
+  ``fsdp_gather`` of this rank's seeded float32 slices over ``data`` in
+  bf16, leaf j along ``dims[j]``, then its backward from seeded bf16
+  cotangents of the whole leaves: ``{"whole", "grad", their dtypes,
+  "sent_forward", "sent_backward", "calls"}``;
+* ``{"kind": "fsdp_wire", "cfg", "params", "batch"}`` — ``loss_fn`` and its
+  gradient under the rules with every ``fsdp_gather`` the model calls
+  recorded: per call of the forward and of the backward (remat's
+  recompute) its leaves' dtypes, the gathered layer leaves still alive
+  between the forward and the backward, and the ``fsdp`` bytes and calls;
+* ``{"kind": "restore", "cfg", "ckpt_dir", "step"}`` — a whole train state's
+  checkpoint restored with ``sharding_tree=``: every leaf's slice;
 * ``{"kind": "stall"}`` — rank 0 starts an all-to-all that rank 1 never
   joins: the error's type and the seconds until it was raised.
 """
 
 import datetime
+import os
+import queue as queues
+import tempfile
 import time
 import traceback
 
@@ -222,6 +237,87 @@ def _refuse(case, rules):
     return None
 
 
+def _fsdp_gather(case, rules):
+    from repro_torch.core.collectives import fsdp_gather, mesh_comm
+
+    comm = mesh_comm(rules.mesh)
+    comm.reset_counts()
+    me = comm.index(("data",))
+    xs = [torch.from_numpy(np.random.default_rng(case["seed"] + 10 * j + me)
+                           .standard_normal(shape).astype(np.float32))
+          .requires_grad_() for j, shape in enumerate(case["shapes"])]
+    whole = fsdp_gather(xs, comm, ("data",), case["dims"], torch.bfloat16)
+    sent = comm.sent["fsdp"]
+    cot = [torch.from_numpy(np.random.default_rng(
+        case["seed"] + 100 + 10 * j + me).standard_normal(tuple(w.shape))
+        .astype(np.float32)).to(torch.bfloat16) for j, w in enumerate(whole)]
+    torch.autograd.backward(whole, cot)
+    return {"whole": [w.detach().float().numpy() for w in whole],
+            "whole_dtype": sorted({str(w.dtype) for w in whole}),
+            "grad": [x.grad.numpy() for x in xs],
+            "grad_dtype": sorted({str(x.grad.dtype) for x in xs}),
+            "sent_forward": sent, "sent_backward": comm.sent["fsdp"] - sent,
+            "calls": comm.calls["fsdp"]}
+
+
+def _fsdp_wire(case, rules):
+    import weakref
+
+    import repro_torch.models.transformer as tr
+    from repro_torch.core.collectives import mesh_comm
+    from repro_torch.sharding import use_rules
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    comm = mesh_comm(rules.mesh)
+    comm.reset_counts()
+    params = tree_map(lambda p: p.requires_grad_(), _params(case, rules))
+    batch = {k: _slab(v, rules) for k, v in case["batch"].items()}
+    seen = {"phase": "forward", "forward": [], "backward": []}
+    orig = tr.fsdp_gather
+
+    def recorded(xs, *args):
+        out = orig(xs, *args)
+        seen[seen["phase"]].append([(str(w.dtype), weakref.ref(w))
+                                    for w in out])
+        return out
+
+    tr.fsdp_gather = recorded
+    try:
+        with use_rules(rules):
+            loss, _ = tr.loss_fn(params, case["cfg"], batch)
+        sent = comm.sent["fsdp"]
+        # the first gather is the embedding's, which the cross entropy
+        # keeps for its backward
+        alive = sum(ref() is not None for call in seen["forward"][1:]
+                    for _, ref in call)
+        seen["phase"] = "backward"
+        loss.backward()
+    finally:
+        tr.fsdp_gather = orig
+    return {"forward": [[d for d, _ in call] for call in seen["forward"]],
+            "backward": [[d for d, _ in call] for call in seen["backward"]],
+            "alive_after_forward": alive, "sent_forward": sent,
+            "sent": comm.sent["fsdp"], "received": comm.received["fsdp"],
+            "calls": comm.calls["fsdp"],
+            "grads": [p.grad is not None and bool(torch.isfinite(p.grad)
+                                                  .all())
+                      for p in tree_leaves(params)]}
+
+
+def _restore(case, rules):
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.checkpoint.store import _leaves
+    from repro_torch.sharding.placement import global_params, named_shardings
+    from repro_torch.train import init_train_state
+
+    whole = init_train_state(case["cfg"],
+                             global_params(case["cfg"], torch.float32))
+    back = restore_checkpoint(case["ckpt_dir"], whole, step=case["step"],
+                              device="cpu",
+                              sharding_tree=named_shardings(whole, rules))
+    return {k: v.numpy() for k, v in _leaves(back)}
+
+
 def _stall(timeout_s):
     from repro_torch.core.collectives import mesh_comm
     from repro_torch.launch.mesh import make_local_mesh
@@ -243,8 +339,9 @@ def run_case(case, timeout_s):
         return _stall(timeout_s)
     rules = _rules(case)
     return {"moe": _moe, "serve": _serve, "train": _train,
-            "thread_grad": _thread_grad,
-            "refuse": _refuse}[case["kind"]](case, rules)
+            "thread_grad": _thread_grad, "refuse": _refuse,
+            "fsdp_gather": _fsdp_gather, "fsdp_wire": _fsdp_wire,
+            "restore": _restore}[case["kind"]](case, rules)
 
 
 def main(rank, world, init_file, cases, queue, timeout_s=GROUP_TIMEOUT_S):
@@ -263,3 +360,41 @@ def main(rank, world, init_file, cases, queue, timeout_s=GROUP_TIMEOUT_S):
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def spawn(world, cases, timeout_s=GROUP_TIMEOUT_S, limit_s=150):
+    """Run ``cases`` on ``world`` gloo ranks (``torch.multiprocessing``,
+    spawned, a ``file://`` init): ``{rank: (status, payload)}``. Every
+    process is joined, or killed past ``limit_s``."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        init = os.path.join(tmp, "init")
+        procs = [ctx.Process(target=main,
+                             args=(r, world, init, cases, q, timeout_s),
+                             daemon=True)
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        got = {}
+        deadline = time.monotonic() + limit_s
+        try:
+            while len(got) < world and time.monotonic() < deadline:
+                try:
+                    rank, status, payload = q.get(timeout=1.0)
+                except queues.Empty:
+                    if all(p.exitcode is not None for p in procs):
+                        break
+                    continue
+                got[rank] = (status, payload)
+        finally:
+            for p in procs:
+                p.join(timeout=max(deadline - time.monotonic(), 1.0))
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10)
+    assert len(got) == world, (f"{world - len(got)} rank(s) reported "
+                               f"nothing within {limit_s} s")
+    return got

@@ -11,9 +11,11 @@ architecture:
   stacked-period dim stripped: equal specs, leaf by leaf, with the port's
   leaf paths (``layers/<p·len(pattern)+i>/…`` for ``period/pos<i>/…``);
 * ``batch_pspecs`` and ``cache_pspecs`` for every shape: equal;
-* ``shard`` is the identity; ``check_executable`` refuses the profiles and
-  meshes the port does not execute, naming their ROADMAP item; the meshes
-  and the sharded init refuse what they cannot do.
+* ``shard`` is the identity; ``check_executable`` refuses the profiles the
+  port does not execute (tensor parallelism), naming their ROADMAP item,
+  and passes FSDP over ``data > 1``; the meshes and the sharded init refuse
+  what they cannot do, and at (2, 4) the sharded init keeps the spec's
+  slices.
 """
 
 import jax
@@ -174,8 +176,7 @@ def test_shard_is_the_identity():
 
 @pytest.mark.parametrize("profile,shape,item", [
     ("default", (1, 4), "A8c"), ("serve_tp", (1, 4), "A8c"),
-    ("ep_sharded", (1, 4), "A8c"), ("ep_dp", (2, 4), "A8b"),
-    ("dp_only", (16, 16), "A8b"), ("ep_dp", (2, 16, 16), "A8b")])
+    ("ep_sharded", (1, 4), "A8c")])
 def test_unexecuted_profiles_raise_naming_their_item(profile, shape, item):
     _, tr = _rules(shape, profile)
     with pytest.raises(NotImplementedError, match=item):
@@ -183,6 +184,47 @@ def test_unexecuted_profiles_raise_naming_their_item(profile, shape, item):
     with pytest.raises(NotImplementedError, match=item):
         init_params_sharded(smoke_config("qwen2-moe-a2.7b"), tr,
                             device="cpu")
+
+
+@pytest.mark.parametrize("profile,shape", [
+    ("ep_dp", (2, 4)), ("dp_only", (16, 16)), ("ep_dp", (2, 16, 16))])
+def test_fsdp_profiles_execute(profile, shape):
+    """FSDP over ``data > 1`` (ROADMAP A8b) passes ``check_executable``; at
+    (2, 4) every coordinate's sharded init is the spec's slices of the
+    one-process ``init_params``, each FSDP leaf split over ``data`` on its
+    ``fsdp_dim``."""
+    from repro_torch.models import init_params
+    from repro_torch.sharding import fsdp_dim
+    from repro_torch.sharding.placement import local_slice
+
+    _, tr = _rules(shape, profile)
+    check_executable(tr)
+    assert tr.fsdp == "data" and tr.fsdp_size == shape[-2]
+    if shape != (2, 4):
+        return
+    cfg = smoke_config("qwen2-moe-a2.7b")
+    whole = dict(_paths(init_params(
+        cfg, torch.Generator().manual_seed(3), device="cpu",
+        dtype=torch.float32)))
+    mesh = StandInMesh(shape, MESHES[shape])
+    for d in range(2):
+        for m in range(4):
+            mesh.coordinate = {"data": d, "model": m}
+            tr = ShardingRules.for_mesh(mesh, profile)
+            specs = dict(leaf_pspecs(global_params(cfg), tr))
+            got = init_params_sharded(cfg, tr,
+                                      torch.Generator().manual_seed(3),
+                                      device="cpu", dtype=torch.float32)
+            fsdp = 0
+            for path, leaf in _paths(got):
+                assert torch.equal(leaf, local_slice(whole[path],
+                                                     specs[path], tr))
+                dim = fsdp_dim(specs[path], tr)
+                if dim is not None:
+                    fsdp += 1
+                    assert leaf.shape[dim] * 2 == whole[path].shape[dim]
+            # embed, and a layer's wq wk wv wo, router, shared up gate down
+            assert fsdp == 1 + 8 * cfg.n_layers, (d, m, fsdp)
 
 
 def test_executed_profiles_pass_and_need_a_card_by_default():
