@@ -331,6 +331,22 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  reduce-scatters; one transfer a layer); per rank the state
                  held, peak memory, step, prefill and decode-step ms and
                  the transfers by kind
+  11d. tp      — tensor and sequence parallelism on fsdp's 4 ranks: (a)
+                 qwen3-8b at full size (7.57 B parameters) under
+                 ``serve_tp`` on ``(1, 4)``: a 2 x 1024 prefill into a
+                 cache split by sequence, 4 greedy decode steps, each rank's
+                 logits within ``TOL`` of the one-process port computing
+                 its products as the ranks do (bitwise on an H100), greedy
+                 tokens equal (or apart only at a one-process top-2 margin
+                 within twice ``TOL``), at most 26 % of the model's weights
+                 and a quarter of its cache a rank; (b) qwen3-8b at full
+                 width, 2 layers, under ``default`` on ``(2, 2)`` (FSDP and
+                 TP): 2 AdamW steps against ``microbatches=2`` (phase 11b's
+                 bounds); (c) qwen2-moe-a2.7b at full width, 2 layers,
+                 under ``ep_sharded`` on ``(1, 4)``: a 2 x 1024 prefill (the
+                 MoE split by sequence), 2 decode steps (the experts split),
+                 an int8 step. Exact launches; per rank ms, peak memory and
+                 the transfers by kind (``tp``, ``sp`` among them)
   12. train    — the training path (``repro_torch.train``): (a) each
                  autograd Function on the card against autograd through its
                  plain version on the card: ``multihead_attention`` (the
@@ -1869,7 +1885,12 @@ def rank_main(target, rank, world, backend, init_file, jobs, queue):
     arguments: the parent writes a process's arguments into a pipe that
     the child reads only once it has imported this module, so arguments
     larger than the pipe held each start until the rank before it had
-    imported (~7.5 s a rank on an H100 host)."""
+    imported (~7.5 s a rank on an H100 host). The rank's CUDA allocator
+    grows its segments in place (``expandable_segments``): four ranks
+    sharing the card each left ~2.3 GB reserved but unallocated, and one
+    ran out of it."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     for n, calls in enumerate(iter(jobs.get, None)):
         target(rank, world, backend, f"{init_file}.{n}", calls, queue)
 
@@ -4093,15 +4114,25 @@ def routing_witness(a, b, k):
     return out
 
 
+def top2_margin(logits):
+    """Per row, (the largest logit less the second, the largest): how far
+    the greedy choice is from a tie."""
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return torch.stack([top[:, 0] - top[:, 1], top[:, 0]], dim=1).cpu()
+
+
 @torch.no_grad()
 def greedy_refs(params, cfg, dev, toks, world, steps, max_len, rows_of=1,
-                routing=False, plain=False):
+                routing=False, plain=False, seq_blocks=1, tp_parts=1):
     """The one-process port on each rank's slab of ``toks``: the prefill's
     logits, the first decode step's (fed the prefill's argmax) and the
-    greedy tokens of ``steps`` decode steps, the grouped GEMMs handed
-    ``rows_of``·cap rows, or the plain version (:func:`gemm_rows`); with
-    ``routing``, the first decode step's :func:`step_log`. Host tensors,
-    per rank."""
+    greedy tokens of ``steps`` decode steps, with each step's top-2 margin
+    (:func:`top2_margin`), the grouped GEMMs handed ``rows_of``·cap rows,
+    or the plain version (:func:`gemm_rows`); with ``routing``, the first
+    decode step's :func:`step_log`; with ``seq_blocks`` P, the MoE as
+    ``ep_sharded`` routes it across P ranks (:func:`seq_blocked_moe`);
+    with ``tp_parts`` P, the layers' products as a tp line of P computes
+    them (:func:`tp_arithmetic`). Host tensors, per rank."""
     from repro_torch.models import decode_step, init_caches, prefill_step
 
     b = toks.shape[0] // world
@@ -4110,11 +4141,12 @@ def greedy_refs(params, cfg, dev, toks, world, steps, max_len, rows_of=1,
         slab = torch.from_numpy(toks[r * b:(r + 1) * b]).to(dev)
         caches = init_caches(cfg, b, max_len, device=dev)
         log = {"on": False, "layers": [], "gemm": []}
-        with gemm_rows(rows_of, plain), step_log(log):
+        with gemm_rows(rows_of, plain), step_log(log), \
+                seq_blocked_moe(seq_blocks), tp_arithmetic(tp_parts):
             logits, caches = prefill_step(params, cfg, {"tokens": slab},
                                           caches)
             ref = {"prefill": logits.cpu()}
-            out = [logits.argmax(-1)]
+            out, margins = [logits.argmax(-1)], [top2_margin(logits)]
             for i in range(steps):
                 log["on"] = routing and i == 0
                 logits, caches = decode_step(
@@ -4123,12 +4155,48 @@ def greedy_refs(params, cfg, dev, toks, world, steps, max_len, rows_of=1,
                 if i == 0:
                     ref["decode1"] = logits.cpu()
                 out.append(logits.argmax(-1))
+                margins.append(top2_margin(logits))
         if routing:
             ref["routing"], ref["gemm"] = log["layers"], log["gemm"]
         ref["tokens"] = torch.stack(out, 1).cpu()
+        ref["margins"] = torch.stack(margins, 1)
         refs.append(ref)
         del caches
     return refs
+
+
+@contextlib.contextmanager
+def seq_blocked_moe(p):
+    """With ``p`` > 1, the one-process model's MoE layers as ``ep_sharded``
+    runs them on a ``(1, p)`` mesh: where ``p`` divides the sequence, each
+    of ``p`` blocks of it routed alone (its own capacity, its experts'
+    GEMMs handed ``p``·cap rows as a rank's are after the all-to-all),
+    the outputs joined and the shared experts' added (run on the whole
+    slab), the aux loss their mean and the metrics their sum; elsewhere (a
+    decode step) the whole batch, as there."""
+    import repro_torch.models.blocks as blocks_mod
+    from repro_torch.models.layers import mlp_apply
+
+    orig = blocks_mod.moe_apply
+
+    def blocked(params, cfg, x):
+        if x.shape[1] % p:
+            return orig(params, cfg, x)
+        routed = {k: v for k, v in params.items() if k != "shared"}
+        with gemm_rows(p):
+            outs = [orig(routed, cfg, c) for c in x.chunk(p, dim=1)]
+        y = torch.cat([o[0] for o in outs], dim=1)
+        if "shared" in params:      # on the whole slab, as the ranks run it
+            y = y + mlp_apply(params["shared"], x, cfg.mlp)
+        return (y, torch.stack([o[1] for o in outs]).mean(),
+                {k: sum(o[2][k] for o in outs) for k in outs[0][2]})
+
+    if p > 1:
+        blocks_mod.moe_apply = blocked
+    try:
+        yield
+    finally:
+        blocks_mod.moe_apply = orig
 
 
 def lm_ranks_serve(dev, rules, job, rank, params=None):
@@ -4169,7 +4237,11 @@ def lm_ranks_serve(dev, rules, job, rank, params=None):
     held_bytes = sum(t.numel() * t.element_size()
                      for t in tree_leaves(params))
     toks = batch_slab(torch.from_numpy(job["tokens"]), rules).to(dev)
-    caches = init_caches(cfg, toks.shape[0], job["max_len"], device=dev)
+    with use_rules(rules):         # a sequence-split cache: its block
+        caches = init_caches(cfg, toks.shape[0], job["max_len"],
+                             device=dev)
+    cache_bytes = sum(t.numel() * t.element_size() for c in caches
+                      for t in (c.k, c.v))
     prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
     fa.reset_launches()
     mg.reset_launches()
@@ -4212,12 +4284,14 @@ def lm_ranks_serve(dev, rules, job, rank, params=None):
     # later layer can then pick another expert (the parent checks which)
     native = job["native"][rank]
     err_n = float((dec1 - native["decode1"]).abs().max())
+    err_np = float((first - native["prefill"]).abs().max())
     errs = check_captured(cap, f"lm_ranks rank {rank}")
     del params, caches, cap, logits
     gc.collect()
     torch.cuda.empty_cache()
     return {"init_s": init_s, "params_held": held,
-            "param_bytes_held": held_bytes, "slab": list(toks.shape),
+            "param_bytes_held": held_bytes, "cache_bytes": cache_bytes,
+            "max_len": job["max_len"], "slab": list(toks.shape),
             "peak_memory_allocated": peak, "prefill_ms": prefill_ms,
             "decode_step_ms": step_ms, "comm_prefill": comm_prefill,
             "comm_decode": comm_decode, "moe_gemm_route_launches": routes,
@@ -4228,6 +4302,7 @@ def lm_ranks_serve(dev, rules, job, rank, params=None):
             "decode1_logits_ok": ok_d, "decode1_max_abs_err": err_d,
             "decode1_bitwise": bitwise(dec1, ref["decode1"]),
             "decode1_native_max_abs_err": err_n,
+            "prefill_native_max_abs_err": err_np,
             "decode1_native_rel": err_n / float(
                 native["decode1"].abs().max()),
             "native_tokens_agree": int((tokens[:, :2]
@@ -4716,19 +4791,23 @@ def fsdp_wire(cfg, rules):
     return embed, layers
 
 
-def fsdp_oracle(dev, cfg, compress, steps, params=None):
-    """The one-process port's ``make_train_step(microbatches=4)`` on the
-    global batch of ``FSDP_RANKS`` x ``FSDP_SEQ`` for ``steps`` steps
-    from ``params`` (``train_params`` when None; updated in place):
-    (batches as numpy, metrics, the parameters' leaves on the card,
-    seconds, peak memory). Everything else it held is freed."""
+def fsdp_oracle(dev, cfg, compress, steps, params=None, batch=FSDP_RANKS,
+                seq=FSDP_SEQ, microbatches=FSDP_RANKS, seq_blocks=1,
+                tp_parts=1):
+    """The one-process port's ``make_train_step(microbatches)`` on the
+    global batch of ``batch`` x ``seq`` for ``steps`` steps from
+    ``params`` (``train_params`` when None; updated in place), the MoE
+    routed in ``seq_blocks`` blocks (:func:`seq_blocked_moe`), the layers'
+    products as a tp line of ``tp_parts`` computes them
+    (:func:`tp_arithmetic`): (batches as numpy, metrics, the parameters' leaves on the card, seconds, peak
+    memory). Everything else it held is freed."""
     from repro_torch.train import AdamWConfig, init_train_state, \
         make_train_step
     from repro_torch.train.optimizer import tree_leaves
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    get = train_batches(cfg, dev, seq=FSDP_SEQ, batch=FSDP_RANKS)
+    get = train_batches(cfg, dev, seq=seq, batch=batch)
     batches = [{k: v.cpu().numpy() for k, v in get(i).items()}
                for i in range(steps)]
     check(all((b["labels"] >= 0).all() for b in batches),
@@ -4738,12 +4817,13 @@ def fsdp_oracle(dev, cfg, compress, steps, params=None):
     state = init_train_state(cfg, params, compress=compress)
     del params
     step = make_train_step(cfg, AdamWConfig(**LM_RANKS_OPT),
-                           compress_grads=compress, microbatches=FSDP_RANKS)
+                           compress_grads=compress, microbatches=microbatches)
     metrics = []
-    for b in batches:
-        state, m = step(state, {k: torch.from_numpy(v).to(dev)
-                                for k, v in b.items()})
-        metrics.append({k: float(v) for k, v in m.items()})
+    with seq_blocked_moe(seq_blocks), tp_arithmetic(tp_parts):
+        for b in batches:
+            state, m = step(state, {k: torch.from_numpy(v).to(dev)
+                                    for k, v in b.items()})
+            metrics.append({k: float(v) for k, v in m.items()})
     params = tree_leaves(state.params)
     peak = torch.cuda.max_memory_allocated()
     del state, step
@@ -4960,10 +5040,11 @@ def fsdp_qwen(dev, pool, smi):
     return launches
 
 
-def phase_fsdp(dev):
+def phase_fsdp(dev, pool=None):
     """FSDP over ``data > 1``, in 4 spawned gloo ranks sharing the card (one
     :class:`RankPool`, started first: the ranks import while (a)'s
-    references are computed): (a) musicgen-large at full size (48 layers,
+    references are computed; ``pool``, one the caller keeps for the next
+    phase): (a) musicgen-large at full size (48 layers,
     3.22 B parameters, 51.5 GB of float32 state with gradients) under
     ``dp_only`` on a ``(4, 1)`` mesh: ``FSDP_STEPS`` AdamW step (lr 3e-4
     from the first), one sequence of ``FSDP_SEQ`` tokens a rank, against
@@ -4977,14 +5058,390 @@ def phase_fsdp(dev):
     expert parallelism together), ``FSDP_MOE_STEPS`` steps of 4 x ``FSDP_SEQ``
     with int8 compression against ``microbatches=4``. Returns the launches
     by kernel and route."""
+    if pool is None:
+        with RankPool(FSDP_RANKS, "gloo", target=lm_ranks_worker) as pool:
+            return phase_fsdp(dev, pool)
     t_phase = time.perf_counter()
     smi = card()
     released()                  # what an earlier phase's ranks shared
-    with RankPool(FSDP_RANKS, "gloo", target=lm_ranks_worker) as pool:
-        a = fsdp_musicgen(dev, pool, smi)
-        b = fsdp_qwen(dev, pool, smi)
+    a = fsdp_musicgen(dev, pool, smi)
+    b = fsdp_qwen(dev, pool, smi)
     launches = {k: sum_routes([a[k], b[k]]) for k in a}
     emit({"phase": "fsdp", "card": smi, "route_launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11d: tp — tensor and sequence parallelism
+# ---------------------------------------------------------------------------
+
+class SplitProduct(torch.Tensor):
+    """A weight whose products ``x @ w`` are computed as the ranks of a tp
+    line of ``parts`` compute them: by blocks of its columns, joined
+    (``dim`` 1: a column-split weight), or as the float32 products of its
+    row blocks with ``x``'s column blocks, summed in member order and
+    rounded once to ``x``'s dtype (``dim`` 0: a row-split weight,
+    ``tensor_parallel.row_parallel``). Every other use sees the plain
+    tensor."""
+
+    @staticmethod
+    def of(w, parts, dim):
+        """``w`` as a split product (the same storage, and attached to
+        ``w``'s autograd graph)."""
+        t = w.as_subclass(SplitProduct)
+        t.parts, t.split_dim = parts, dim
+        return t
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if getattr(func, "__name__", None) in ("matmul", "__matmul__") \
+                and isinstance(args[1], cls) and not isinstance(args[0], cls):
+            x, w = args
+            blocks = w.as_subclass(torch.Tensor).chunk(w.parts, w.split_dim)
+            if w.split_dim == 1:
+                return torch.cat([x @ b.contiguous() for b in blocks], -1)
+            acc = None
+            for xi, b in zip(x.chunk(w.parts, -1), blocks):
+                part = xi.contiguous().float() @ b.contiguous().float()
+                acc = part if acc is None else acc + part
+            return acc.to(x.dtype)
+        with torch._C.DisableTorchFunctionSubclass():
+            return func(*args, **(kwargs or {}))
+
+
+@contextlib.contextmanager
+def tp_arithmetic(p):
+    """With ``p`` > 1, the one-process model's layer products as the ranks
+    of a tp line of ``p`` compute them (:class:`SplitProduct` on each
+    weight the rules split over the line), and a decode step's softmax
+    over a cache the line splits by sequence as its ranks compute it
+    (``attention.sp_part`` of each block, ``sp_combine``): the ranks'
+    arithmetic, so that bf16 rounding, which a deep random model
+    amplifies (0.07 of the logits on qwen3-8b's 36 layers), is the same on
+    both sides (as :func:`gemm_rows` hands the one-process experts the
+    ranks' rows)."""
+    import repro_torch.models.transformer as tr
+
+    orig = tr._layer_weights
+    cols, rows = {"wq", "wk", "wv", "w_up", "w_gate"}, {"wo", "w_down"}
+
+    def wrap(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = wrap(v)
+            elif k in cols and v.shape[1] % p == 0:
+                out[k] = SplitProduct.of(v, p, 1)
+            elif k in rows and v.shape[0] % p == 0:
+                out[k] = SplitProduct.of(v, p, 0)
+            else:
+                out[k] = v
+        return out
+
+    def decode(params, cfg, x, cache, *, window=0):
+        # the softmax over a cache the line splits by sequence as the ranks
+        # compute it: each block's part, combined in member order
+        if cache.k.shape[1] % p:
+            return orig_decode(params, cfg, x, cache, window=window)
+        b, pos = x.shape[0], cache.length
+        positions = torch.full((b, 1), pos, dtype=torch.long,
+                               device=x.device)
+        q, k, v = attn_mod._project_qkv(params, cfg, x, positions)
+        cache.k[:, pos] = k[:, 0]
+        cache.v[:, pos] = v[:, 0]
+        span = cache.k.shape[1] // p
+        lo = max(0, pos - window + 1) if window > 0 else 0
+        clip = lambda i: min(max(i, 0), span)
+        parts = [attn_mod.sp_part(q[:, 0], cache.k[:, r * span:(r + 1) * span],
+                                  cache.v[:, r * span:(r + 1) * span],
+                                  clip(lo - r * span), clip(pos + 1 - r * span),
+                                  cfg) for r in range(p)]
+        out = attn_mod.sp_combine(torch.stack(parts), q[:, 0].shape)
+        out = out.to(x.dtype).reshape(b, 1, -1)
+        return out @ params["wo"], cache._replace(length=pos + 1)
+
+    import repro_torch.models.attention as attn_mod
+    import repro_torch.models.blocks as blocks_mod
+
+    orig_decode = blocks_mod.attn_decode
+    if p > 1:
+        tr._layer_weights = lambda lp, cfg, layer: wrap(orig(lp, cfg, layer))
+        blocks_mod.attn_decode = decode
+    try:
+        yield
+    finally:
+        tr._layer_weights = orig
+        blocks_mod.attn_decode = orig_decode
+
+
+TP_ARCH = "qwen3-8b"
+TP_RANKS = 4
+TP_BATCH = 2                    # the global batch of (a) and (c)
+TP_PROMPT = 1024
+TP_DECODE = 4                   # (a)'s greedy decode steps
+TP_TRAIN_LAYERS = 2
+TP_TRAIN_SEQ = 2048             # (b): one sequence a data rank
+TP_TRAIN_STEPS = 2
+TP_MOE_LAYERS = 2
+TP_MOE_DECODE = 2               # (c)'s greedy decode steps
+TP_MOE_TRAIN_STEPS = 1
+# the largest share of the whole model's parameter bytes a rank may hold
+# under serve_tp on (1, 4): a quarter, and the replicated norms
+TP_PARAM_SHARE = 0.26
+
+
+def greedy_checks(row, ref, label):
+    """The rank's greedy tokens against the one-process port's: where a
+    row first differs, the one-process top-2 margin at that step must be
+    within twice the logits' tolerance at its largest logit (a near-tie
+    the two arithmetics may break apart). Returns the differences."""
+    atol, rtol = TOL[torch.bfloat16]
+    got, want = torch.tensor(row["tokens"]), ref["tokens"]
+    apart = []
+    for i in range(got.shape[0]):
+        diff = (got[i] != want[i]).nonzero()
+        if len(diff):
+            j = int(diff[0])
+            margin, top = (float(v) for v in ref["margins"][i, j])
+            bound = 2 * (atol + rtol * abs(top))
+            apart.append({"row": i, "step": j, "one_process_margin": margin,
+                          "bound": bound})
+            check(margin <= bound, f"{label}: row {i}'s greedy token at "
+                  f"step {j} differs from the one-process port's, whose "
+                  f"top-2 margin there is {margin} (bound {bound})")
+    return apart
+
+
+def tp_serve_checks(rows, cfg, steps, refs, label, moe_rows=None):
+    """Every rank's logits within ``TOL`` of the one-process port's and
+    finite, its greedy tokens (:func:`greedy_checks`), its launches: one
+    prefill's attention on ``tc``, 3 grouped GEMMs a MoE layer a forward
+    on the route of ``moe_rows[phase]`` rows; ``tp`` and ``sp`` transfers
+    in both phases, no ``fsdp``. Returns the launches by kernel."""
+    from repro_torch.kernels.moe_gemm import kernel as mg
+
+    n_moe = sum(1 for k in cfg.pattern if k in "AM") * cfg.n_periods
+    n_attn = sum(1 for k in cfg.pattern if k in "aAl") * cfg.n_periods
+    want = dict.fromkeys(mg.ROUTES, 0)
+    if n_moe:
+        want[mg.route(torch.bfloat16, moe_rows["prefill"])] += 3 * n_moe
+        want[mg.route(torch.bfloat16, moe_rows["decode"])] += \
+            3 * n_moe * steps
+    for r, row in enumerate(rows):
+        check(row["prefill_logits_ok"] and row["decode1_logits_ok"]
+              and row["finite"], f"{label} rank {r}: logits off the "
+              f"one-process port's (prefill {row['prefill_max_abs_err']}, "
+              f"decode {row['decode1_max_abs_err']}) or not finite")
+        row["tokens_apart"] = greedy_checks(row, refs[r], f"{label} rank {r}")
+        check(row["flash_attention_route_launches"] == {"tc": n_attn,
+                                                       "fp32": 0},
+              f"{label} rank {r}: attention launches "
+              f"{row['flash_attention_route_launches']}")
+        check(row["moe_gemm_route_launches"] == want,
+              f"{label} rank {r}: moe_gemm launches "
+              f"{row['moe_gemm_route_launches']}, expected {want}")
+        # the cache's transfers: k and v move between ranks where the line
+        # splits their heads, and a decode step's softmax combines where it
+        # splits the cache by sequence
+        world = len(rows)
+        heads = cfg.n_kv_heads % world == 0
+        for part, sp in (("comm_prefill", heads),
+                         ("comm_decode", heads or row["cache_bytes"]
+                          < 2 * cfg.n_layers * row["slab"][0]
+                          * row["max_len"] * cfg.n_kv_heads * cfg.hd * 2)):
+            calls = row[part]["calls"]
+            check(calls["tp"] > 0 and (calls["sp"] > 0) == sp
+                  and calls["fsdp"] == 0, f"{label} rank {r}: {part} "
+                  f"transfers by kind {calls}")
+    return {"flash_attention": sum_routes(
+        r["flash_attention_route_launches"] for r in rows),
+        "moe_gemm": sum_routes(r["moe_gemm_route_launches"] for r in rows)}
+
+
+def tp_qwen3_serve(dev, pool, smi):
+    """Part (a) of :func:`phase_tp`: qwen3-8b at full size under
+    ``serve_tp`` on ``(1, 4)``. Returns the launches by kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import tree_leaves
+
+    t0 = time.perf_counter()
+    cfg = get_config(TP_ARCH)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab,
+                                             (TP_BATCH, TP_PROMPT))
+    max_len = TP_PROMPT + TP_DECODE
+    check(max_len % TP_RANKS == 0, "the cache is not split by sequence")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev, dtype=torch.bfloat16)
+    whole = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    refs = greedy_refs(params, cfg, dev, toks, 1, TP_DECODE, max_len,
+                       tp_parts=TP_RANKS)
+    native = greedy_refs(params, cfg, dev, toks, 1, TP_DECODE, max_len)
+    del params
+    t_refs = time.perf_counter() - t0
+    cache = 2 * cfg.n_layers * TP_BATCH * max_len * cfg.n_kv_heads \
+        * cfg.hd * 2
+    held = released()
+    rows, lowest, t_ranks, split = fsdp_run(pool, {
+        "device": dev.type, "mesh": (1, TP_RANKS), "profile": "serve_tp",
+        "serve": {"cfg": cfg, "tokens": toks, "max_len": max_len,
+                  "steps": TP_DECODE, "refs": refs * TP_RANKS,
+                  "native": native * TP_RANKS}})
+    serve = [r["serve"] for r in rows]
+    label = "tp qwen3-8b serve_tp"
+    for row in serve:
+        row["param_share"] = row["param_bytes_held"] / whole
+        row["cache_share"] = row["cache_bytes"] / cache
+    emit({"phase": "tp_qwen3_serve", "card": smi, "arch": TP_ARCH,
+          "ranks": TP_RANKS, "backend": "gloo", "mesh": [1, TP_RANKS],
+          "profile": "serve_tp", "prompt": [TP_BATCH, TP_PROMPT],
+          "decode_steps": TP_DECODE, "max_len": max_len,
+          "model_bytes": whole, "one_process_cache_bytes": cache,
+          "one_process_refs_s": t_refs, "ranks_s": t_ranks,
+          "ranks_split_s": split, "lowest_available_host_bytes": lowest,
+          "parent_memory_allocated_at_run": held,
+          "one_process_native_tokens": native[0]["tokens"].tolist(),
+          "per_rank": serve})
+    launches = tp_serve_checks(serve, cfg, TP_DECODE, refs * TP_RANKS, label)
+    for r, row in enumerate(serve):
+        check(row["param_share"] <= TP_PARAM_SHARE, f"{label} rank {r}: "
+              f"holds {row['param_share']} of the model's parameter bytes")
+        check(row["cache_bytes"] * TP_RANKS == cache, f"{label} rank {r}: "
+              f"{row['cache_bytes']} bytes of cache, the one process's "
+              f"{cache}")
+    return launches
+
+
+def tp_qwen3_train(dev, pool, smi):
+    """Part (b) of :func:`phase_tp`: qwen3-8b at full width, 2 layers,
+    under ``default`` on ``(2, 2)`` (FSDP over ``data``, TP over
+    ``model``). Returns the launches by kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(TP_ARCH), n_layers=TP_TRAIN_LAYERS)
+    check(cfg.remat == "block", f"remat {cfg.remat}")
+    batches, metrics, oracle, t_oracle, oracle_peak = fsdp_oracle(
+        dev, cfg, False, TP_TRAIN_STEPS, batch=2, seq=TP_TRAIN_SEQ,
+        microbatches=2, tp_parts=2)
+    held = released()
+    rows, lowest, t_ranks, split = fsdp_run(pool, {
+        "device": dev.type, "mesh": (2, 2), "profile": "default",
+        "train": {"cfg": cfg, "batches": batches, "compress": False,
+                  "oracle": {"metrics": metrics, "params": oracle},
+                  "ckpt_dir": None}})
+    del oracle
+    train = [r["train"] for r in rows]
+    emit({"phase": "tp_qwen3_train", "card": smi, "arch": TP_ARCH,
+          "layers": cfg.n_layers, "ranks": TP_RANKS, "mesh": [2, 2],
+          "profile": "default", "global_batch": [2, TP_TRAIN_SEQ],
+          "oracle": "make_train_step(microbatches=2), "
+                    "AdamWConfig(warmup_steps=1), the ranks' products",
+          "oracle_metrics": metrics, "oracle_s": t_oracle,
+          "oracle_peak_memory_allocated": oracle_peak,
+          "ranks_s": t_ranks, "ranks_split_s": split,
+          "lowest_available_host_bytes": lowest,
+          "parent_memory_allocated_at_run": held, "per_rank": train})
+    return fsdp_train_checks(train, cfg, stand_in_rules((2, 2), "default"),
+                             False, TP_TRAIN_STEPS, "tp qwen3-8b train")
+
+
+def tp_qwen_moe(dev, pool, smi):
+    """Part (c) of :func:`phase_tp`: qwen2-moe-a2.7b at full width, 2
+    layers, under ``ep_sharded`` on ``(1, 4)``: a prefill (the MoE split
+    by sequence), decode steps (every rank routes the token; its experts'
+    buckets), a training step; the one-process references route the MoE
+    as the ranks do (:func:`seq_blocked_moe`). Returns the launches by
+    kernel."""
+    from repro_torch.models.moe import _capacity
+
+    cfg = train_cfg(TP_MOE_LAYERS)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab,
+                                             (TP_BATCH, TP_PROMPT))
+    # P does not divide it: the cache stays whole on every rank
+    max_len = TP_PROMPT + TP_MOE_DECODE
+    params = train_params(cfg, dev)
+    refs = greedy_refs(params, cfg, dev, toks, 1, TP_MOE_DECODE, max_len,
+                       seq_blocks=TP_RANKS, tp_parts=TP_RANKS)
+    native = greedy_refs(params, cfg, dev, toks, 1, TP_MOE_DECODE, max_len,
+                         seq_blocks=TP_RANKS)
+    batches, metrics, oracle, t_oracle, oracle_peak = fsdp_oracle(
+        dev, cfg, True, TP_MOE_TRAIN_STEPS, params, batch=TP_BATCH,
+        seq=TP_PROMPT, microbatches=1, seq_blocks=TP_RANKS,
+        tp_parts=TP_RANKS)
+    del params
+    held = released()
+    rows, lowest, t_ranks, split = fsdp_run(pool, {
+        "device": dev.type, "mesh": (1, TP_RANKS), "profile": "ep_sharded",
+        "shared_init": True,
+        "serve": {"cfg": cfg, "tokens": toks, "max_len": max_len,
+                  "steps": TP_MOE_DECODE, "refs": refs * TP_RANKS,
+                  "native": native * TP_RANKS},
+        "train": {"cfg": cfg, "batches": batches, "compress": True,
+                  "oracle": {"metrics": metrics, "params": oracle},
+                  "ckpt_dir": None}})
+    del oracle
+    serve = [r["serve"] for r in rows]
+    train = [dict(r["train"], init_s=r["init_s"]) for r in rows]
+    emit({"phase": "tp_qwen_moe", "card": smi, "arch": TRAIN_ARCH,
+          "layers": cfg.n_layers, "ranks": TP_RANKS, "mesh": [1, TP_RANKS],
+          "profile": "ep_sharded", "prompt": [TP_BATCH, TP_PROMPT],
+          "decode_steps": TP_MOE_DECODE, "max_len": max_len,
+          "oracle": "the one-process port, the MoE routed in 4 sequence "
+                    "blocks where 4 divides the sequence, with the ranks' "
+                    "products; training make_train_step("
+                    "microbatches=1), compress_grads, "
+                    "AdamWConfig(warmup_steps=1)",
+          "oracle_metrics": metrics, "oracle_s": t_oracle,
+          "oracle_peak_memory_allocated": oracle_peak,
+          "ranks_s": t_ranks, "ranks_split_s": split,
+          "lowest_available_host_bytes": lowest,
+          "parent_memory_allocated_at_run": held,
+          "per_rank_serve": serve, "per_rank_train": train})
+    block = TP_BATCH * TP_PROMPT // TP_RANKS
+    served = tp_serve_checks(
+        serve, cfg, TP_MOE_DECODE, refs * TP_RANKS, "tp qwen2-moe serve",
+        {"prefill": TP_RANKS * _capacity(cfg.moe, block),
+         "decode": _capacity(cfg.moe, TP_BATCH)})
+    for r, row in enumerate(serve):
+        check(row["comm_prefill"]["calls"]["a2a"] > 0
+              and row["comm_decode"]["calls"]["a2a"] == 0,
+              f"tp qwen2-moe rank {r}: the prefill's MoE off the "
+              "all-to-all or a decode step's on it")
+    trained = fsdp_train_checks(train, cfg, stand_in_rules((1, TP_RANKS),
+                                                           "ep_sharded"),
+                                True, TP_MOE_TRAIN_STEPS,
+                                "tp qwen2-moe train")
+    return {k: sum_routes([served[k], trained[k]]) for k in served}
+
+
+def phase_tp(dev, pool=None):
+    """Tensor and sequence parallelism (the ``default``, ``serve_tp`` and
+    ``ep_sharded`` profiles) on 4 gloo ranks sharing the card (``pool``:
+    :func:`phase_fsdp`'s ranks): (a) qwen3-8b at full size (36 layers,
+    15.1 GB of bf16 weights, a quarter a rank) under ``serve_tp`` on
+    ``(1, 4)``: a prefill of 2 x ``TP_PROMPT`` tokens into a cache split by
+    sequence, ``TP_DECODE`` greedy decode steps; (b) qwen3-8b at full
+    width, 2 layers, under ``default`` on ``(2, 2)``: ``TP_TRAIN_STEPS``
+    AdamW steps of one ``TP_TRAIN_SEQ``-token sequence a data rank against
+    ``microbatches=2``; (c) qwen2-moe-a2.7b at full width, 2 layers, under
+    ``ep_sharded`` on ``(1, 4)``: a prefill (the MoE split by sequence)
+    into a cache that stays whole, ``TP_MOE_DECODE`` decode steps and a
+    training step. Each against the one-process port, whose memory is
+    released before the ranks run. Returns the launches by kernel and
+    route."""
+    if pool is None:
+        with RankPool(TP_RANKS, "gloo", target=lm_ranks_worker) as pool:
+            return phase_tp(dev, pool)
+    t_phase = time.perf_counter()
+    smi = card()
+    released()
+    parts = [tp_qwen3_serve(dev, pool, smi), tp_qwen3_train(dev, pool, smi),
+             tp_qwen_moe(dev, pool, smi)]
+    launches = {k: sum_routes([p[k] for p in parts]) for k in parts[0]}
+    emit({"phase": "tp", "card": smi, "route_launches": launches,
           "seconds": time.perf_counter() - t_phase})
     return launches
 
@@ -5758,8 +6215,12 @@ def main():
         # phase left that profile with no kernel record (on an H100)
         lm_ranks = phase_lm_ranks(dev)
         lap("lm_ranks")
-        fsdp = phase_fsdp(dev)
-        lap("fsdp")
+        # one pool of ranks for both phases
+        with RankPool(FSDP_RANKS, "gloo", target=lm_ranks_worker) as pool:
+            fsdp = phase_fsdp(dev, pool)
+            lap("fsdp")
+            tp = phase_tp(dev, pool)
+        lap("tp")
         train = phase_train(dev)
         lap("train")
         smi = subprocess.run(
@@ -5808,6 +6269,7 @@ def main():
             r: {"serve": attn_routes[r],
                 "lm_ranks": lm_ranks["flash_attention"].get(r, 0),
                 "fsdp": fsdp["flash_attention"].get(r, 0),
+                "tp": tp["flash_attention"].get(r, 0),
                 "mamba": mamba_attn_routes[r],
                 "train": train["full_width"]["flash_attention"][r]
                 + train["f32"]["flash_attention"][r]} for r in attn_routes},
@@ -5815,6 +6277,7 @@ def main():
             r: {"serve": routes[r],
                 "lm_ranks": lm_ranks["moe_gemm"].get(r, 0),
                 "fsdp": fsdp["moe_gemm"].get(r, 0),
+                "tp": tp["moe_gemm"].get(r, 0),
                 "mamba": mamba_routes[r],
                 "train": train["full_width"]["moe_gemm"][r]
                 + train["f32"]["moe_gemm"][r]} for r in routes}}
@@ -5828,7 +6291,12 @@ def main():
                   "prefill and 2 decode steps, then a training step, the "
                   "forward and remat's recompute) and qwen2-moe-a2.7b at "
                   "full width, 2 layers, under ep_dp on (2, 2) (2 training "
-                  "steps); jamba-v0.1-52b at full width, one period: one "
+                  "steps); tp (every rank): 4 gloo ranks, qwen3-8b at full "
+                  "size under serve_tp on (1, 4) (a prefill and 4 decode "
+                  "steps), at full width, 2 layers, under default on (2, 2) "
+                  "(2 training steps), qwen2-moe-a2.7b at full width, 2 "
+                  "layers, under ep_sharded on (1, 4) (a prefill, 2 decode "
+                  "steps, a training step); jamba-v0.1-52b at full width, one period: one "
                   "generate; training: the 6 steps of qwen2-moe-a2.7b at full "
                   "width, 4 layers, S 4096, B 2, remat block (the forward "
                   "and the backward's recompute); the float32 routes: the "

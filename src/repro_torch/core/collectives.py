@@ -51,7 +51,10 @@ crosses ranks on: :func:`all_to_all` (backward: the reverse all-to-all),
 gathered, each along its FSDP dim, in one transfer; backward: one float32
 reduce-scatter) and :func:`psum` (backward: the identity — the sum feeds an
 objective every rank holds whole, and each rank carries the gradient back
-to its own term).
+to its own term). Tensor parallelism adds Megatron's input operator
+:func:`tp_copy` (the identity; backward a sum), :func:`tp_gather` (an
+all-gather for a consumer every rank runs whole; backward this rank's
+block) and :func:`tp_split` (this rank's block; backward an all-gather).
 """
 
 from __future__ import annotations
@@ -68,17 +71,21 @@ from .sparse import CSC, from_coo
 __all__ = ["Transport", "Pending", "wire_device", "agree", "all_same",
            "gather_rows", "gather_csc", "mesh_index", "dim_ranks",
            "MeshComm", "mesh_comm", "all_to_all",
-           "all_gather_cat", "reduce_scatter", "fsdp_gather", "psum"]
+           "all_gather_cat", "reduce_scatter", "fsdp_gather", "psum",
+           "tp_copy", "tp_gather", "tp_split"]
 
 # transfer kinds the transport counts bytes for: the SpGEMM engines' four,
 # then the language model's — "a2a" the MoE's bucket exchange (there and
 # back), "rows" the live-row counts sent along with it, "vocab" the
 # vocab-sharded embedding's, cross entropy's and logits' traffic, "fsdp"
 # the FSDP gathers of parameter slices and their gradients'
-# reduce-scatters, "reduce" every other reduce and gather (gradients, the
-# aux loss, metrics, norms)
+# reduce-scatters, "tp" tensor parallelism's (the Megatron pairs' sums,
+# head and expert gathers), "sp" the sequence-split KV caches' (the
+# prefill's heads-to-sequence all-to-all, the decode step's gathers and its
+# log-sum-exp combine), "reduce" every other reduce and gather (gradients,
+# the aux loss, metrics, norms)
 KINDS = ("ring", "gather", "merge", "result", "a2a", "rows", "vocab",
-         "fsdp", "reduce")
+         "fsdp", "tp", "sp", "reduce")
 # the largest piece a transfer moves at once outside NCCL (Transport)
 PIECE_BYTES = 64 << 20
 # MeshComm.reduce gathers tensors of at most this many elements whole (one
@@ -426,25 +433,34 @@ class MeshComm:
         return out
 
     def exchange(self, blocks: Sequence[torch.Tensor], dims: Sequence[str],
-                 kind: str) -> List[torch.Tensor]:
+                 kind: str, shapes: Optional[Sequence[tuple]] = None
+                 ) -> List[torch.Tensor]:
         """All-to-all: ``blocks[i]`` goes to member i of :meth:`ranks`
         ``(dims)``; returns the block each member sent this rank, in member
-        order (this rank's own block as it is)."""
+        order (this rank's own block as it is). ``shapes[i]``: the shape of
+        the block member i sends this rank (by default ``blocks[i]``'s);
+        a block with no element does not travel."""
         ranks = self.ranks(dims)
         me = ranks.index(dist.get_rank())
         if len(ranks) == 1:
             return [blocks[0]]
         t = self._transport(blocks[0].device)
+        dtype = blocks[0].dtype
+        shapes = [tuple(b.shape) for b in blocks] if shapes is None \
+            else [tuple(s) for s in shapes]
 
         def run():
             blk = [b.contiguous() for b in blocks]
             pend = t._exchange(
                 kind,
-                [(r, blk[i], 0) for i, r in enumerate(ranks) if i != me],
-                [(r, tuple(blk[i].shape), blk[i].dtype, 0)
-                 for i, r in enumerate(ranks) if i != me])
+                [(r, blk[i], 0) for i, r in enumerate(ranks)
+                 if i != me and blk[i].numel()],
+                [(r, shapes[i], dtype, 0) for i, r in enumerate(ranks)
+                 if i != me and int(np.prod(shapes[i]))])
             got = iter(pend.wait())
-            return [blk[i] if i == me else next(got)
+            return [blk[i] if i == me else
+                    next(got) if int(np.prod(shapes[i])) else
+                    torch.empty(shapes[i], dtype=dtype, device=t.device)
                     for i in range(len(ranks))]
 
         return self._timed(kind, run)
@@ -624,6 +640,57 @@ class _PSum(torch.autograd.Function):
         return g, None, None, None
 
 
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dims, kind):
+        ctx.args = (comm, dims, kind)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, dims, kind = ctx.args
+        return (comm.reduce(g.float(), dims, "sum", kind).to(g.dtype), None,
+                None, None)
+
+
+def _gather_dim(comm, x, dims, dim, kind):
+    """Every member's ``x`` joined along ``dim`` in member order."""
+    g = comm.gather(x, dims, kind).movedim(0, dim)
+    shape = list(x.shape)
+    shape[dim] *= comm.size(dims)
+    return g.reshape(shape)
+
+
+def _own_block(comm, x, dims, dim):
+    n = x.shape[dim] // comm.size(dims)
+    return x.narrow(dim, comm.index(dims) * n, n)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dims, dim, kind):
+        ctx.args = (comm, dims, dim)
+        return _gather_dim(comm, x, dims, dim, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, dims, dim = ctx.args
+        return (_own_block(comm, g, dims, dim).contiguous(), None, None,
+                None, None)
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dims, dim, kind):
+        ctx.args = (comm, dims, dim, kind)
+        return _own_block(comm, x, dims, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, dims, dim, kind = ctx.args
+        return _gather_dim(comm, g, dims, dim, kind), None, None, None, None
+
+
 def all_to_all(x, comm: MeshComm, dims, split_dim: int, cat_dim: int,
                kind: str = "a2a"):
     """``jax.lax.all_to_all(tiled=True)`` over ``dims``: ``x`` cut into P
@@ -633,9 +700,15 @@ def all_to_all(x, comm: MeshComm, dims, split_dim: int, cat_dim: int,
     return _AllToAll.apply(x, comm, tuple(dims), split_dim, cat_dim, kind)
 
 
-def all_gather_cat(x, comm: MeshComm, dims, kind: str = "reduce"):
-    """Every member's ``x`` joined along dim 0 in member order. Backward:
-    the gradient's member blocks summed over members (a reduce-scatter)."""
+def all_gather_cat(x, comm: MeshComm, dims, kind: str = "reduce",
+                   dim: int = 0):
+    """Every member's ``x`` joined along ``dim`` in member order.
+    Backward: the gradient's member blocks summed over members (a
+    reduce-scatter): each member's gradient is its share of the one the
+    joined tensor has."""
+    if dim:
+        return _AllGather.apply(x.movedim(dim, 0), comm, tuple(dims),
+                                kind).movedim(0, dim)
     return _AllGather.apply(x, comm, tuple(dims), kind)
 
 
@@ -660,5 +733,31 @@ def fsdp_gather(xs: Sequence[torch.Tensor], comm: MeshComm, dims,
 def psum(x, comm: MeshComm, dims, kind: str = "reduce"):
     """The sum over members (same bits on each). Backward: the identity —
     the sum feeds an objective that every member holds whole, and each
-    member carries the gradient back to its own term."""
+    member carries the gradient back to its own term. Megatron's output
+    operator (``g``) of a row-split product."""
     return _PSum.apply(x, comm, tuple(dims), kind)
+
+
+def tp_copy(x, comm: MeshComm, dims, kind: str = "tp"):
+    """Megatron's input operator (``f``): the identity forward; backward
+    the sum over members of the gradient, in float32, in the gradient's
+    dtype. ``x`` is the same on every
+    member and each member computes only its part of what depends on it
+    (its columns of a column-split product, its heads), so its gradient
+    there is a part of the whole one."""
+    return _Copy.apply(x, comm, tuple(dims), kind)
+
+
+def tp_gather(x, comm: MeshComm, dims, dim: int, kind: str = "tp"):
+    """Every member's ``x`` joined along ``dim`` in member order, for a
+    consumer every member runs whole (each holds the whole gradient).
+    Backward: this member's block of the gradient."""
+    return _Gather.apply(x, comm, tuple(dims), dim, kind)
+
+
+def tp_split(x, comm: MeshComm, dims, dim: int, kind: str = "tp"):
+    """This member's block of ``x`` along ``dim`` (``x`` the same on every
+    member, the dim divisible by the member count). Backward: the
+    members' gradient blocks joined (an all-gather), the whole gradient on
+    every member."""
+    return _Split.apply(x, comm, tuple(dims), dim, kind)

@@ -6,6 +6,9 @@ The mixer is attention (full 'a' / 'A', sliding-window 'l') or mamba2 ('m',
 (``d_ff == 0``, pure mamba2). Modes "train", "prefill" and "decode"; a
 mamba block's cache is its :class:`~.mamba2.SSMState`, which its prefill
 returns as the state after the prompt (the reference's leaves it at zero).
+Under tensor parallelism the attention and the MLP split over the ``tp``
+line (``attention``, ``layers.mlp_apply``); a mamba block there is refused
+(``sharding.check_executable``: ROADMAP A8d).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Any, Optional
 import torch
 
 from ..configs.base import ModelConfig
+from ..sharding.rules import check_executable, current_rules
 from .attention import (attn_decode, attn_init, attn_prefill, attn_train,
                         init_kv_cache)
 from .layers import mlp_apply, mlp_init, rmsnorm, rmsnorm_init
@@ -63,14 +67,16 @@ def block_init(generator, cfg: ModelConfig, kind: str, *, device, dtype):
 
 
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     *, device, dtype=torch.bfloat16):
-    """A bf16 KV cache of ``max_len`` positions for attention kinds; the
-    float32 :class:`~.mamba2.SSMState` for mamba kinds (``max_len`` and
-    ``dtype`` unused there)."""
+                     *, device, dtype=torch.bfloat16, seq_parts: int = 1):
+    """A bf16 KV cache of ``max_len`` positions for attention kinds (this
+    rank's block of them with ``seq_parts``); the float32
+    :class:`~.mamba2.SSMState` for mamba kinds (``max_len``, ``dtype`` and
+    ``seq_parts`` unused there)."""
     _check_kind(kind)
     if is_mamba(kind):
         return init_ssm_state(cfg, batch, device=device)
-    return init_kv_cache(cfg, batch, max_len, device=device, dtype=dtype)
+    return init_kv_cache(cfg, batch, max_len, device=device, dtype=dtype,
+                         seq_parts=seq_parts)
 
 
 def block_apply(params, cfg: ModelConfig, kind: str, h,
@@ -85,6 +91,7 @@ def block_apply(params, cfg: ModelConfig, kind: str, h,
 
     x = rmsnorm(params["norm_mix"], h, cfg.norm_eps)
     if is_mamba(kind):
+        check_executable(current_rules(), cfg)
         if mode == "train":
             mix, new_cache = mamba_train(params["mamba"], cfg, x), cache
         elif mode == "prefill":
@@ -105,6 +112,6 @@ def block_apply(params, cfg: ModelConfig, kind: str, h,
         h = h + y
     elif "mlp" in params:
         x = rmsnorm(params["norm_ffn"], h, cfg.norm_eps)
-        h = h + mlp_apply(params["mlp"], x, cfg.mlp)
+        h = h + mlp_apply(params["mlp"], x, cfg.mlp, d_ff=cfg.d_ff)
     # else: pure-mamba block (d_ff == 0), mixer only
     return h, new_cache, aux

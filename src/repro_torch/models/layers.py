@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -123,7 +124,23 @@ def gate_act(g, kind: str):
     raise ValueError(kind)
 
 
-def mlp_apply(params, x, kind: str):
+def mlp_apply(params, x, kind: str, d_ff: Optional[int] = None):
+    """The MLP on ``x``. ``d_ff``: the whole hidden width, for tensor
+    parallelism (``tensor_parallel``): where the rules split it over the
+    ``tp`` line, ``w_up`` / ``w_gate`` are this rank's columns and
+    ``w_down`` its rows, ``x`` enters through ``tp_copy`` and the parts
+    are summed (``row_parallel``)."""
+    from ..core.collectives import tp_copy
+    from .tensor_parallel import row_parallel, tp_group
+
+    tp = tp_group() if d_ff is not None else None
+    if tp is None or not tp.splits(d_ff):
+        return _hidden(params, x, kind) @ params["w_down"]
+    h = _hidden(params, tp_copy(x, tp.comm, tp.dims), kind)
+    return row_parallel(h, params["w_down"], tp)
+
+
+def _hidden(params, x, kind: str):
     up = x @ params["w_up"]
     if kind in ("swiglu", "geglu"):
         h = gate_act(x @ params["w_gate"], kind) * up
@@ -132,4 +149,4 @@ def mlp_apply(params, x, kind: str):
         h = r * r                      # squared-ReLU (nemotron-4)
     else:
         raise ValueError(kind)
-    return h @ params["w_down"]
+    return h

@@ -37,12 +37,19 @@ paths, by the reference's condition on the *global* batch:
     the front of each expert before the grouped GEMMs (and unpacks after):
     the ``rows`` contract holds, and an expert no token reached costs no
     weight read. ``aux`` is averaged and the metrics summed over all ranks.
-  * experts replicated (``dp_only``) — the reference's default path over
-    the global batch: the capacity comes from the global token count, and
-    each assignment's place in its expert's queue counts the assignments
-    of the ranks before it, so the same assignments are dropped as in one
-    process; the load-balance loss uses the global counts and mean
-    probabilities.
+    Under ``ep_sharded`` (tensor parallelism, the sequence divisible by
+    the line) each rank routes its block of the sequence the same way.
+  * otherwise (``dp_only``, ``default``, and ``ep_sharded`` where the line
+    does not divide the sequence, as in every decode step) — the
+    reference's default path over the global batch: the capacity comes
+    from the global token count, and each assignment's place in its
+    expert's queue counts the assignments of the ranks before it, so the
+    same assignments are dropped as in one process; the load-balance loss
+    uses the global counts and mean probabilities. Under tensor
+    parallelism the ``model`` line routes the same tokens, each rank runs
+    the buckets of its E/P experts (the rules split the expert leaves over
+    ``model``) and the outputs are gathered over the line before the
+    combine; the shared experts are a Megatron pair.
 """
 
 from __future__ import annotations
@@ -52,10 +59,12 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig, MoEConfig
-from ..core.collectives import all_to_all, mesh_comm, psum
+from ..core.collectives import (all_to_all, mesh_comm, psum, tp_copy,
+                                tp_gather, tp_split)
 from ..kernels.moe_gemm import grouped_gemm
 from ..sharding.rules import check_executable, current_rules
 from .layers import dense_init, gate_act, mlp_apply, mlp_init, trunc_normal
+from .tensor_parallel import tp_group
 
 __all__ = ["moe_init", "moe_apply"]
 
@@ -84,6 +93,10 @@ def moe_init(generator, cfg: ModelConfig, *, device, dtype):
 def _capacity(moe: MoEConfig, n_tokens: int) -> int:
     c = int(n_tokens * moe.top_k / moe.n_experts * moe.capacity_factor)
     return max(8, -(-c // 8) * 8)  # multiple of 8 lanes
+
+
+def _shared_ff(moe: MoEConfig) -> int:
+    return moe.n_shared * moe.d_ff_shared
 
 
 def _expert_ffn(cfg: ModelConfig, bkts, rows, eg, eu, ed):
@@ -163,7 +176,7 @@ def _route_and_combine(cfg: ModelConfig, router, shared, xf,
     per_token[order] = contrib                               # (T*k, d)
     y = per_token.reshape(t, k, d).sum(dim=1)
     if shared is not None:
-        y = y + mlp_apply(shared, xf, cfg.mlp)
+        y = y + mlp_apply(shared, xf, cfg.mlp, d_ff=_shared_ff(moe))
 
     # ---- aux: load balancing + paper-style traffic accounting --------------
     tokens = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
@@ -204,18 +217,29 @@ def _take_rows(x, index):
     return x.gather(1, index[..., None].expand(-1, -1, x.shape[-1]))
 
 
-def _moe_shard_map(params, cfg: ModelConfig, x, rules):
+def _moe_shard_map(params, cfg: ModelConfig, x, rules, tp=None):
     """Explicit EP on this rank's (b, s, d) slab: local routing, a tiled
     all-to-all of the bucket blocks to the experts' owners over
     ``rules.expert_axis``, the local experts (``params``' expert leaves are
     this rank's E/P), the reverse all-to-all. Under ``ep_dp`` the expert
-    axis is part of data parallelism, so the sequence stays whole."""
+    axis is part of data parallelism, so the sequence stays whole. Under
+    ``ep_sharded`` (``tp``, the expert axis) the line holds the same slab:
+    each rank routes its block of the sequence (``tp_split``, the router
+    through ``tp_copy``: its gradient on a rank is its block's part), the
+    blocks' outputs are joined along the sequence (``tp_gather``), and the
+    shared experts run as a Megatron pair on the whole slab."""
     comm = mesh_comm(rules.mesh)
     ep = (rules.expert_axis,)
     p = comm.size(ep)
-    b, s, d = x.shape
     eg = params.get("experts_gate")
     shared = params.get("shared") if cfg.moe.n_shared else None
+    router = params["router"]
+    whole = x
+    if tp is not None:
+        x = tp_split(x, tp.comm, tp.dims, 1)
+        router = tp_copy(router, tp.comm, tp.dims)
+        shared = None
+    b, s, d = x.shape
 
     def run(bkts, rows):
         cap = bkts.shape[1]
@@ -227,7 +251,13 @@ def _moe_shard_map(params, cfg: ModelConfig, x, rules):
         return all_to_all(_take_rows(out, inverse), comm, ep, 1, 0, "a2a")
 
     y, aux, metrics = _route_and_combine(
-        cfg, params["router"], shared, x.reshape(b * s, d), run)
+        cfg, router, shared, x.reshape(b * s, d), run)
+    y = y.reshape(b, s, d)
+    if tp is not None:
+        y = tp_gather(y, tp.comm, tp.dims, 1)
+        if cfg.moe.n_shared:
+            y = y + mlp_apply(params["shared"], whole, cfg.mlp,
+                              d_ff=_shared_ff(cfg.moe))
     every = tuple(dict.fromkeys(tuple(rules.batch or ()) + ep))
     # one reduce for the aux loss and the metrics: float64 holds the counts
     # exactly
@@ -235,8 +265,7 @@ def _moe_shard_map(params, cfg: ModelConfig, x, rules):
                                                 metrics.values()]),
                   comm, every)
     aux = summed[0].float() / comm.size(every)
-    return y.reshape(b, s, d), aux, {
-        k: v.long() for k, v in zip(metrics, summed[1:].unbind())}
+    return y, aux, {k: v.long() for k, v in zip(metrics, summed[1:].unbind())}
 
 
 def moe_apply(params, cfg: ModelConfig, x) -> Tuple[torch.Tensor,
@@ -246,24 +275,34 @@ def moe_apply(params, cfg: ModelConfig, x) -> Tuple[torch.Tensor,
     b, s, d = x.shape
     moe = cfg.moe
     rules = current_rules()
-    ranks = None
+    ranks = tp = None
     if rules is not None:
-        # the reference's condition, less two clauses that hold here:
-        # check_executable refuses every TP profile, and batch_slab refuses
-        # a global batch the batch axes do not divide
-        check_executable(rules)
+        # the reference's condition, less a clause that holds here:
+        # batch_slab refuses a global batch the batch axes do not divide
+        check_executable(rules, cfg)
+        tp = tp_group()
         if (rules.ep_shard_map and rules.expert_axis is not None
                 and rules.mesh is not None
+                and (tp is None or s % tp.size == 0)
                 and moe.n_experts_padded
                 % rules.axis_size(rules.expert_axis) == 0):
-            return _moe_shard_map(params, cfg, x, rules)
+            return _moe_shard_map(params, cfg, x, rules, tp)
         ranks = _Ranks(mesh_comm(rules.mesh), rules.batch)
     eg = params.get("experts_gate")
     shared = params.get("shared") if moe.n_shared else None
+    # under tensor parallelism each rank runs its E/P experts' buckets of
+    # the tokens the line routes alike (the reference's GSPMD path shards
+    # the buckets over the expert axis), and the outputs are joined
+    split = tp is not None and params["experts_up"].shape[0] \
+        < moe.n_experts_padded
 
     def run(bkts, rows):
-        return _expert_ffn(cfg, bkts, rows, eg, params["experts_up"],
-                           params["experts_down"])
+        if split:
+            bkts = tp_split(bkts, tp.comm, tp.dims, 0)
+            rows = rows.chunk(tp.size)[tp.index]
+        out = _expert_ffn(cfg, bkts, rows, eg, params["experts_up"],
+                          params["experts_down"])
+        return tp_gather(out, tp.comm, tp.dims, 0) if split else out
 
     y, aux, metrics = _route_and_combine(
         cfg, params["router"], shared, x.reshape(b * s, d), run, ranks)

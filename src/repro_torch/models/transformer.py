@@ -23,10 +23,14 @@ layer, so every kernel of it is launched twice a step; ``"none"`` keeps the
 activations. The reference's ``"dots"`` policy (matmul outputs saved) is
 not ported and raises.
 
-Across ranks (``sharding.use_rules`` with an executed profile: ``ep_dp`` or
-``dp_only`` on a ``(data, model)`` mesh), every entry point takes this
-rank's slab of a global batch split over ``rules.batch`` and this rank's
-parameter slices (``sharding.placement``). Where the rules split a leaf
+Across ranks (``sharding.use_rules`` with an executed profile on a
+``(data, model)`` mesh), every entry point takes this rank's slab of a
+global batch split over ``rules.batch`` and this rank's parameter slices
+(``sharding.placement``). Under tensor parallelism (``default``,
+``serve_tp``, ``ep_sharded``) the ranks of a ``model`` line hold the same
+slab and split each layer's work (``tensor_parallel``; attention by heads,
+the MLPs as Megatron pairs, the MoE by experts or by sequence), so every
+rank of the line holds the whole loss. Where the rules split a leaf
 over the FSDP axis (``data`` larger than 1), the slices are gathered where
 they are used (``collectives.fsdp_gather``):
 
@@ -43,8 +47,8 @@ they are used (``collectives.fsdp_gather``):
     the cross entropy; under ``ep_dp`` it is then this rank's vocab rows
     whole, and the vocab path below runs over ``model``.
 
-Where the rules shard the tied embedding's vocab over the model axis
-(``ep_dp``):
+Where the rules shard the tied embedding's vocab over the model axis as
+a batch axis (``ep_dp``):
 
   * the input embedding gathers the token ids over the axis, looks up the
     rows this rank holds (zeros elsewhere) and reduce-scatters: each
@@ -58,6 +62,13 @@ Where the rules shard the tied embedding's vocab over the model axis
   * the serving logits are the gathered last positions against the local
     columns, redistributed by an all-to-all to each rank's slab, full
     vocab.
+
+Where they shard it over the ``tp`` axis (tensor parallelism), the line
+already holds the same rows: the input lookup is each rank's rows summed
+over the line (``psum``), the cross entropy scores each chunk of ``h``
+(through ``tp_copy``) against the rank's vocab columns with the same three
+reductions and no gather, and the logits are the ranks' columns joined
+along the vocab.
 
 Otherwise the cross entropy is each rank's own sum over the global label
 count; with the vocab split the sums of the model line are reduced over
@@ -75,7 +86,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.collectives import (all_gather_cat, all_to_all, fsdp_gather,
-                                mesh_comm, psum, reduce_scatter)
+                                mesh_comm, psum, reduce_scatter, tp_copy,
+                                tp_gather)
 from ..core.device_common import resolve_device
 from ..sharding.placement import param_specs, spec_axes
 from ..sharding.rules import (_spec_for, check_executable, current_rules,
@@ -118,15 +130,18 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 
 def _vocab_split(cfg: ModelConfig):
-    """(comm, axes) when the rules in force shard the embedding's vocab,
-    else None."""
+    """(comm, axes, whether the axes split the batch too) when the rules
+    in force shard the embedding's vocab, else None. The vocab axis is a
+    batch axis under ``ep_dp`` / ``dp_only`` (its ranks hold other rows)
+    and the ``tp`` axis under tensor parallelism (its ranks hold the same
+    rows)."""
     rules = current_rules()
     if rules is None:
         return None
     axes = spec_axes(_spec_for("embed", (cfg.vocab, cfg.d_model), rules)[0])
     if rules.axis_size(axes[0] if axes else None) <= 1:
         return None
-    return mesh_comm(rules.mesh), axes
+    return mesh_comm(rules.mesh), axes, any(a in rules.batch for a in axes)
 
 
 def _batch_ranks(covered=()):
@@ -166,22 +181,27 @@ def _whole_embed(params, cfg: ModelConfig):
 
 
 def _embed_input(params, cfg: ModelConfig, batch):
-    check_executable(current_rules())
+    check_executable(current_rules(), cfg)
     split = _vocab_split(cfg)
     if cfg.input_kind == "embeds":
         h = batch["embeds"]
     elif split:
-        comm, axes = split
+        comm, axes, gathered = split
         emb = params["embed"]                             # (V/P, d)
-        ids = comm.gather(batch["tokens"], axes, "vocab")
-        ids = ids.reshape((-1,) + tuple(ids.shape[2:])) \
-            - comm.index(axes) * emb.shape[0]
+        ids = batch["tokens"]
+        if gathered:
+            ids = comm.gather(ids, axes, "vocab")
+            ids = ids.reshape((-1,) + tuple(ids.shape[2:]))
+        ids = ids - comm.index(axes) * emb.shape[0]
         hit = (ids >= 0) & (ids < emb.shape[0])
         rows = emb[ids.clamp(0, emb.shape[0] - 1)]
-        h = reduce_scatter(torch.where(hit[..., None], rows,
-                                       torch.zeros((), dtype=rows.dtype,
-                                                   device=rows.device)),
-                           comm, axes, "vocab")
+        rows = torch.where(hit[..., None], rows,
+                           torch.zeros((), dtype=rows.dtype,
+                                       device=rows.device))
+        # each token's one nonzero row: the line's sum (the same tokens on
+        # every rank under tensor parallelism), or each rank's slab of it
+        h = reduce_scatter(rows, comm, axes, "vocab") if gathered \
+            else psum(rows, comm, axes, "vocab")
     else:
         h = params["embed"][batch["tokens"]]
     return h.to(compute_dtype(cfg.dtype))
@@ -277,8 +297,14 @@ def train_logits(params, cfg: ModelConfig, batch):
     h = _embed_input(params, cfg, batch)
     h, aux = _train_stack(params, cfg, h)
     split = _vocab_split(cfg)
+    if split and not split[2]:
+        comm, axes, _ = split
+        logits, _ = _vocab_logits(params["embed"], cfg,
+                                  tp_copy(h, comm, axes, "vocab"), comm,
+                                  axes)
+        return tp_gather(logits, comm, axes, logits.ndim - 1, "vocab"), aux
     if split:
-        comm, axes = split
+        comm, axes, _ = split
         logits, _ = _vocab_logits(params["embed"], cfg,
                                   all_gather_cat(h, comm, axes, "vocab"),
                                   comm, axes)
@@ -336,14 +362,21 @@ def _chunked_ce(params, cfg: ModelConfig, h, labels, n_chunks: int):
     ce_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     split = _vocab_split(cfg)
-    if split:
-        comm, axes = split
+    if split and split[2]:
+        comm, axes, _ = split
         g = comm.gather(labels, axes, "vocab")
         labels = g.reshape((-1,) + tuple(g.shape[2:]))
+    elif split:
+        # the line holds the same h: each rank scores its vocab columns,
+        # and the input operator sums h's gradient parts (once, not a
+        # chunk at a time)
+        comm, axes, _ = split
+        h = tp_copy(h, comm, axes, "vocab")
     for i in range(n_chunks):
         part = slice(i * sc, (i + 1) * sc)
         if split:
-            hc = all_gather_cat(h[:, part], comm, axes, "vocab")
+            hc = all_gather_cat(h[:, part], comm, axes, "vocab") \
+                if split[2] else h[:, part]
             ll, n = checkpoint(_ce_chunk_vocab, hc, labels[:, part],
                                params["embed"], cfg, comm, axes,
                                use_reentrant=False)
@@ -387,8 +420,13 @@ def _logits(params, cfg: ModelConfig, h):
     """Last-position logits in float32 against the tied embedding (this
     rank's slab, full vocab, under vocab-sharding rules)."""
     split = _vocab_split(cfg)
+    if split and not split[2]:
+        comm, axes, _ = split
+        logits, _ = _vocab_logits(params["embed"], cfg, h[:, -1], comm, axes)
+        g = comm.gather(logits, axes, "vocab")            # (P, B, V/P)
+        return g.permute(1, 0, 2).reshape(g.shape[1], -1)
     if split:
-        comm, axes = split
+        comm, axes, _ = split
         last = comm.gather(h[:, -1], axes, "vocab")
         logits, _ = _vocab_logits(params["embed"], cfg,
                                   last.reshape(-1, last.shape[-1]), comm,
@@ -404,10 +442,19 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                 device="cuda", dtype: torch.dtype = torch.bfloat16
                 ) -> List[Any]:
     """One cache per layer: a bf16 KV cache for attention kinds, a float32
-    ``SSMState`` (conv tail and SSM state) for mamba kinds."""
+    ``SSMState`` (conv tail and SSM state) for mamba kinds. ``batch`` is
+    this rank's slab. Under rules with a sequence-parallel axis of P ranks
+    (``rules.sp``; ``launch.specs.cache_pspecs``) a KV cache holds this
+    rank's block of ``max_len / P`` positions, or all of them where P does
+    not divide ``max_len``."""
     dev = resolve_device(device)
+    rules = current_rules()
+    check_executable(rules, cfg)
+    parts = rules.axis_size(rules.sp) if rules is not None else 1
+    parts = parts if max_len % parts == 0 else 1
     return [block_cache_init(cfg, kind, batch, max_len, device=dev,
-                             dtype=dtype) for kind in layer_kinds(cfg)]
+                             dtype=dtype, seq_parts=parts)
+            for kind in layer_kinds(cfg)]
 
 
 def prefill_step(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],

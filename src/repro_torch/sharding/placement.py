@@ -170,7 +170,7 @@ def init_params_sharded(cfg, rules: ShardingRules,
     from ..models.transformer import init_params
     from ..train.optimizer import tree_map
 
-    check_executable(rules)
+    check_executable(rules, cfg)
     dev = resolve_device(device)
     drawn: List[torch.Tensor] = []
     with on_draw(lambda t: drawn.append(t) or t):

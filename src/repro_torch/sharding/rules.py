@@ -25,9 +25,9 @@ Entry points:
     leading ``None`` is added for a scan dim.
   * :func:`shard` — the reference's activation constraint; the identity
     here (see its docstring).
-  * :func:`check_executable` — what the port executes across ranks: the
-    profiles without tensor parallelism (``ep_dp``, ``dp_only``) on any
-    mesh, FSDP over ``data`` included.
+  * :func:`check_executable` — what the port executes across ranks:
+    every profile on any mesh, FSDP over ``data`` included, except mamba
+    blocks under tensor parallelism (ROADMAP A8d).
   * :func:`fsdp_dim` — the dim of a leaf split over the FSDP axis.
 """
 
@@ -178,20 +178,24 @@ def shard(x, *logical: Optional[str]):
     return x
 
 
-def check_executable(rules: Optional[ShardingRules]) -> None:
+def check_executable(rules: Optional[ShardingRules], cfg=None) -> None:
     """Raise ``NotImplementedError`` unless the port executes ``rules``
-    across ranks: no tensor parallelism (the ``default``, ``serve_tp`` and
-    ``ep_sharded`` profiles are ROADMAP item A8c). FSDP over a ``data``
-    axis of any size is executed (each leaf's slices gathered where the
-    model uses them, ``models.transformer``). A profile the port does not
-    execute is never silently replicated."""
-    if rules is None:
+    across ranks for ``cfg``'s layers. Every profile executes: FSDP over a
+    ``data`` axis of any size (each leaf's slices gathered where the model
+    uses them, ``models.transformer``), and the tensor- and
+    sequence-parallel profiles (``default``, ``serve_tp``, ``ep_sharded``)
+    for attention blocks (kinds ``a``, ``A``, ``l``). Mamba blocks (``m``,
+    ``M``) under a profile with a ``tp`` axis are ROADMAP item A8d: the
+    mixer's split over ``model`` (``w_in``'s column groups, ``conv_w``,
+    the SSD and state heads) is not executed, and is never silently
+    replicated."""
+    if rules is None or rules.tp is None or cfg is None:
         return
-    if rules.tp is not None:
+    if any(k in "mM" for k in cfg.pattern):
         raise NotImplementedError(
-            f"tensor/sequence parallelism over {rules.tp!r} (profiles "
-            "default, serve_tp, ep_sharded) is not executed by the port: "
-            "ROADMAP item A8c")
+            f"mamba blocks of {cfg.name} under tensor parallelism over "
+            f"{rules.tp!r} (profiles default, serve_tp, ep_sharded) are "
+            "not executed by the port: ROADMAP item A8d")
 
 
 def fsdp_dim(spec, rules: ShardingRules) -> Optional[int]:

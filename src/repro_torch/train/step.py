@@ -22,7 +22,11 @@ expert or vocab slice's gradient is whole already (the all-to-all's and
 the gather's backward deliver every rank's contribution to its owner), and
 an FSDP slice's sum over ``data`` is the float32 reduce-scatter of its
 gather's backward (``collectives.fsdp_gather``), leaving the other batch
-axes (``model`` under ``ep_dp`` / ``dp_only``) to the sum here.
+axes (``model`` under ``ep_dp`` / ``dp_only``) to the sum here. Under
+tensor parallelism ``model`` is no batch axis: the ranks of a line hold
+the same slab and the whole loss, a leaf split over ``model`` has its
+whole gradient on its rank, and a leaf replicated there the same gradient
+on each (the model's ``tp_copy`` sums the parts), which is not summed.
 Then, as the reference quantizes the reduced gradient, each leaf is
 compressed with its scale the max over the whole leaf, the residual
 sliced like its leaf, and the global norm sums the slices' squares.
@@ -102,7 +106,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         rules = current_rules()
-        check_executable(rules)
+        check_executable(rules, cfg)
         if microbatches > 1:
             b = next(iter(batch.values())).shape[0]
             if b % microbatches:

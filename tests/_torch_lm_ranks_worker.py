@@ -14,9 +14,11 @@ Cases (dicts, run in order; every rank runs every case), each with
 * ``{"kind": "moe", "cfg", "params", "x"}`` — ``moe_apply`` on the rank's
   slab of ``x``: ``{"y", "aux", "metrics", "bytes"}``;
 * ``{"kind": "serve", "cfg", "params", "tokens", "prompt_len"}`` —
-  ``make_prefill_step`` on the slab's first ``prompt_len`` tokens, then
-  ``make_decode_step`` on each later token: ``{"prefill", "decode"}``
-  (this rank's logits);
+  ``make_prefill_step`` on the slab's first ``prompt_len`` tokens into
+  caches of ``max_len`` (default: the tokens' length) made under the
+  rules, then ``make_decode_step`` on each later token, or with
+  ``greedy`` n on n greedy tokens: ``{"prefill", "decode",
+  "cache_bytes"}`` (this rank's logits and cache);
 * ``{"kind": "train", "cfg", "params", "batches", "compress",
   "microbatches", "ckpt_dir"}`` — ``make_train_step`` over the batches:
   ``{"metrics", "params"}`` (the params gathered whole on rank 0), and,
@@ -39,6 +41,9 @@ Cases (dicts, run in order; every rank runs every case), each with
   recorded: per call of the forward and of the backward (remat's
   recompute) its leaves' dtypes, the gathered layer leaves still alive
   between the forward and the backward, and the ``fsdp`` bytes and calls;
+* ``{"kind": "tp_grads", "cfg", "inputs", "live"}`` — the tensor-parallel
+  MLP and the sequence-split decode attention on whole seeded inputs and
+  the gradients of this rank's part (:func:`_tp_grads`);
 * ``{"kind": "restore", "cfg", "ckpt_dir", "step"}`` — a whole train state's
   checkpoint restored with ``sharding_tree=``: every leaf's slice;
 * ``{"kind": "stall"}`` — rank 0 starts an all-to-all that rank 1 never
@@ -116,14 +121,21 @@ def _serve(case, rules):
     params = _params(case, rules)
     toks = _slab(case["tokens"], rules)
     n = case["prompt_len"]
-    caches = init_caches(cfg, toks.shape[0], toks.shape[1], device="cpu")
+    greedy = case.get("greedy", 0)
     with use_rules(rules):
+        caches = init_caches(cfg, toks.shape[0],
+                             case.get("max_len", toks.shape[1]),
+                             device="cpu")
         logits, caches = make_prefill_step(cfg)(
             params, {"tokens": toks[:, :n]}, caches)
-        out = {"prefill": logits.numpy(), "decode": []}
-        for i in range(n, toks.shape[1]):
+        out = {"prefill": logits.numpy(), "decode": [],
+               "cache_bytes": sum(t.numel() * t.element_size()
+                                  for c in caches for t in (c.k, c.v))}
+        feeds = [toks[:, i:i + 1] for i in range(n, toks.shape[1])]
+        for i in range(greedy or len(feeds)):
+            feed = logits.argmax(-1)[:, None] if greedy else feeds[i]
             logits, caches = make_decode_step(cfg)(
-                params, {"tokens": toks[:, i:i + 1]}, caches)
+                params, {"tokens": feed}, caches)
             out["decode"].append(logits.numpy())
     return out
 
@@ -304,6 +316,53 @@ def _fsdp_wire(case, rules):
                       for p in tree_leaves(params)]}
 
 
+def _tp_grads(case, rules):
+    """The Megatron MLP (``mlp_apply`` under the rules: ``tp_copy`` in,
+    the row-split sum out) and the sequence-split decode attention
+    (``attention.sp_attend``, the query's heads gathered as a decode step
+    gathers them) on seeded whole inputs, each rank its slices, and the
+    gradients of ``sum(y * cot)`` over this rank's part of ``y``: the
+    MLP's with respect to ``x`` and this rank's weight slices, the
+    attention's to this rank's query heads and its block of k and v."""
+    from repro_torch.core.collectives import all_gather_cat
+    from repro_torch.models.attention import sp_attend
+    from repro_torch.models.layers import mlp_apply
+    from repro_torch.models.tensor_parallel import tp_group
+    from repro_torch.sharding import use_rules
+
+    cfg = case["cfg"]
+    g = {k: torch.from_numpy(v) for k, v in case["inputs"].items()}
+    out = {}
+    with use_rules(rules):
+        tp = tp_group()
+        p, r = tp.size, tp.index
+        f = g["w_up"].shape[1] // p
+        w = {"w_up": g["w_up"][:, r * f:(r + 1) * f],
+             "w_gate": g["w_gate"][:, r * f:(r + 1) * f],
+             "w_down": g["w_down"][r * f:(r + 1) * f]}
+        w = {k: v.clone().requires_grad_() for k, v in w.items()}
+        x = g["x"].clone().requires_grad_()
+        y = mlp_apply(w, x, cfg.mlp, d_ff=g["w_up"].shape[1])
+        (y * g["cot_y"]).sum().backward()
+        out["mlp"] = {"y": y.detach().numpy(), "x": x.grad.numpy(),
+                      **{k: v.grad.numpy() for k, v in w.items()}}
+        h = cfg.n_heads // p
+        span = g["k"].shape[1] // p
+        q = g["q"][:, r * h:(r + 1) * h].clone().requires_grad_()
+        k = g["k"][:, r * span:(r + 1) * span].clone().requires_grad_()
+        v = g["v"][:, r * span:(r + 1) * span].clone().requires_grad_()
+        lo, hi = case["live"]
+        q_all = all_gather_cat(q[None], tp.comm, tp.dims, "sp")
+        q_all = q_all.transpose(0, 1).reshape(q.shape[0], -1, q.shape[2])
+        att = sp_attend(q_all, k, v, min(max(lo - r * span, 0), span),
+                        min(max(hi - r * span, 0), span), cfg, tp)
+        mine = att[:, r * h:(r + 1) * h]
+        (mine * g["cot_att"][:, r * h:(r + 1) * h]).sum().backward()
+        out["sp"] = {"out": mine.detach().numpy(), "q": q.grad.numpy(),
+                     "k": k.grad.numpy(), "v": v.grad.numpy()}
+    return out
+
+
 def _restore(case, rules):
     from repro_torch.checkpoint import restore_checkpoint
     from repro_torch.checkpoint.store import _leaves
@@ -341,7 +400,8 @@ def run_case(case, timeout_s):
     return {"moe": _moe, "serve": _serve, "train": _train,
             "thread_grad": _thread_grad, "refuse": _refuse,
             "fsdp_gather": _fsdp_gather, "fsdp_wire": _fsdp_wire,
-            "restore": _restore}[case["kind"]](case, rules)
+            "restore": _restore, "tp_grads": _tp_grads}[case["kind"]](
+                case, rules)
 
 
 def main(rank, world, init_file, cases, queue, timeout_s=GROUP_TIMEOUT_S):

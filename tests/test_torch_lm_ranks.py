@@ -49,10 +49,11 @@ fixture), on a ``(data=1, model=P)`` mesh:
   ``sharding_tree=`` on every rank: the live slices bitwise;
 * a gradient taken from another thread (where a card's autograd
   recomputes a checkpointed layer) equal to one taken on the caller's;
-* a TP profile, on a ``(1, P)`` mesh and over ``data > 1`` on a
-  ``(2, P/2)`` one, raises ``NotImplementedError`` naming its ROADMAP item
-  (A8c), and a collective one rank never joins raises within the group's
-  timeout. (FSDP over ``data > 1`` executes: ``test_torch_fsdp.py``.)
+* mamba2's blocks under a TP profile, on a ``(1, P)`` mesh and over
+  ``data > 1`` on a ``(2, P/2)`` one, raise ``NotImplementedError`` naming
+  their ROADMAP item (A8d), and a collective one rank never joins raises
+  within the group's timeout. (FSDP over ``data > 1`` executes:
+  ``test_torch_fsdp.py``; tensor parallelism: ``test_torch_tp.py``.)
 """
 
 import concurrent.futures
@@ -119,6 +120,16 @@ def _model(arch):
     rp = rmodels.init_params(cfg, jax.random.PRNGKey(0))
     return cfg, rp, params_from_reference(
         jax.tree.map(np.asarray, rp), cfg, device="cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _mamba_params():
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_params
+
+    return init_params(smoke_config("mamba2-1.3b"),
+                       torch.Generator().manual_seed(0), device="cpu",
+                       dtype=torch.float32)
 
 
 def _x(world, cfg, seed):
@@ -196,12 +207,15 @@ def _grid(world, ckpt_root):
         kind="thread_grad", mesh=(1, world), profile="ep_dp", cfg=cfg,
         params=_np(_model(ARCHS[0])[2]),
         batch=_batches(world, cfg, 40, False)[0])
+    from repro_torch.configs import smoke_config
+
+    mamba = smoke_config("mamba2-1.3b")
     for mesh, profile in (((2, world // 2), "default"),
                           ((1, world), "default"),
                           ((1, world), "ep_sharded")):
         cases[("refuse", mesh, profile)] = dict(
-            kind="refuse", mesh=mesh, profile=profile, cfg=cfg,
-            params=_np(_model(ARCHS[0])[2]))
+            kind="refuse", mesh=mesh, profile=profile, cfg=mamba,
+            params=_np(_mamba_params()))
     return cases
 
 
@@ -519,7 +533,7 @@ def test_unexecuted_meshes_and_profiles_raise(ranks, world):
         if kind != "refuse":
             continue
         for text in per_rank:
-            assert text is not None and "A8c" in text, (key, text)
+            assert text is not None and "A8d" in text, (key, text)
 
 
 def test_failed_collective_raises_within_the_timeout(ranks):

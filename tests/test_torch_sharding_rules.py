@@ -11,11 +11,11 @@ architecture:
   stacked-period dim stripped: equal specs, leaf by leaf, with the port's
   leaf paths (``layers/<p·len(pattern)+i>/…`` for ``period/pos<i>/…``);
 * ``batch_pspecs`` and ``cache_pspecs`` for every shape: equal;
-* ``shard`` is the identity; ``check_executable`` refuses the profiles the
-  port does not execute (tensor parallelism), naming their ROADMAP item,
-  and passes FSDP over ``data > 1``; the meshes and the sharded init refuse
-  what they cannot do, and at (2, 4) the sharded init keeps the spec's
-  slices.
+* ``shard`` is the identity; ``check_executable`` passes FSDP over
+  ``data > 1`` and the tensor-parallel profiles, and refuses mamba blocks
+  under tensor parallelism, naming their ROADMAP item (A8d); the meshes
+  and the sharded init refuse what they cannot do, and at (2, 4) and
+  (2, 2) the sharded init keeps the spec's slices.
 """
 
 import jax
@@ -174,16 +174,65 @@ def test_shard_is_the_identity():
         assert shard(x, "batch", "seq_sp", "tp") is x
 
 
-@pytest.mark.parametrize("profile,shape,item", [
-    ("default", (1, 4), "A8c"), ("serve_tp", (1, 4), "A8c"),
-    ("ep_sharded", (1, 4), "A8c")])
-def test_unexecuted_profiles_raise_naming_their_item(profile, shape, item):
-    _, tr = _rules(shape, profile)
-    with pytest.raises(NotImplementedError, match=item):
-        check_executable(tr)
-    with pytest.raises(NotImplementedError, match=item):
-        init_params_sharded(smoke_config("qwen2-moe-a2.7b"), tr,
-                            device="cpu")
+TP_PROFILES = ("default", "serve_tp", "ep_sharded")
+
+
+@pytest.mark.parametrize("profile", TP_PROFILES)
+def test_tp_profiles_execute(profile):
+    """The tensor-parallel profiles (ROADMAP A8c) pass ``check_executable``
+    on (1, 4), (2, 4) and the production meshes for every config without
+    mamba layers; at (2, 2) every coordinate's sharded init is the spec's
+    slices of the one-process ``init_params``: the leaves split over
+    ``model`` (attention's and the MLPs' projections, the experts, the
+    vocabulary) and, under ``default`` / ``ep_sharded``, over ``data``
+    too."""
+    from repro_torch.models import init_params
+    from repro_torch.sharding.placement import local_slice, spec_axes
+
+    for shape in MESHES:
+        _, tr = _rules(shape, profile)
+        assert tr.tp == "model"
+        for arch in r_list_archs():
+            cfg = get_config(arch)
+            if not any(k in "mM" for k in cfg.pattern):
+                check_executable(tr, cfg)
+    cfg = smoke_config("qwen2-moe-a2.7b")
+    whole = dict(_paths(init_params(
+        cfg, torch.Generator().manual_seed(3), device="cpu",
+        dtype=torch.float32)))
+    mesh = StandInMesh((2, 2), ("data", "model"))
+    for d in range(2):
+        for m in range(2):
+            mesh.coordinate = {"data": d, "model": m}
+            tr = ShardingRules.for_mesh(mesh, profile)
+            specs = dict(leaf_pspecs(global_params(cfg), tr))
+            got = init_params_sharded(cfg, tr,
+                                      torch.Generator().manual_seed(3),
+                                      device="cpu", dtype=torch.float32)
+            both = 0
+            for path, leaf in _paths(got):
+                assert torch.equal(leaf, local_slice(whole[path],
+                                                     specs[path], tr))
+                axes = {a for e in specs[path] for a in spec_axes(e)}
+                both += axes == {"data", "model"}
+                assert leaf.numel() * (2 if "model" in axes else 1) \
+                    * (2 if "data" in axes else 1) == whole[path].numel()
+            # embed, and a layer's wq wk wv wo, shared up gate down
+            want = 0 if profile == "serve_tp" else 1 + 7 * cfg.n_layers
+            assert both == want, (profile, d, m, both)
+
+
+@pytest.mark.parametrize("profile", TP_PROFILES)
+@pytest.mark.parametrize("arch", ("mamba2-1.3b", "jamba-v0.1-52b"))
+def test_mamba_under_tp_raises_naming_a8d(profile, arch):
+    """Mamba blocks under a tensor-parallel profile are ROADMAP A8d: the
+    rules, the sharded init and the model refuse them."""
+    _, tr = _rules((1, 4), profile)
+    cfg = smoke_config(arch)
+    with pytest.raises(NotImplementedError, match="A8d"):
+        check_executable(tr, cfg)
+    with pytest.raises(NotImplementedError, match="A8d"):
+        init_params_sharded(cfg, tr, device="cpu")
 
 
 @pytest.mark.parametrize("profile,shape", [
