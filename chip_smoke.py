@@ -3838,22 +3838,25 @@ def first_decode_gaps(params, cfg, dev, prompt):
 
 def check_captured(cap, name):
     """The first layer's captured prefill attention and grouped GEMMs
-    (prefill and the first decode step) through the kernels against their
-    plain versions on the same inputs, within ``TOL`` / ``MOE_TOL``: the
-    checks of ``time_flash`` and ``time_moe`` at these shapes, untimed.
-    Returns the largest error by route."""
+    (prefill and the first decode step; none in a model without such
+    layers) through the kernels against their plain versions on the same
+    inputs, within ``TOL`` / ``MOE_TOL``: the checks of ``time_flash`` and
+    ``time_moe`` at these shapes, untimed. Returns the largest error by
+    route."""
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention.ref import mha_ref
     from repro_torch.kernels.moe_gemm import kernel as mg
     from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 
-    q, k, v, (scale, causal, window, softcap) = cap.attn["prefill"]
-    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
-    ok, err = within(fa.flash_attention(q, k, v, **kw),
-                     mha_ref(q, k, v, **kw), *TOL[q.dtype])
-    check(ok, f"{name}: prefill attention kernel != plain version at q "
-              f"{tuple(q.shape)}, k {tuple(k.shape)} ({err})")
-    errs = {fa.route(q.dtype, q.shape[3]): err}
+    errs = {}
+    if "prefill" in cap.attn:               # a model with attention layers
+        q, k, v, (scale, causal, window, softcap) = cap.attn["prefill"]
+        kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+        ok, err = within(fa.flash_attention(q, k, v, **kw),
+                         mha_ref(q, k, v, **kw), *TOL[q.dtype])
+        check(ok, f"{name}: prefill attention kernel != plain version at q "
+                  f"{tuple(q.shape)}, k {tuple(k.shape)} ({err})")
+        errs[fa.route(q.dtype, q.shape[3])] = err
     for phase in ("prefill", "decode"):
         for x, w, rows in cap.gemm.get(phase, ()):
             ok, err = within(mg.moe_gemm(x, w, rows),
@@ -4142,7 +4145,7 @@ def greedy_refs(params, cfg, dev, toks, world, steps, max_len, rows_of=1,
         caches = init_caches(cfg, b, max_len, device=dev)
         log = {"on": False, "layers": [], "gemm": []}
         with gemm_rows(rows_of, plain), step_log(log), \
-                seq_blocked_moe(seq_blocks), tp_arithmetic(tp_parts):
+                seq_blocked_moe(seq_blocks), tp_arithmetic(tp_parts, cfg):
             logits, caches = prefill_step(params, cfg, {"tokens": slab},
                                           caches)
             ref = {"prefill": logits.cpu()}
@@ -4199,6 +4202,50 @@ def seq_blocked_moe(p):
         blocks_mod.moe_apply = orig
 
 
+@contextlib.contextmanager
+def every_launch_checked(on):
+    """With ``on``: every attention and grouped-GEMM call the model makes
+    (each one launch of its kernel) held against the plain version on the
+    same inputs (``mha_ref`` within ``TOL``, ``moe_gemm_ref`` within
+    ``MOE_TOL``; the plain versions launch no kernel); yields ``{route:
+    [calls, failures, largest error]}``."""
+    import repro_torch.models.attention as attn_mod
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.kernels.moe_gemm import kernel as mg
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+
+    seen = {}
+    mha, gemm = attn_mod.multihead_attention, moe_mod.grouped_gemm
+
+    def note(route, ok, err):
+        row = seen.setdefault(route, [0, 0, 0.0])
+        row[0] += 1
+        row[1] += not ok
+        row[2] = max(row[2], err)
+
+    def attn(q, k, v, scale, causal, window=0, softcap=0.0):
+        out = mha(q, k, v, scale, causal, window, softcap)
+        note(fa.route(q.dtype, q.shape[3]), *within(
+            out, mha_ref(q, k, v, scale=scale, causal=causal, window=window,
+                         softcap=softcap), *TOL[q.dtype]))
+        return out
+
+    def grouped(x, w, rows=None):
+        out = gemm(x, w, rows)
+        note(mg.route(x.dtype, x.shape[1]),
+             *within(out, moe_gemm_ref(x, w, rows), *MOE_TOL[x.dtype]))
+        return out
+
+    if on:
+        attn_mod.multihead_attention, moe_mod.grouped_gemm = attn, grouped
+    try:
+        yield seen
+    finally:
+        attn_mod.multihead_attention, moe_mod.grouped_gemm = mha, gemm
+
+
 def lm_ranks_serve(dev, rules, job, rank, params=None):
     """One rank's serving run under the rules: this rank's slices of the
     weights (drawn whole from the seeded generator, sliced leaf by leaf;
@@ -4241,12 +4288,15 @@ def lm_ranks_serve(dev, rules, job, rank, params=None):
         caches = init_caches(cfg, toks.shape[0], job["max_len"],
                              device=dev)
     cache_bytes = sum(t.numel() * t.element_size() for c in caches
-                      for t in (c.k, c.v))
+                      for t in c if isinstance(t, torch.Tensor))
+    ssm_bytes = sum(c.ssm.numel() * c.ssm.element_size() for c in caches
+                    if hasattr(c, "ssm"))
     prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
     fa.reset_launches()
     mg.reset_launches()
     comm.reset_counts()
-    with Capture() as cap, use_rules(rules), torch.no_grad():
+    with Capture() as cap, use_rules(rules), torch.no_grad(), \
+            every_launch_checked(job.get("check_every")) as checked:
         cap.phase = "prefill"
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4291,6 +4341,7 @@ def lm_ranks_serve(dev, rules, job, rank, params=None):
     torch.cuda.empty_cache()
     return {"init_s": init_s, "params_held": held,
             "param_bytes_held": held_bytes, "cache_bytes": cache_bytes,
+            "ssm_bytes": ssm_bytes, "launches_checked": checked,
             "max_len": job["max_len"], "slab": list(toks.shape),
             "peak_memory_allocated": peak, "prefill_ms": prefill_ms,
             "decode_step_ms": step_ms, "comm_prefill": comm_prefill,
@@ -4819,7 +4870,7 @@ def fsdp_oracle(dev, cfg, compress, steps, params=None, batch=FSDP_RANKS,
     step = make_train_step(cfg, AdamWConfig(**LM_RANKS_OPT),
                            compress_grads=compress, microbatches=microbatches)
     metrics = []
-    with seq_blocked_moe(seq_blocks), tp_arithmetic(tp_parts):
+    with seq_blocked_moe(seq_blocks), tp_arithmetic(tp_parts, cfg):
         for b in batches:
             state, m = step(state, {k: torch.from_numpy(v).to(dev)
                                     for k, v in b.items()})
@@ -5111,7 +5162,7 @@ class SplitProduct(torch.Tensor):
 
 
 @contextlib.contextmanager
-def tp_arithmetic(p):
+def tp_arithmetic(p, cfg):
     """With ``p`` > 1, the one-process model's layer products as the ranks
     of a tp line of ``p`` compute them (:class:`SplitProduct` on each
     weight the rules split over the line), and a decode step's softmax
@@ -5120,11 +5171,16 @@ def tp_arithmetic(p):
     arithmetic, so that bf16 rounding, which a deep random model
     amplifies (0.07 of the logits on qwen3-8b's 36 layers), is the same on
     both sides (as :func:`gemm_rows` hands the one-process experts the
-    ranks' rows)."""
+    ranks' rows). Where ``p`` divides ``cfg``'s mamba heads, also the
+    mixer's head-wise work as the ranks compute it: the SSD and the decode
+    recurrence on each rank's heads, and the gated norm's float32 sum of
+    squares as the ranks' sums added in member order
+    (:func:`mamba_tp_arithmetic`)."""
     import repro_torch.models.transformer as tr
 
     orig = tr._layer_weights
-    cols, rows = {"wq", "wk", "wv", "w_up", "w_gate"}, {"wo", "w_down"}
+    cols = {"wq", "wk", "wv", "w_up", "w_gate", "w_in"}
+    rows = {"wo", "w_down", "w_out"}
 
     def wrap(tree):
         out = {}
@@ -5169,10 +5225,63 @@ def tp_arithmetic(p):
         tr._layer_weights = lambda lp, cfg, layer: wrap(orig(lp, cfg, layer))
         blocks_mod.attn_decode = decode
     try:
-        yield
+        with mamba_tp_arithmetic(p, cfg):
+            yield
     finally:
         tr._layer_weights = orig
         blocks_mod.attn_decode = orig_decode
+
+
+@contextlib.contextmanager
+def mamba_tp_arithmetic(p, cfg):
+    """With ``p`` > 1 dividing ``cfg``'s mamba heads: the one-process
+    mixer's SSD (``mamba2._ssd_chunked``) and decode recurrence
+    (``_recur``) run on ``p`` blocks of the heads, and its gated norm sums
+    ``p`` blocks' float32 sums of squares in member order, as
+    ``tensor_parallel.line_sum`` does."""
+    import torch.nn.functional as F
+
+    import repro_torch.models.mamba2 as mamba_mod
+
+    names = ("_ssd_chunked", "_recur", "_gated_norm")
+    orig = {n: getattr(mamba_mod, n) for n in names}
+
+    def ssd(x, da, b, c, chunk):
+        outs = [orig["_ssd_chunked"](xi.contiguous(), di.contiguous(), b, c,
+                                     chunk)
+                for xi, di in zip(x.chunk(p, 2), da.chunk(p, 2))]
+        return (torch.cat([o[0] for o in outs], 2),
+                torch.cat([o[1] for o in outs], 1))
+
+    def recur(ssm, xdt, decay, b, c):
+        outs = [orig["_recur"](*(t.contiguous() for t in parts), b, c)
+                for parts in zip(ssm.chunk(p, 1), xdt.chunk(p, 1),
+                                 decay.chunk(p, 1))]
+        return (torch.cat([o[0] for o in outs], 1),
+                torch.cat([o[1] for o in outs], 1))
+
+    def norm(scale, y, z, eps, tp=None, di=0):
+        g = y * F.silu(z)
+        parts = [c.contiguous().float() for c in g.chunk(p, -1)]
+        ss = None
+        for gf in parts:
+            s = (gf * gf).sum(dim=-1, keepdim=True)
+            ss = s if ss is None else ss + s
+        var = ss / g.shape[-1]
+        return torch.cat([(gf * torch.rsqrt(var + eps) * sc.float())
+                          .to(g.dtype)
+                          for gf, sc in zip(parts, scale.chunk(p))], -1)
+
+    split = p > 1 and cfg is not None and cfg.ssm is not None \
+        and cfg.ssm.n_heads(cfg.d_model) % p == 0
+    if split:
+        for n, f in zip(names, (ssd, recur, norm)):
+            setattr(mamba_mod, n, f)
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(mamba_mod, n, orig[n])
 
 
 TP_ARCH = "qwen3-8b"
@@ -5186,6 +5295,12 @@ TP_TRAIN_STEPS = 2
 TP_MOE_LAYERS = 2
 TP_MOE_DECODE = 2               # (c)'s greedy decode steps
 TP_MOE_TRAIN_STEPS = 1
+# (d): mamba2-1.3b at full size under serve_tp
+TP_MAMBA_PROMPT = 1024
+TP_MAMBA_DECODE = 4
+# (f): jamba-v0.1-52b at full width, one period (JAMBA_LAYERS), serve_tp
+TP_JAMBA_PROMPT = 512
+TP_JAMBA_DECODE = 2
 # the largest share of the whole model's parameter bytes a rank may hold
 # under serve_tp on (1, 4): a quarter, and the replicated norms
 TP_PARAM_SHARE = 0.26
@@ -5241,15 +5356,14 @@ def tp_serve_checks(rows, cfg, steps, refs, label, moe_rows=None):
         check(row["moe_gemm_route_launches"] == want,
               f"{label} rank {r}: moe_gemm launches "
               f"{row['moe_gemm_route_launches']}, expected {want}")
-        # the cache's transfers: k and v move between ranks where the line
-        # splits their heads, and a decode step's softmax combines where it
-        # splits the cache by sequence
+        # the KV cache's transfers: k and v move between ranks where the
+        # line splits their heads, and a decode step's softmax combines
+        # where it splits the cache by sequence (none without attention)
         world = len(rows)
-        heads = cfg.n_kv_heads % world == 0
+        heads = n_attn > 0 and cfg.n_kv_heads % world == 0
         for part, sp in (("comm_prefill", heads),
-                         ("comm_decode", heads or row["cache_bytes"]
-                          < 2 * cfg.n_layers * row["slab"][0]
-                          * row["max_len"] * cfg.n_kv_heads * cfg.hd * 2)):
+                         ("comm_decode", heads or n_attn > 0
+                          and row["max_len"] % world == 0)):
             calls = row[part]["calls"]
             check(calls["tp"] > 0 and (calls["sp"] > 0) == sp
                   and calls["fsdp"] == 0, f"{label} rank {r}: {part} "
@@ -5261,56 +5375,19 @@ def tp_serve_checks(rows, cfg, steps, refs, label, moe_rows=None):
 
 def tp_qwen3_serve(dev, pool, smi):
     """Part (a) of :func:`phase_tp`: qwen3-8b at full size under
-    ``serve_tp`` on ``(1, 4)``. Returns the launches by kernel."""
+    ``serve_tp`` on ``(1, 4)``, its KV cache split by sequence. Returns
+    the launches by kernel."""
     from repro_torch.configs import get_config
-    from repro_torch.models import init_params
-    from repro_torch.train.optimizer import tree_leaves
 
-    t0 = time.perf_counter()
     cfg = get_config(TP_ARCH)
     toks = np.random.default_rng(2).integers(0, cfg.vocab,
                                              (TP_BATCH, TP_PROMPT))
     max_len = TP_PROMPT + TP_DECODE
     check(max_len % TP_RANKS == 0, "the cache is not split by sequence")
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                         device=dev, dtype=torch.bfloat16)
-    whole = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-    refs = greedy_refs(params, cfg, dev, toks, 1, TP_DECODE, max_len,
-                       tp_parts=TP_RANKS)
-    native = greedy_refs(params, cfg, dev, toks, 1, TP_DECODE, max_len)
-    del params
-    t_refs = time.perf_counter() - t0
     cache = 2 * cfg.n_layers * TP_BATCH * max_len * cfg.n_kv_heads \
         * cfg.hd * 2
-    held = released()
-    rows, lowest, t_ranks, split = fsdp_run(pool, {
-        "device": dev.type, "mesh": (1, TP_RANKS), "profile": "serve_tp",
-        "serve": {"cfg": cfg, "tokens": toks, "max_len": max_len,
-                  "steps": TP_DECODE, "refs": refs * TP_RANKS,
-                  "native": native * TP_RANKS}})
-    serve = [r["serve"] for r in rows]
-    label = "tp qwen3-8b serve_tp"
-    for row in serve:
-        row["param_share"] = row["param_bytes_held"] / whole
-        row["cache_share"] = row["cache_bytes"] / cache
-    emit({"phase": "tp_qwen3_serve", "card": smi, "arch": TP_ARCH,
-          "ranks": TP_RANKS, "backend": "gloo", "mesh": [1, TP_RANKS],
-          "profile": "serve_tp", "prompt": [TP_BATCH, TP_PROMPT],
-          "decode_steps": TP_DECODE, "max_len": max_len,
-          "model_bytes": whole, "one_process_cache_bytes": cache,
-          "one_process_refs_s": t_refs, "ranks_s": t_ranks,
-          "ranks_split_s": split, "lowest_available_host_bytes": lowest,
-          "parent_memory_allocated_at_run": held,
-          "one_process_native_tokens": native[0]["tokens"].tolist(),
-          "per_rank": serve})
-    launches = tp_serve_checks(serve, cfg, TP_DECODE, refs * TP_RANKS, label)
-    for r, row in enumerate(serve):
-        check(row["param_share"] <= TP_PARAM_SHARE, f"{label} rank {r}: "
-              f"holds {row['param_share']} of the model's parameter bytes")
-        check(row["cache_bytes"] * TP_RANKS == cache, f"{label} rank {r}: "
-              f"{row['cache_bytes']} bytes of cache, the one process's "
-              f"{cache}")
-    return launches
+    return tp_serve_run(dev, pool, smi, "tp_qwen3_serve", cfg, toks,
+                        TP_DECODE, ("cache", cache))[1]
 
 
 def tp_qwen3_train(dev, pool, smi):
@@ -5417,6 +5494,162 @@ def tp_qwen_moe(dev, pool, smi):
     return {k: sum_routes([served[k], trained[k]]) for k in served}
 
 
+def tp_serve_run(dev, pool, smi, phase, cfg, toks, steps, split=None,
+                 moe_rows=None, check_every=False):
+    """``cfg`` (bf16 weights from the seeded generator) served under
+    ``serve_tp`` on ``(1, TP_RANKS)``: a prefill of ``toks`` and ``steps``
+    greedy decode steps on every rank, against the one-process port
+    computing its products as the ranks do (``refs``) and the plain one
+    (``native``, reported), both released before the ranks run; with
+    ``check_every``, every kernel launch of the ranks held against its
+    plain version. Emits the ``phase`` record, then checks
+    (:func:`tp_serve_checks` with ``moe_rows``) that a rank holds at most
+    ``TP_PARAM_SHARE`` of the weights and, for ``split`` ``(name, whole
+    bytes)``, a ``TP_RANKS``-th of its ``<name>_bytes``. Returns (the
+    rows, the launches by kernel)."""
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import tree_leaves
+
+    t0 = time.perf_counter()
+    max_len = toks.shape[1] + steps
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev, dtype=torch.bfloat16)
+    whole = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    refs = greedy_refs(params, cfg, dev, toks, 1, steps, max_len,
+                       tp_parts=TP_RANKS) * TP_RANKS
+    native = greedy_refs(params, cfg, dev, toks, 1, steps, max_len)
+    del params
+    t_refs = time.perf_counter() - t0
+    held = released()
+    rows, lowest, t_ranks, times = fsdp_run(pool, {
+        "device": dev.type, "mesh": (1, TP_RANKS), "profile": "serve_tp",
+        "serve": {"cfg": cfg, "tokens": toks, "max_len": max_len,
+                  "steps": steps, "refs": refs,
+                  "native": native * TP_RANKS,
+                  "check_every": check_every}})
+    serve = [r["serve"] for r in rows]
+    extra = {}
+    for row in serve:
+        row["param_share"] = row["param_bytes_held"] / whole
+        if split:
+            row[f"{split[0]}_share"] = row[f"{split[0]}_bytes"] / split[1]
+            extra = {f"one_process_{split[0]}_bytes": split[1]}
+    emit({"phase": phase, "card": smi, "arch": cfg.name,
+          "layers": cfg.n_layers, "ranks": TP_RANKS, "backend": "gloo",
+          "mesh": [1, TP_RANKS], "profile": "serve_tp",
+          "prompt": list(toks.shape), "decode_steps": steps,
+          "max_len": max_len, "model_bytes": whole, **extra,
+          "one_process_refs_s": t_refs, "ranks_s": t_ranks,
+          "ranks_split_s": times, "lowest_available_host_bytes": lowest,
+          "parent_memory_allocated_at_run": held,
+          "one_process_native_tokens": native[0]["tokens"].tolist(),
+          "per_rank": serve})
+    label = f"tp {cfg.name} serve_tp"
+    launches = tp_serve_checks(serve, cfg, steps, refs, label, moe_rows)
+    for r, row in enumerate(serve):
+        check(row["param_share"] <= TP_PARAM_SHARE, f"{label} rank {r}: "
+              f"holds {row['param_share']} of the model's parameter bytes")
+        if split:
+            got = row[f"{split[0]}_bytes"]
+            check(got * TP_RANKS == split[1], f"{label} rank {r}: {got} "
+                  f"bytes of {split[0]}, the one process's {split[1]}")
+    return serve, launches
+
+
+def tp_mamba_serve(dev, pool, smi):
+    """Part (d) of :func:`phase_tp`: mamba2-1.3b at full size under
+    ``serve_tp`` on ``(1, 4)``: each rank computes its 16 of the 64 heads
+    a layer and holds their SSM state. The plain one-process port's logits
+    are reported beside (``*_native_*``): 48 random bf16 layers turn the
+    ranks' other rounding (float32 partial sums) into 0.27 of a largest
+    logit of ~4.4 (an H100), beyond ``TOL``, so the logits are held
+    against the oracle computing as the ranks do. Returns the launches by
+    kernel (none: no attention or MoE layer)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MAMBA_ARCH)
+    toks = np.random.default_rng(4).integers(0, cfg.vocab,
+                                             (TP_BATCH, TP_MAMBA_PROMPT))
+    s = cfg.ssm
+    ssm = cfg.n_layers * TP_BATCH * s.n_heads(cfg.d_model) * s.head_dim \
+        * s.d_state * 4
+    return tp_serve_run(dev, pool, smi, "tp_mamba_serve", cfg, toks,
+                        TP_MAMBA_DECODE, ("ssm", ssm))[1]
+
+
+def tp_mamba_train(dev, pool, smi):
+    """Part (e) of :func:`phase_tp`: mamba2-1.3b at full width, 2 layers,
+    under ``default`` on ``(2, 2)`` (FSDP over ``data``, the mixer's heads
+    over ``model``). Returns the launches by kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(MAMBA_ARCH),
+                              n_layers=TP_TRAIN_LAYERS)
+    check(cfg.remat == "block", f"remat {cfg.remat}")
+    batches, metrics, oracle, t_oracle, oracle_peak = fsdp_oracle(
+        dev, cfg, False, TP_TRAIN_STEPS, batch=2, seq=TP_TRAIN_SEQ,
+        microbatches=2, tp_parts=2)
+    held = released()
+    rows, lowest, t_ranks, split = fsdp_run(pool, {
+        "device": dev.type, "mesh": (2, 2), "profile": "default",
+        "train": {"cfg": cfg, "batches": batches, "compress": False,
+                  "oracle": {"metrics": metrics, "params": oracle},
+                  "ckpt_dir": None}})
+    del oracle
+    train = [r["train"] for r in rows]
+    emit({"phase": "tp_mamba_train", "card": smi, "arch": MAMBA_ARCH,
+          "layers": cfg.n_layers, "ranks": TP_RANKS, "mesh": [2, 2],
+          "profile": "default", "global_batch": [2, TP_TRAIN_SEQ],
+          "oracle": "make_train_step(microbatches=2), "
+                    "AdamWConfig(warmup_steps=1), the ranks' products",
+          "oracle_metrics": metrics, "oracle_s": t_oracle,
+          "oracle_peak_memory_allocated": oracle_peak,
+          "ranks_s": t_ranks, "ranks_split_s": split,
+          "lowest_available_host_bytes": lowest,
+          "parent_memory_allocated_at_run": held, "per_rank": train})
+    return fsdp_train_checks(train, cfg, stand_in_rules((2, 2), "default"),
+                             False, TP_TRAIN_STEPS, "tp mamba2 train")
+
+
+def tp_jamba_serve(dev, pool, smi):
+    """Part (f) of :func:`phase_tp`: jamba-v0.1-52b at full width, one
+    period, under ``serve_tp`` on ``(1, 4)``: its mamba layers by heads,
+    its attention layer by heads (``tc`` at 8 query and 2 kv heads a
+    rank), its MoE layers by experts (4 of 16 a rank on ``moe_gemm``).
+    Every ``tc`` and ``moe_gemm`` launch of the ranks is held against its
+    plain version at the rank's shapes. Returns the launches by kernel and
+    the largest error by route."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import _capacity
+
+    cfg = dataclasses.replace(get_config(JAMBA_ARCH), n_layers=JAMBA_LAYERS)
+    toks = np.random.default_rng(5).integers(0, cfg.vocab,
+                                             (TP_BATCH, TP_JAMBA_PROMPT))
+    serve, launches = tp_serve_run(
+        dev, pool, smi, "tp_jamba_serve", cfg, toks, TP_JAMBA_DECODE,
+        moe_rows={"prefill": _capacity(cfg.moe, TP_BATCH * TP_JAMBA_PROMPT),
+                  "decode": _capacity(cfg.moe, TP_BATCH)},
+        check_every=True)
+    errs = {}
+    for r, row in enumerate(serve):
+        made = {k: v for k, v in {**row["flash_attention_route_launches"],
+                                  **row["moe_gemm_route_launches"]}.items()
+                if v}
+        checked = row["launches_checked"]
+        check({k: v[0] for k, v in checked.items()} == made
+              and all(v[1] == 0 for v in checked.values()),
+              f"tp jamba rank {r}: launches held against the plain "
+              f"versions {checked} (route: calls, failures, largest "
+              f"error), launched {made}")
+        for k, v in checked.items():
+            errs[k] = max(errs.get(k, 0.0), v[2])
+    return launches, errs
+
+
 def phase_tp(dev, pool=None):
     """Tensor and sequence parallelism (the ``default``, ``serve_tp`` and
     ``ep_sharded`` profiles) on 4 gloo ranks sharing the card (``pool``:
@@ -5429,21 +5662,39 @@ def phase_tp(dev, pool=None):
     ``microbatches=2``; (c) qwen2-moe-a2.7b at full width, 2 layers, under
     ``ep_sharded`` on ``(1, 4)``: a prefill (the MoE split by sequence)
     into a cache that stays whole, ``TP_MOE_DECODE`` decode steps and a
-    training step. Each against the one-process port, whose memory is
-    released before the ranks run. Returns the launches by kernel and
-    route."""
+    training step; (d) mamba2-1.3b at full size (48 layers, a quarter of
+    the heads and their SSM state a rank) under ``serve_tp`` on ``(1,
+    4)``: a prefill of 2 x ``TP_MAMBA_PROMPT`` tokens, ``TP_MAMBA_DECODE``
+    greedy decode steps; (e) mamba2-1.3b at full width, 2 layers, under
+    ``default`` on ``(2, 2)``: as (b); (f) jamba-v0.1-52b at full width,
+    one period, under ``serve_tp`` on ``(1, 4)``: a prefill of 2 x
+    ``TP_JAMBA_PROMPT`` tokens, ``TP_JAMBA_DECODE`` greedy decode steps,
+    every kernel launch held against its plain version. Each against the
+    one-process port, whose memory is released before the ranks run.
+    Returns the launches by kernel and route, and (f)'s largest kernel
+    errors by route."""
     if pool is None:
         with RankPool(TP_RANKS, "gloo", target=lm_ranks_worker) as pool:
             return phase_tp(dev, pool)
     t_phase = time.perf_counter()
     smi = card()
     released()
-    parts = [tp_qwen3_serve(dev, pool, smi), tp_qwen3_train(dev, pool, smi),
-             tp_qwen_moe(dev, pool, smi)]
+    parts, times = [], {}
+    for name, run in (("a", tp_qwen3_serve), ("b", tp_qwen3_train),
+                      ("c", tp_qwen_moe), ("d", tp_mamba_serve),
+                      ("e", tp_mamba_train)):
+        t0 = time.perf_counter()
+        parts.append(run(dev, pool, smi))
+        times[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    jamba, errs = tp_jamba_serve(dev, pool, smi)
+    times["f"] = time.perf_counter() - t0
+    parts.append(jamba)
     launches = {k: sum_routes([p[k] for p in parts]) for k in parts[0]}
     emit({"phase": "tp", "card": smi, "route_launches": launches,
+          "jamba_launch_max_abs_err": errs, "part_seconds": times,
           "seconds": time.perf_counter() - t_phase})
-    return launches
+    return launches, errs
 
 
 # ---------------------------------------------------------------------------
@@ -6219,7 +6470,7 @@ def main():
         with RankPool(FSDP_RANKS, "gloo", target=lm_ranks_worker) as pool:
             fsdp = phase_fsdp(dev, pool)
             lap("fsdp")
-            tp = phase_tp(dev, pool)
+            tp, tp_err = phase_tp(dev, pool)
         lap("tp")
         train = phase_train(dev)
         lap("train")
@@ -6249,7 +6500,8 @@ def main():
     bsr_src = "src/repro_torch/kernels/bsr_spgemm/csrc/"
     bsr_pallas = "src/repro/kernels/bsr_spgemm/kernel.py:92"
     flash["max_abs_err"] = max(flash_grid_err["bfloat16"],
-                               flash["max_abs_err"], jamba_err["tc"])
+                               flash["max_abs_err"], jamba_err["tc"],
+                               tp_err.get("tc", 0.0))
     flash_fp32["max_abs_err"] = max(flash_grid_err["float32"],
                                     flash_fp32["max_abs_err"])
     fa_src = "src/repro_torch/kernels/flash_attention/csrc/"
@@ -6296,7 +6548,13 @@ def main():
                   "steps), at full width, 2 layers, under default on (2, 2) "
                   "(2 training steps), qwen2-moe-a2.7b at full width, 2 "
                   "layers, under ep_sharded on (1, 4) (a prefill, 2 decode "
-                  "steps, a training step); jamba-v0.1-52b at full width, one period: one "
+                  "steps, a training step), mamba2-1.3b at full size under "
+                  "serve_tp on (1, 4) and at full width, 2 layers, under "
+                  "default on (2, 2) (no kernel), jamba-v0.1-52b at full "
+                  "width, one period, under serve_tp on (1, 4) (a prefill "
+                  "and 2 decode steps, every launch held against its plain "
+                  "version); mamba (one process): jamba-v0.1-52b at full "
+                  "width, one period: one "
                   "generate; training: the 6 steps of qwen2-moe-a2.7b at full "
                   "width, 4 layers, S 4096, B 2, remat block (the forward "
                   "and the backward's recompute); the float32 routes: the "
@@ -6425,10 +6683,12 @@ def main():
                         flash_fp32["launch_us_per_call"]},
                    source=fa_src + "flash_attention_tf32.cu"),
         moe_row("prefill", gemms[:2], max(moe_grid_err["bfloat16"],
-                                          jamba_err["prefill"]),
+                                          jamba_err["prefill"],
+                                          tp_err.get("prefill", 0.0)),
                 "moe_gemm_tc.cu"),
         moe_row("decode", gemms[2:], max(moe_grid_err["bfloat16"],
-                                         jamba_err["decode"]),
+                                         jamba_err["decode"],
+                                         tp_err.get("decode", 0.0)),
                 "moe_gemm_tc.cu"),
         moe_row("fp32", fp32, moe_grid_err["float32"], "moe_gemm_tf32.cu",
                 {"tf32_passes": fp32[0]["tf32_passes"],

@@ -47,7 +47,9 @@ def cache_pspecs(cfg: ModelConfig, shape: ShapeConfig,
                  rules: ShardingRules) -> List[Any]:
     """Per layer: KV caches with batch over the batch axes and *sequence
     over model* (SP); mamba states with batch over the batch axes and
-    heads over model when divisible."""
+    heads over model when divisible. These are the reference's specs; the
+    port's conv tail departs from its whole spec and holds the rank's
+    heads' x channels and B and C (``models.mamba2``)."""
     batch_ax = _batch_axis(shape, rules)
 
     def per_kind(kind: str):

@@ -94,12 +94,9 @@ def _tp_qkv(params, cfg: ModelConfig, x, positions, tp: TP):
     (every head where the line does not divide them), k and v of the kv
     heads ``[k0, k0 + nk)`` (every kv head where the line does not divide
     them). The norms' scales go through ``tp_copy``: each rank's gradient
-    there is its heads' part."""
+    there is its heads' part. The line divides the projections' columns
+    (``sharding.check_executable``)."""
     hd = cfg.hd
-    if not (tp.splits(cfg.n_heads * hd) and tp.splits(cfg.n_kv_heads * hd)):
-        raise NotImplementedError(
-            f"{cfg.name}: a tp line of {tp.size} does not divide the "
-            "projections' columns, which the rules would leave whole")
     b, s, _ = x.shape
     xin = tp_copy(x, tp.comm, tp.dims)
     out, first = [], []

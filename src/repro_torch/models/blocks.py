@@ -6,9 +6,8 @@ The mixer is attention (full 'a' / 'A', sliding-window 'l') or mamba2 ('m',
 (``d_ff == 0``, pure mamba2). Modes "train", "prefill" and "decode"; a
 mamba block's cache is its :class:`~.mamba2.SSMState`, which its prefill
 returns as the state after the prompt (the reference's leaves it at zero).
-Under tensor parallelism the attention and the MLP split over the ``tp``
-line (``attention``, ``layers.mlp_apply``); a mamba block there is refused
-(``sharding.check_executable``: ROADMAP A8d).
+Under tensor parallelism the attention, the mamba2 mixer and the MLP split
+over the ``tp`` line (``attention``, ``mamba2``, ``layers.mlp_apply``).
 """
 
 from __future__ import annotations
@@ -18,7 +17,6 @@ from typing import Any, Optional
 import torch
 
 from ..configs.base import ModelConfig
-from ..sharding.rules import check_executable, current_rules
 from .attention import (attn_decode, attn_init, attn_prefill, attn_train,
                         init_kv_cache)
 from .layers import mlp_apply, mlp_init, rmsnorm, rmsnorm_init
@@ -67,14 +65,17 @@ def block_init(generator, cfg: ModelConfig, kind: str, *, device, dtype):
 
 
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     *, device, dtype=torch.bfloat16, seq_parts: int = 1):
+                     *, device, dtype=torch.bfloat16, seq_parts: int = 1,
+                     head_parts: int = 1):
     """A bf16 KV cache of ``max_len`` positions for attention kinds (this
     rank's block of them with ``seq_parts``); the float32
-    :class:`~.mamba2.SSMState` for mamba kinds (``max_len``, ``dtype`` and
-    ``seq_parts`` unused there)."""
+    :class:`~.mamba2.SSMState` for mamba kinds, this rank's heads with
+    ``head_parts`` (``max_len``, ``dtype`` and ``seq_parts`` unused
+    there)."""
     _check_kind(kind)
     if is_mamba(kind):
-        return init_ssm_state(cfg, batch, device=device)
+        return init_ssm_state(cfg, batch, device=device,
+                              head_parts=head_parts)
     return init_kv_cache(cfg, batch, max_len, device=device, dtype=dtype,
                          seq_parts=seq_parts)
 
@@ -91,7 +92,6 @@ def block_apply(params, cfg: ModelConfig, kind: str, h,
 
     x = rmsnorm(params["norm_mix"], h, cfg.norm_eps)
     if is_mamba(kind):
-        check_executable(current_rules(), cfg)
         if mode == "train":
             mix, new_cache = mamba_train(params["mamba"], cfg, x), cache
         elif mode == "prefill":

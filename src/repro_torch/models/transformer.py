@@ -28,11 +28,11 @@ Across ranks (``sharding.use_rules`` with an executed profile on a
 global batch split over ``rules.batch`` and this rank's parameter slices
 (``sharding.placement``). Under tensor parallelism (``default``,
 ``serve_tp``, ``ep_sharded``) the ranks of a ``model`` line hold the same
-slab and split each layer's work (``tensor_parallel``; attention by heads,
-the MLPs as Megatron pairs, the MoE by experts or by sequence), so every
-rank of the line holds the whole loss. Where the rules split a leaf
-over the FSDP axis (``data`` larger than 1), the slices are gathered where
-they are used (``collectives.fsdp_gather``):
+slab and split each layer's work (``tensor_parallel``; attention and the
+mamba2 mixer by heads, the MLPs as Megatron pairs, the MoE by experts or
+by sequence), so every rank of the line holds the whole loss. Where the
+rules split a leaf over the FSDP axis (``data`` larger than 1), the slices
+are gathered where they are used (``collectives.fsdp_gather``):
 
   * each layer's leaves inside the layer's body: float32 masters cast to
     the compute dtype before the gather, so the wire carries bf16 (the
@@ -446,14 +446,20 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
     this rank's slab. Under rules with a sequence-parallel axis of P ranks
     (``rules.sp``; ``launch.specs.cache_pspecs``) a KV cache holds this
     rank's block of ``max_len / P`` positions, or all of them where P does
-    not divide ``max_len``."""
+    not divide ``max_len``; under a ``tp`` axis of P ranks that divides the
+    mamba heads an ``SSMState`` holds this rank's heads (``cache_pspecs``),
+    and its conv tail their x channels and B and C (the reference keeps the
+    tail whole)."""
     dev = resolve_device(device)
     rules = current_rules()
     check_executable(rules, cfg)
     parts = rules.axis_size(rules.sp) if rules is not None else 1
     parts = parts if max_len % parts == 0 else 1
+    tp = rules.axis_size(rules.tp) if rules is not None else 1
+    heads = tp if cfg.ssm is not None \
+        and cfg.ssm.n_heads(cfg.d_model) % tp == 0 else 1
     return [block_cache_init(cfg, kind, batch, max_len, device=dev,
-                             dtype=dtype, seq_parts=parts)
+                             dtype=dtype, seq_parts=parts, head_parts=heads)
             for kind in layer_kinds(cfg)]
 
 

@@ -26,8 +26,9 @@ Entry points:
   * :func:`shard` — the reference's activation constraint; the identity
     here (see its docstring).
   * :func:`check_executable` — what the port executes across ranks:
-    every profile on any mesh, FSDP over ``data`` included, except mamba
-    blocks under tensor parallelism (ROADMAP A8d).
+    every profile on any mesh for every block kind, FSDP over ``data``
+    included; it refuses attention whose projections the ``tp`` line does
+    not divide.
   * :func:`fsdp_dim` — the dim of a leaf split over the FSDP axis.
 """
 
@@ -180,22 +181,24 @@ def shard(x, *logical: Optional[str]):
 
 def check_executable(rules: Optional[ShardingRules], cfg=None) -> None:
     """Raise ``NotImplementedError`` unless the port executes ``rules``
-    across ranks for ``cfg``'s layers. Every profile executes: FSDP over a
-    ``data`` axis of any size (each leaf's slices gathered where the model
-    uses them, ``models.transformer``), and the tensor- and
-    sequence-parallel profiles (``default``, ``serve_tp``, ``ep_sharded``)
-    for attention blocks (kinds ``a``, ``A``, ``l``). Mamba blocks (``m``,
-    ``M``) under a profile with a ``tp`` axis are ROADMAP item A8d: the
-    mixer's split over ``model`` (``w_in``'s column groups, ``conv_w``,
-    the SSD and state heads) is not executed, and is never silently
-    replicated."""
+    across ranks for ``cfg``'s layers. Every profile executes on any mesh:
+    FSDP over a ``data`` axis of any size (each leaf's slices gathered
+    where the model uses them, ``models.transformer``), and the tensor-
+    and sequence-parallel profiles (``default``, ``serve_tp``,
+    ``ep_sharded``) for every block kind: attention (``a``, ``A``, ``l``)
+    by heads, mamba2 (``m``, ``M``) by heads where the line divides them
+    and whole on every rank where it does not (``models.mamba2``). One
+    split is refused: attention under a ``tp`` line that does not divide
+    its q/k/v projections' columns, which the rules would leave whole and
+    which the port splits only by heads or head columns."""
     if rules is None or rules.tp is None or cfg is None:
         return
-    if any(k in "mM" for k in cfg.pattern):
+    p = rules.tp_size
+    if any(k in "aAl" for k in cfg.pattern) and (
+            (cfg.n_heads * cfg.hd) % p or (cfg.n_kv_heads * cfg.hd) % p):
         raise NotImplementedError(
-            f"mamba blocks of {cfg.name} under tensor parallelism over "
-            f"{rules.tp!r} (profiles default, serve_tp, ep_sharded) are "
-            "not executed by the port: ROADMAP item A8d")
+            f"{cfg.name}: a tp line of {p} does not divide the attention "
+            "projections' columns, which the rules would leave whole")
 
 
 def fsdp_dim(spec, rules: ShardingRules) -> Optional[int]:

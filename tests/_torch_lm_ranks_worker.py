@@ -18,7 +18,8 @@ Cases (dicts, run in order; every rank runs every case), each with
   caches of ``max_len`` (default: the tokens' length) made under the
   rules, then ``make_decode_step`` on each later token, or with
   ``greedy`` n on n greedy tokens: ``{"prefill", "decode",
-  "cache_bytes"}`` (this rank's logits and cache);
+  "cache_bytes", "ssm_bytes"}`` (this rank's logits, its caches' bytes
+  and its mamba layers' SSM states' bytes);
 * ``{"kind": "train", "cfg", "params", "batches", "compress",
   "microbatches", "ckpt_dir"}`` — ``make_train_step`` over the batches:
   ``{"metrics", "params"}`` (the params gathered whole on rank 0), and,
@@ -30,7 +31,6 @@ Cases (dicts, run in order; every rank runs every case), each with
   under the rules, its gradient taken once on this thread and once from
   another thread (as autograd's device thread recomputes a checkpointed
   layer on a card): ``{"same": bool}``;
-* ``{"kind": "refuse"}`` — ``prefill`` under the rules: the error's text;
 * ``{"kind": "fsdp_gather", "shapes", "dims", "seed"}`` — one
   ``fsdp_gather`` of this rank's seeded float32 slices over ``data`` in
   bf16, leaf j along ``dims[j]``, then its backward from seeded bf16
@@ -44,6 +44,10 @@ Cases (dicts, run in order; every rank runs every case), each with
 * ``{"kind": "tp_grads", "cfg", "inputs", "live"}`` — the tensor-parallel
   MLP and the sequence-split decode attention on whole seeded inputs and
   the gradients of this rank's part (:func:`_tp_grads`);
+* ``{"kind": "mamba_norm", "inputs", "eps"}`` — mamba2's gated norm over
+  the line (``mamba2._gated_norm`` with the tp line) on this rank's
+  channels of whole seeded inputs, and the gradients of ``sum(out *
+  cot)`` over its part (:func:`_mamba_norm`);
 * ``{"kind": "restore", "cfg", "ckpt_dir", "step"}`` — a whole train state's
   checkpoint restored with ``sharding_tree=``: every leaf's slice;
 * ``{"kind": "stall"}`` — rank 0 starts an all-to-all that rank 1 never
@@ -130,7 +134,10 @@ def _serve(case, rules):
             params, {"tokens": toks[:, :n]}, caches)
         out = {"prefill": logits.numpy(), "decode": [],
                "cache_bytes": sum(t.numel() * t.element_size()
-                                  for c in caches for t in (c.k, c.v))}
+                                  for c in caches for t in c
+                                  if isinstance(t, torch.Tensor)),
+               "ssm_bytes": sum(c.ssm.numel() * c.ssm.element_size()
+                                for c in caches if hasattr(c, "ssm"))}
         feeds = [toks[:, i:i + 1] for i in range(n, toks.shape[1])]
         for i in range(greedy or len(feeds)):
             feed = logits.argmax(-1)[:, None] if greedy else feeds[i]
@@ -232,21 +239,6 @@ def _thread_grad(case, rules):
             return {"same": False, "error": out["error"]}
         grads.append(out["g"])
     return {"same": all(torch.equal(a, b) for a, b in zip(*grads))}
-
-
-def _refuse(case, rules):
-    from repro_torch.models import init_caches, prefill_step
-    from repro_torch.sharding import use_rules
-
-    cfg = case["cfg"]
-    try:
-        with use_rules(rules):
-            prefill_step(_as_torch(case["params"], torch.float32), cfg,
-                         {"tokens": torch.zeros((1, 4), dtype=torch.int64)},
-                         init_caches(cfg, 1, 4, device="cpu"))
-    except NotImplementedError as e:
-        return str(e)
-    return None
 
 
 def _fsdp_gather(case, rules):
@@ -363,6 +355,31 @@ def _tp_grads(case, rules):
     return out
 
 
+def _mamba_norm(case, rules):
+    """``_gated_norm`` of this rank's channels of the seeded ``y``, ``z``
+    and ``scale`` with the line's sum of squares: its output and the
+    gradients of ``sum(out * cot)`` over this rank's channels with respect
+    to its ``y``, ``z`` and ``scale``."""
+    from repro_torch.models.mamba2 import _gated_norm
+    from repro_torch.models.tensor_parallel import tp_group
+    from repro_torch.sharding import use_rules
+
+    g = {k: torch.from_numpy(v) for k, v in case["inputs"].items()}
+    with use_rules(rules):
+        tp = tp_group()
+        di = g["y"].shape[-1]
+        n = di // tp.size
+        mine = {k: g[k][..., tp.index * n:(tp.index + 1) * n]
+                for k in ("y", "z", "scale", "cot")}
+        leaves = {k: mine[k].clone().requires_grad_()
+                  for k in ("y", "z", "scale")}
+        out = _gated_norm(leaves["scale"], leaves["y"], leaves["z"],
+                          case["eps"], tp, di)
+        (out * mine["cot"]).sum().backward()
+    return {"out": out.detach().numpy(),
+            **{k: v.grad.numpy() for k, v in leaves.items()}}
+
+
 def _restore(case, rules):
     from repro_torch.checkpoint import restore_checkpoint
     from repro_torch.checkpoint.store import _leaves
@@ -398,9 +415,10 @@ def run_case(case, timeout_s):
         return _stall(timeout_s)
     rules = _rules(case)
     return {"moe": _moe, "serve": _serve, "train": _train,
-            "thread_grad": _thread_grad, "refuse": _refuse,
+            "thread_grad": _thread_grad,
             "fsdp_gather": _fsdp_gather, "fsdp_wire": _fsdp_wire,
-            "restore": _restore, "tp_grads": _tp_grads}[case["kind"]](
+            "restore": _restore, "tp_grads": _tp_grads,
+            "mamba_norm": _mamba_norm}[case["kind"]](
                 case, rules)
 
 

@@ -50,9 +50,10 @@ fixture), on a ``(data=1, model=P)`` mesh:
 * a gradient taken from another thread (where a card's autograd
   recomputes a checkpointed layer) equal to one taken on the caller's;
 * mamba2's blocks under a TP profile, on a ``(1, P)`` mesh and over
-  ``data > 1`` on a ``(2, P/2)`` one, raise ``NotImplementedError`` naming
-  their ROADMAP item (A8d), and a collective one rank never joins raises
-  within the group's timeout. (FSDP over ``data > 1`` executes:
+  ``data > 1`` on a ``(2, P/2)`` one: the prefill's and two decode steps'
+  logits within 1e-4 of the port's one process (``test_torch_tp_mamba.py``
+  holds the mixer under TP against the reference), and a collective one
+  rank never joins raises within the group's timeout. (FSDP over ``data > 1`` executes:
   ``test_torch_fsdp.py``; tensor parallelism: ``test_torch_tp.py``.)
 """
 
@@ -130,6 +131,33 @@ def _mamba_params():
     return init_params(smoke_config("mamba2-1.3b"),
                        torch.Generator().manual_seed(0), device="cpu",
                        dtype=torch.float32)
+
+
+MAMBA_TOKENS = np.random.default_rng(24).integers(0, 128, (2, 10))
+MAMBA_PROMPT = 8
+
+
+@functools.lru_cache(maxsize=None)
+def _mamba_one_process():
+    """The port's one process on ``MAMBA_TOKENS``: the prefill's logits,
+    then a decode step's on each later token."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import decode_step, init_caches, prefill_step
+
+    cfg = smoke_config("mamba2-1.3b")
+    toks = torch.from_numpy(MAMBA_TOKENS)
+    with torch.no_grad():
+        caches = init_caches(cfg, 2, toks.shape[1], device="cpu")
+        logits, caches = prefill_step(_mamba_params(), cfg,
+                                      {"tokens": toks[:, :MAMBA_PROMPT]},
+                                      caches)
+        out = [logits.numpy()]
+        for i in range(MAMBA_PROMPT, toks.shape[1]):
+            logits, caches = decode_step(_mamba_params(), cfg,
+                                         {"tokens": toks[:, i:i + 1]},
+                                         caches)
+            out.append(logits.numpy())
+    return out
 
 
 def _x(world, cfg, seed):
@@ -213,9 +241,10 @@ def _grid(world, ckpt_root):
     for mesh, profile in (((2, world // 2), "default"),
                           ((1, world), "default"),
                           ((1, world), "ep_sharded")):
-        cases[("refuse", mesh, profile)] = dict(
-            kind="refuse", mesh=mesh, profile=profile, cfg=mamba,
-            params=_np(_mamba_params()))
+        cases[("mamba", mesh, profile)] = dict(
+            kind="serve", mesh=mesh, profile=profile, cfg=mamba,
+            params=_np(_mamba_params()), tokens=MAMBA_TOKENS,
+            prompt_len=MAMBA_PROMPT)
     return cases
 
 
@@ -527,13 +556,29 @@ def test_gradient_taken_on_another_thread_keeps_the_rules(ranks, world):
 
 
 @pytest.mark.parametrize("world", WORLDS)
-def test_unexecuted_meshes_and_profiles_raise(ranks, world):
+def test_mamba_meshes_and_profiles_match_one_process(ranks, world):
+    """mamba2's blocks under the TP profiles, on a ``(1, P)`` mesh and over
+    ``data > 1`` on a ``(2, P/2)`` one: every rank's prefill and decode
+    logits (its data rank's rows) within 1e-4 of the largest logit of the
+    port's one process (float32; the line's sums in other orders)."""
     res, _ = ranks(world)
+    want = _mamba_one_process()
+    seen = 0
     for (kind, *key), per_rank in res.items():
-        if kind != "refuse":
+        if kind != "mamba":
             continue
-        for text in per_rank:
-            assert text is not None and "A8d" in text, (key, text)
+        seen += 1
+        data = key[0][0]
+        for r, got in enumerate(per_rank):
+            d = r // (world // data)
+            rows = np.s_[d * (2 // data):(d + 1) * (2 // data)]
+            steps = [got["prefill"]] + got["decode"]
+            assert len(steps) == len(want)
+            for g, w in zip(steps, want):
+                scale = float(np.abs(w).max())
+                np.testing.assert_allclose(g, w[rows], atol=1e-4 * scale,
+                                           rtol=0, err_msg=str(key))
+    assert seen == 3
 
 
 def test_failed_collective_raises_within_the_timeout(ranks):

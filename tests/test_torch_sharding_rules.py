@@ -12,10 +12,10 @@ architecture:
   leaf paths (``layers/<p·len(pattern)+i>/…`` for ``period/pos<i>/…``);
 * ``batch_pspecs`` and ``cache_pspecs`` for every shape: equal;
 * ``shard`` is the identity; ``check_executable`` passes FSDP over
-  ``data > 1`` and the tensor-parallel profiles, and refuses mamba blocks
-  under tensor parallelism, naming their ROADMAP item (A8d); the meshes
-  and the sharded init refuse what they cannot do, and at (2, 4) and
-  (2, 2) the sharded init keeps the spec's slices.
+  ``data > 1`` and the tensor-parallel profiles, mamba blocks included
+  (ROADMAP A8d); the meshes and the sharded init refuse what they cannot
+  do, and at (1, 4), (2, 4) and (2, 2) the sharded init keeps the spec's
+  slices.
 """
 
 import jax
@@ -224,15 +224,43 @@ def test_tp_profiles_execute(profile):
 
 @pytest.mark.parametrize("profile", TP_PROFILES)
 @pytest.mark.parametrize("arch", ("mamba2-1.3b", "jamba-v0.1-52b"))
-def test_mamba_under_tp_raises_naming_a8d(profile, arch):
-    """Mamba blocks under a tensor-parallel profile are ROADMAP A8d: the
-    rules, the sharded init and the model refuse them."""
-    _, tr = _rules((1, 4), profile)
+def test_mamba_under_tp_executes_with_the_spec_slices(profile, arch):
+    """Mamba blocks under a tensor-parallel profile (ROADMAP A8d) pass
+    ``check_executable`` on every mesh, and at (1, 4) every coordinate's
+    sharded init is the spec's slices of the one-process ``init_params``:
+    ``w_in``'s and ``conv_w``'s column blocks and ``w_out``'s rows a
+    quarter each, ``a_log``, ``dt_bias``, ``d_skip`` and ``norm``
+    whole."""
+    from repro_torch.models import init_params
+    from repro_torch.sharding.placement import local_slice
+
     cfg = smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="A8d"):
-        check_executable(tr, cfg)
-    with pytest.raises(NotImplementedError, match="A8d"):
-        init_params_sharded(cfg, tr, device="cpu")
+    for shape in MESHES:
+        check_executable(_rules(shape, profile)[1], get_config(arch))
+        check_executable(_rules(shape, profile)[1], cfg)
+    whole = dict(_paths(init_params(
+        cfg, torch.Generator().manual_seed(3), device="cpu",
+        dtype=torch.float32)))
+    mesh = StandInMesh((1, 4), ("data", "model"))
+    for m in range(4):
+        mesh.coordinate = {"data": 0, "model": m}
+        tr = ShardingRules.for_mesh(mesh, profile)
+        specs = dict(leaf_pspecs(global_params(cfg), tr))
+        got = dict(_paths(init_params_sharded(
+            cfg, tr, torch.Generator().manual_seed(3), device="cpu",
+            dtype=torch.float32)))
+        mixers = 0
+        for path, leaf in got.items():
+            assert torch.equal(leaf, local_slice(whole[path], specs[path],
+                                                 tr)), (m, path)
+            if "/mamba/" not in path:
+                continue
+            mixers += 1
+            quarter = path.rsplit("/", 1)[1] in ("w_in", "conv_w", "w_out")
+            assert leaf.numel() * (4 if quarter else 1) \
+                == whole[path].numel(), path
+        assert mixers == 7 * sum(k in "mM" for k in cfg.pattern) \
+            * cfg.n_periods
 
 
 @pytest.mark.parametrize("profile,shape", [
