@@ -303,7 +303,12 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  counted by route (the experts' GEMMs see P·cap rows:
                  decode runs on the ``prefill`` route); the training run
                  (AdamW at lr 3e-4 from the first step) against
-                 ``make_train_step(microbatches=4)`` on the global batch:
+                 ``make_train_step(microbatches=4)`` on the global batch,
+                 then one step each from the first state under remat
+                 "none" and "dots" (losses within the first step's bound
+                 of the oracle's; under "dots" the MoE dispatch's ``a2a``
+                 and ``rows`` calls those of "none" and fewer than block's
+                 first step):
                  the losses, the aux loss and the gradient norm within
                  their relative tolerances, every parameter within 2·Σlr
                  and their mean difference within 0.03·Σlr; per rank its
@@ -346,7 +351,28 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  under ``ep_sharded`` on ``(1, 4)``: a 2 x 1024 prefill (the
                  MoE split by sequence), 2 decode steps (the experts split),
                  an int8 step. Exact launches; per rank ms, peak memory and
-                 the transfers by kind (``tp``, ``sp`` among them)
+                 the transfers by kind (``tp``, ``sp`` among them); (a)
+                 also runs one more prefill into a cache of the prompt's
+                 length (the dry-run's shape) and keeps its first decode
+                 step's transfers alone
+  11e. dryrun  — the H100 dry-run (``repro_torch.launch.dryrun``, fake
+                 tensors on the host, no card) in a process started after
+                 the build and read here: the reference test's cell,
+                 musicgen-large ``decode_32k`` on ``16x16`` and
+                 ``2x16x16`` (ok, 256 and 512 chips, flops, a dominant
+                 term), and phase tp (a)'s prefill and decode step at
+                 their shapes on a ``(1, 4)`` stand-in mesh: the bytes sent
+                 and the calls of every kind (``tp``, ``sp``, ``vocab``)
+                 equal what rank 0 measured; the dry-run's peak beside the
+                 rank's peak allocation and its roofline terms beside the
+                 measured ms, reported
+  11f. examples — the examples' torch twins (``examples/torch/*.py``) on
+                 the card at their default sizes (``train_lm --tiny
+                 --steps 30``): each one's wall and launches by route;
+                 the host twins launch nothing, MCL and the service on
+                 ``warp`` (the service's bitwise oracle), ``moe_dispatch``
+                 on the ``fp32`` grouped GEMM, ``train_lm``'s loss falling
+                 on the ``fp32`` attention route
   12. train    — the training path (``repro_torch.train``): (a) each
                  autograd Function on the card against autograd through its
                  plain version on the card: ``multihead_attention`` (the
@@ -365,7 +391,10 @@ numpy and scipy. Phases (any failure exits non-zero and prints no result):
                  8 ``tc`` attention and 24 ``prefill`` GEMM launches a step
                  (forward and the backward's recompute), step ms (CUDA
                  events), tokens/s, peak memory; the same first step again
-                 from the same state (bitwise?); the first step through
+                 from the same state (bitwise?); the first 2 steps again
+                 under remat "dots" (the same launches; losses and grad
+                 norms against block's within phase 11b's bounds, bitwise
+                 reported; step ms and peak memory beside block's); the first step through
                  the plain versions (loss within 2e-3, grad norm within
                  2e-2, relative); cut to 1 layer (a 4-layer checkpoint is
                  32.8 GB), a run killed by its batch function at step 4 and
@@ -3976,6 +4005,10 @@ LM_RANKS_NCCL_DECODE = 2
 LM_RANKS_TRAIN_LAYERS = 2
 LM_RANKS_TRAIN_STEPS = 3
 LM_RANKS_TRAIN_SEQ = 2048
+# one step each from the first state beside the block steps (phase
+# lm_ranks (c)): "dots" must send the MoE dispatch's collectives no more
+# often than "none"
+LM_RANKS_REMAT_STEPS = ("none", "dots")
 # AdamW at lr 3e-4 from the first step on both sides of the training
 # check: at warm-up scale (3e-6 a step) the parameters' check could not tell
 # a wrong gradient from rounding
@@ -4308,7 +4341,7 @@ def lm_ranks_serve(dev, rules, job, rank, params=None):
         comm.reset_counts()
         first = logits.cpu()
         own = [logits.argmax(-1)]
-        cap.phase, step_ms = "decode", []
+        cap.phase, step_ms, comm_decode1 = "decode", [], None
         for i in range(job["steps"]):
             feed = ref["tokens"][:, 0].to(dev) if i == 0 else own[-1]
             t0 = time.perf_counter()
@@ -4319,12 +4352,36 @@ def lm_ranks_serve(dev, rules, job, rank, params=None):
             if i == 0:
                 cap.capturing = False
                 dec1 = logits.cpu()
+                comm_decode1 = {"bytes": dict(comm.sent),
+                                "calls": dict(comm.calls)}
             own.append(logits.argmax(-1))
         comm_decode = {"bytes": dict(comm.sent), "s": dict(comm.seconds),
                        "calls": dict(comm.calls)}
     routes = dict(mg.moe_gemm.route_launches)
     attn_routes = dict(fa.flash_attention.route_launches)
     peak = torch.cuda.max_memory_allocated()
+    dry_prefill = None
+    if job.get("dry_prefill"):
+        # one more prefill at the dry-run's shape: a cache of the prompt's
+        # length (the dry-run's ShapeConfig states one length), its
+        # transfers and launches counted from 0
+        with use_rules(rules), torch.no_grad():
+            caches2 = init_caches(cfg, toks.shape[0], toks.shape[1],
+                                  device=dev)
+            fa.reset_launches()
+            mg.reset_launches()
+            comm.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(params, {"tokens": toks}, caches2)
+            torch.cuda.synchronize()
+            dry_prefill = {
+                "ms": 1e3 * (time.perf_counter() - t0),
+                "bytes": dict(comm.sent), "calls": dict(comm.calls),
+                "flash_attention_route_launches":
+                    dict(fa.flash_attention.route_launches),
+                "moe_gemm_route_launches": dict(mg.moe_gemm.route_launches)}
+        del caches2
     tokens = torch.stack(own, 1).cpu()
     ok_p, err_p = within(first, ref["prefill"], *TOL[torch.bfloat16])
     ok_d, err_d = within(dec1, ref["decode1"], *TOL[torch.bfloat16])
@@ -4345,7 +4402,8 @@ def lm_ranks_serve(dev, rules, job, rank, params=None):
             "max_len": job["max_len"], "slab": list(toks.shape),
             "peak_memory_allocated": peak, "prefill_ms": prefill_ms,
             "decode_step_ms": step_ms, "comm_prefill": comm_prefill,
-            "comm_decode": comm_decode, "moe_gemm_route_launches": routes,
+            "comm_decode": comm_decode, "comm_decode1": comm_decode1,
+            "dry_prefill": dry_prefill, "moe_gemm_route_launches": routes,
             "flash_attention_route_launches": attn_routes,
             "kernel_vs_plain_err": errs,
             "prefill_logits_ok": ok_p, "prefill_max_abs_err": err_p,
@@ -4403,7 +4461,7 @@ def lm_ranks_train(dev, rules, job, rank, params=None):
     fa.reset_launches()
     mg.reset_launches()
     comm.reset_counts()
-    metrics, step_ms = [], []
+    metrics, step_ms, calls_step1 = [], [], None
     with use_rules(rules):
         for batch in job["batches"]:
             slab = {k: batch_slab(torch.from_numpy(v), rules).to(dev)
@@ -4414,6 +4472,8 @@ def lm_ranks_train(dev, rules, job, rank, params=None):
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t0))
             metrics.append({k: float(v) for k, v in m.items()})
+            if calls_step1 is None:
+                calls_step1 = dict(comm.calls)
     routes = dict(mg.moe_gemm.route_launches)
     attn_routes = dict(fa.flash_attention.route_launches)
     comm_steps = {"bytes": dict(comm.sent), "s": dict(comm.seconds),
@@ -4471,8 +4531,60 @@ def lm_ranks_train(dev, rules, job, rank, params=None):
            "comm_steps": comm_steps, "moe_gemm_route_launches": routes,
            "flash_attention_route_launches": attn_routes,
            "checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
-           "restored_bitwise": same}
+           "restored_bitwise": same, "calls_step1": calls_step1}
     del state, params, back
+    gc.collect()
+    torch.cuda.empty_cache()
+    if job.get("remat_steps"):
+        out["remat_steps"] = {r: lm_ranks_remat_step(dev, rules, job, r,
+                                                     compress)
+                              for r in job["remat_steps"]}
+    return out
+
+
+def lm_ranks_remat_step(dev, rules, job, remat, compress):
+    """One training step of ``job["cfg"]`` under ``remat`` from the first
+    state (this rank's slices drawn again from the seeded generator) on
+    the first batch: its metrics, ms, peak memory, transfers and launches
+    by route, counted from 0."""
+    import dataclasses
+
+    from repro_torch.core.collectives import mesh_comm
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.moe_gemm import kernel as mg
+    from repro_torch.sharding import use_rules
+    from repro_torch.sharding.placement import (batch_slab,
+                                                init_params_sharded)
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+
+    cfg = dataclasses.replace(job["cfg"], remat=remat)
+    comm = mesh_comm(rules.mesh)
+    params = init_params_sharded(
+        cfg, rules, torch.Generator(device=dev).manual_seed(0), device=dev,
+        dtype=torch.float32)
+    state = init_train_state(cfg, params, compress=compress)
+    step = make_train_step(cfg, AdamWConfig(**LM_RANKS_OPT),
+                           compress_grads=compress)
+    slab = {k: batch_slab(torch.from_numpy(v), rules).to(dev)
+            for k, v in job["batches"][0].items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    mg.reset_launches()
+    comm.reset_counts()
+    with use_rules(rules):
+        t0 = time.perf_counter()
+        state, m = step(state, slab)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    out = {"metrics": {k: float(v) for k, v in m.items()}, "step_ms": ms,
+           "peak_memory_allocated": torch.cuda.max_memory_allocated(),
+           "calls": dict(comm.calls), "bytes": dict(comm.sent),
+           "flash_attention_route_launches":
+               dict(fa.flash_attention.route_launches),
+           "moe_gemm_route_launches": dict(mg.moe_gemm.route_launches)}
+    del state, params, m
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -4579,6 +4691,37 @@ def lm_serve_checks(rows, cfg, steps, label):
             for k, v in row[f"{kind}_route_launches"].items():
                 launches[kind][k] = launches[kind].get(k, 0) + v
     return launches
+
+
+def remat_checks(row, first, n_moe, label):
+    """A rank's steps under remat ``"none"`` and ``"dots"`` from the first
+    state: the losses within the first step's tolerance of the oracle's
+    first step; under "dots" the MoE dispatch's ``a2a`` and ``rows`` calls
+    those of "none" and fewer than "block"'s first step (no collective of
+    the dispatch in the recompute); launches: "none" a layer's kernels
+    once, "dots" twice (the hand kernels are recomputed, as under
+    "block")."""
+    steps = row["remat_steps"]
+    for remat, got in steps.items():
+        for k in ("loss/total", "loss/ce", "loss/aux"):
+            rel = abs(got["metrics"][k] - first[k]) / (abs(first[k]) or 1.0)
+            check(rel <= LM_RANKS_FIRST_LOSS_RTOL, f"{label} remat "
+                  f"{remat}: {k} {got['metrics'][k]} is {rel} off the "
+                  f"oracle's {first[k]}")
+        times = 1 if remat == "none" else 2
+        check(got["flash_attention_route_launches"] == {"tc": times * n_moe,
+                                                       "fp32": 0}
+              and got["moe_gemm_route_launches"]["prefill"]
+              == 3 * times * n_moe
+              and sum(got["moe_gemm_route_launches"].values())
+              == 3 * times * n_moe, f"{label} remat {remat}: launches "
+              f"{got['flash_attention_route_launches']}, "
+              f"{got['moe_gemm_route_launches']}")
+    block = row["calls_step1"]
+    for kind in ("a2a", "rows"):
+        dots, none = steps["dots"]["calls"][kind], steps["none"]["calls"][kind]
+        check(dots == none > 0 and dots < block[kind], f"{label}: {kind} "
+              f"calls under dots {dots}, none {none}, block {block[kind]}")
 
 
 def _lm_cap(cfg, tokens):
@@ -4727,7 +4870,8 @@ def phase_lm_ranks(dev, arch="qwen2-moe-a2.7b"):
                "train": {"cfg": cfg_c, "batches": batches,
                          "oracle": {"metrics": oracle_metrics,
                                     "params": oracle_params},
-                         "ckpt_dir": ckpt}}
+                         "ckpt_dir": ckpt,
+                         "remat_steps": LM_RANKS_REMAT_STEPS}}
         t0 = time.perf_counter()
         per_rank, lowest = spawn_ranks(LM_RANKS_GLOO, "gloo", job,
                                        target=lm_ranks_worker)
@@ -4787,6 +4931,17 @@ def phase_lm_ranks(dev, arch="qwen2-moe-a2.7b"):
         check(row["restored_bitwise"], f"lm_ranks train rank {r}: restore")
         add({"flash_attention": row["flash_attention_route_launches"],
              "moe_gemm": row["moe_gemm_route_launches"]})
+        remat_checks(row, oracle_metrics[0], n_moe, f"lm_ranks rank {r}")
+        for got in row["remat_steps"].values():
+            add({"flash_attention": got["flash_attention_route_launches"],
+                 "moe_gemm": got["moe_gemm_route_launches"]})
+    emit({"phase": "lm_ranks_remat", "card": smi, "layers": cfg_c.n_layers,
+          "steps_from_the_first_state": list(LM_RANKS_REMAT_STEPS),
+          "per_rank": [{"block_step1_calls": row["calls_step1"],
+                        "block_step_ms": row["step_ms"][0],
+                        "block_peak_memory_allocated":
+                            row["peak_memory_allocated"],
+                        **row["remat_steps"]} for row in train]})
     emit({"phase": "lm_ranks", "card": smi, "ranks_s": t_ranks,
           "lowest_available_host_bytes": lowest,
           "route_launches": launches,
@@ -5375,8 +5530,10 @@ def tp_serve_checks(rows, cfg, steps, refs, label, moe_rows=None):
 
 def tp_qwen3_serve(dev, pool, smi):
     """Part (a) of :func:`phase_tp`: qwen3-8b at full size under
-    ``serve_tp`` on ``(1, 4)``, its KV cache split by sequence. Returns
-    the launches by kernel."""
+    ``serve_tp`` on ``(1, 4)``, its KV cache split by sequence, and one
+    more prefill into a cache of the prompt's length (the dry-run's
+    shape); the rows kept in ``MEASURED["tp_a"]`` for
+    :func:`phase_dryrun`. Returns the launches by kernel."""
     from repro_torch.configs import get_config
 
     cfg = get_config(TP_ARCH)
@@ -5386,8 +5543,11 @@ def tp_qwen3_serve(dev, pool, smi):
     check(max_len % TP_RANKS == 0, "the cache is not split by sequence")
     cache = 2 * cfg.n_layers * TP_BATCH * max_len * cfg.n_kv_heads \
         * cfg.hd * 2
-    return tp_serve_run(dev, pool, smi, "tp_qwen3_serve", cfg, toks,
-                        TP_DECODE, ("cache", cache))[1]
+    rows, launches = tp_serve_run(dev, pool, smi, "tp_qwen3_serve", cfg,
+                                  toks, TP_DECODE, ("cache", cache),
+                                  dry_prefill=True)
+    MEASURED["tp_a"] = rows          # held against the dry-run
+    return launches
 
 
 def tp_qwen3_train(dev, pool, smi):
@@ -5495,7 +5655,7 @@ def tp_qwen_moe(dev, pool, smi):
 
 
 def tp_serve_run(dev, pool, smi, phase, cfg, toks, steps, split=None,
-                 moe_rows=None, check_every=False):
+                 moe_rows=None, check_every=False, dry_prefill=False):
     """``cfg`` (bf16 weights from the seeded generator) served under
     ``serve_tp`` on ``(1, TP_RANKS)``: a prefill of ``toks`` and ``steps``
     greedy decode steps on every rank, against the one-process port
@@ -5505,8 +5665,11 @@ def tp_serve_run(dev, pool, smi, phase, cfg, toks, steps, split=None,
     plain version. Emits the ``phase`` record, then checks
     (:func:`tp_serve_checks` with ``moe_rows``) that a rank holds at most
     ``TP_PARAM_SHARE`` of the weights and, for ``split`` ``(name, whole
-    bytes)``, a ``TP_RANKS``-th of its ``<name>_bytes``. Returns (the
-    rows, the launches by kernel)."""
+    bytes)``, a ``TP_RANKS``-th of its ``<name>_bytes``. With
+    ``dry_prefill``, each rank also runs one more prefill into a cache of
+    the prompt's length, the dry-run's shape (``lm_ranks_serve``), whose
+    launches the returned ones include. Returns (the rows, the launches by
+    kernel)."""
     from repro_torch.models import init_params
     from repro_torch.train.optimizer import tree_leaves
 
@@ -5526,7 +5689,7 @@ def tp_serve_run(dev, pool, smi, phase, cfg, toks, steps, split=None,
         "serve": {"cfg": cfg, "tokens": toks, "max_len": max_len,
                   "steps": steps, "refs": refs,
                   "native": native * TP_RANKS,
-                  "check_every": check_every}})
+                  "check_every": check_every, "dry_prefill": dry_prefill}})
     serve = [r["serve"] for r in rows]
     extra = {}
     for row in serve:
@@ -5553,6 +5716,17 @@ def tp_serve_run(dev, pool, smi, phase, cfg, toks, steps, split=None,
             got = row[f"{split[0]}_bytes"]
             check(got * TP_RANKS == split[1], f"{label} rank {r}: {got} "
                   f"bytes of {split[0]}, the one process's {split[1]}")
+        if dry_prefill:
+            extra = row["dry_prefill"]
+            n_attn = sum(1 for k in cfg.pattern if k in "aAl") \
+                * cfg.n_periods
+            check(extra["flash_attention_route_launches"]
+                  == {"tc": n_attn, "fp32": 0}, f"{label} rank {r}: the "
+                  f"dry-run-shaped prefill's attention launches "
+                  f"{extra['flash_attention_route_launches']}")
+            for kind in launches:
+                launches[kind] = sum_routes(
+                    [launches[kind], extra[f"{kind}_route_launches"]])
     return serve, launches
 
 
@@ -5708,6 +5882,8 @@ TRAIN_ARCH = "qwen2-moe-a2.7b"
 TRAIN_LAYERS = 4
 TRAIN_BATCH, TRAIN_SEQ = 2, 4096        # SHAPES["train_4k"]'s sequence
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_KILL_AT = 6, 3, 4
+# the first steps again under remat "dots", beside the block run's
+TRAIN_DOTS_STEPS = 2
 # the checkpointed run (kill and resume) is the same model cut to 1 layer:
 # the 4-layer state is 32.8 GB, a checkpoint of it took 42 s to write and
 # 59 s to read back beside an H100, whose machine took at most 45 GiB of
@@ -6001,6 +6177,66 @@ def train_repeat_first(dev, cfg, step_fn, batches, whole, snap):
             "grad_norm": float(again["opt/grad_norm"])}
 
 
+def train_dots(dev, cfg, batches, whole, block):
+    """(2') Remat ``"dots"``: ``TRAIN_DOTS_STEPS`` steps from the same state
+    and batches as the block run (``whole``, its metrics; ``block``, its
+    row): the launches a step (the hand kernels recomputed, as under
+    block), the losses and gradient norms against block's within the
+    training bounds (and whether they are bitwise), step ms and peak memory
+    beside block's. Returns the row and the launches."""
+    import dataclasses
+
+    from repro_torch.train import AdamWConfig, make_train_step
+
+    timed = TimedStep(make_train_step(dataclasses.replace(cfg, remat="dots"),
+                                      AdamWConfig()))
+    state = train_state(cfg, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = []
+    for i in range(TRAIN_DOTS_STEPS):
+        state, m = timed(state, batches(i))
+        metrics.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    want = block["launches_per_step_expected"]
+    for i, r in enumerate(timed.rows):
+        got = {k: r[k] for k in want}
+        check(got == want, f"train dots step {i}: launches {got}, expected "
+              f"{want}")
+    rel = []
+    for i, m in enumerate(metrics):
+        b = whole[i]
+        r = {k: abs(m[k] - b[k]) / abs(b[k])
+             for k in ("loss/total", "opt/grad_norm")}
+        tol = LM_RANKS_FIRST_LOSS_RTOL if i == 0 else LM_RANKS_LOSS_RTOL
+        check(r["loss/total"] <= tol
+              and r["opt/grad_norm"] <= LM_RANKS_GNORM_RTOL,
+              f"train dots step {i}: loss {m['loss/total']}, grad norm "
+              f"{m['opt/grad_norm']} against block's {b['loss/total']}, "
+              f"{b['opt/grad_norm']}")
+        rel.append(r)
+    step_ms = [e0.elapsed_time(e1) for e0, e1 in
+               (r["events"] for r in timed.rows)]
+    return {"remat": "dots", "steps": TRAIN_DOTS_STEPS,
+            "losses": [m["loss/total"] for m in metrics],
+            "grad_norms": [m["opt/grad_norm"] for m in metrics],
+            "block_losses": [whole[i]["loss/total"]
+                             for i in range(TRAIN_DOTS_STEPS)],
+            "block_grad_norms": [whole[i]["opt/grad_norm"]
+                                 for i in range(TRAIN_DOTS_STEPS)],
+            "rel_diff": rel,
+            "bitwise_block": all(
+                m["loss/total"] == whole[i]["loss/total"]
+                and m["opt/grad_norm"] == whole[i]["opt/grad_norm"]
+                for i, m in enumerate(metrics)),
+            "step_ms": step_ms, "block_step_ms": block["step_ms"],
+            "peak_memory_allocated": peak,
+            "block_peak_memory_allocated": block["peak_memory_allocated"]}, \
+        timed.launches()
+
+
 def train_kill_resume(dev, kdir, deterministic):
     """(3) At ``TRAIN_RESUME_LAYERS`` layers: an uninterrupted run of
     ``TRAIN_STEPS`` steps, then a run killed by its batch function at step
@@ -6114,9 +6350,9 @@ def train_plain_first(dev, cfg, step_fn, batches, whole):
 
 def train_full_width(dev, ckpt_root):
     """The full-width step: the uninterrupted run, the same first step
-    again, the first step through the plain versions, and (1 layer) kill
-    and resume; one line each. Returns the uninterrupted run's
-    launches."""
+    again, ``TRAIN_DOTS_STEPS`` steps under remat "dots", the first step
+    through the plain versions, and (1 layer) kill and resume; one line
+    each. Returns the uninterrupted and the "dots" runs' launches."""
     from repro_torch.train import AdamWConfig, make_train_step
 
     cfg = train_cfg()
@@ -6129,6 +6365,11 @@ def train_full_width(dev, ckpt_root):
     repeat = train_repeat_first(dev, cfg, step_fn, batches, whole, snap)
     emit({"phase": "train_repeat", **repeat})
     del snap
+    torch.cuda.empty_cache()
+    dots, dots_launches = train_dots(dev, cfg, batches, whole, out)
+    emit({"phase": "train_dots", **dots})
+    launches = {k: sum_routes([launches[k], dots_launches[k]])
+                for k in launches}
     torch.cuda.empty_cache()
     plain = train_plain_first(dev, cfg, step_fn, batches, whole)
     emit({"phase": "train_plain_first_step", **plain})
@@ -6382,6 +6623,265 @@ def phase_train(dev):
     return {"full_width": launches, "f32": f32_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase dryrun: the H100 dry-run on the host, against what the ranks measured
+# ---------------------------------------------------------------------------
+
+# what the ranks phases measured, for the dry-run to be held against
+MEASURED = {}
+DRYRUN_CELL = ("musicgen-large", "decode_32k")
+DRYRUN_LIMIT_S = 600
+
+
+def dryrun_job(path):
+    """In a process of its own, on the host (fake tensors, no card): the
+    reference test's cell (musicgen-large ``decode_32k``) on ``16x16`` and
+    ``2x16x16``, and phase tp (a)'s steps at their shapes (qwen3-8b at
+    full size, bf16 weights, ``serve_tp`` on a ``(1, 4)`` stand-in mesh, a
+    prefill of 2 x ``TP_PROMPT`` into a cache of its length and a decode
+    step in a cache of ``TP_PROMPT + TP_DECODE``); the records, rank 0's,
+    and the job's first and last instants on ``time.perf_counter`` (the
+    host's monotonic clock, one for every process here) written to
+    ``path`` as JSON."""
+    import dataclasses
+
+    out = {"began": time.perf_counter()}
+    torch.set_num_threads(2)          # the parent's phases share the host
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    try:
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.launch import dryrun
+
+        for multi in (False, True):
+            t0 = time.perf_counter()
+            rec, _ = dryrun.lower_cell(*DRYRUN_CELL, multi_pod=multi,
+                                       verbose=False)
+            rec["wall_s"] = time.perf_counter() - t0
+            out["multi" if multi else "single"] = rec
+        cfg = dataclasses.replace(get_config(TP_ARCH),
+                                  param_dtype="bfloat16")
+        mesh = dryrun.DryMesh((1, TP_RANKS), ("data", "model"))
+        for kind, seq in (("prefill", TP_PROMPT),
+                          ("decode", TP_PROMPT + TP_DECODE)):
+            t0 = time.perf_counter()
+            rec, _ = dryrun.lower_cell(
+                TP_ARCH, ShapeConfig(f"tp_a_{kind}", seq, TP_BATCH, kind),
+                opts={"profile": "serve_tp"}, verbose=False,
+                cfg_override=cfg, mesh=mesh)
+            rec["wall_s"] = time.perf_counter() - t0
+            out[f"tp_{kind}"] = rec
+    except Exception:  # reported by the parent
+        out["error"] = traceback.format_exc()
+    out["ended"] = time.perf_counter()
+    with open(path, "w") as f:
+        json.dump(out, f, default=float)
+
+
+def start_dryrun(t0):
+    """:func:`dryrun_job` in a spawned process, started now and read by
+    :func:`phase_dryrun`; it runs on the host beside the card's phases,
+    which ``t0`` (the script's start) places it among."""
+    import multiprocessing
+
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    path = root / "dryrun_records.json"
+    if path.exists():
+        path.unlink()
+    proc = multiprocessing.get_context("spawn").Process(
+        target=dryrun_job, args=(str(path),), daemon=True)
+    proc.start()
+    return proc, path, t0
+
+
+def phase_dryrun(job):
+    """The dry-run's records (:func:`dryrun_job`): the reference test's
+    cell ``ok`` on 256 and 512 chips with flops and a dominant term; phase
+    tp (a)'s prefill (the dry-run-shaped one) and first decode step: the
+    dry-run's bytes sent and calls by kind equal what rank 0 measured,
+    every kind (``tp``, ``sp`` and ``vocab`` among them). Reported, not
+    gated: the dry-run's peak against the rank's peak allocation, its
+    roofline terms against the measured prefill and decode-step ms; the
+    job's start and end on the script's clock (the ``clock`` lines'), so
+    that a reader sees which phases' walls it overlapped."""
+    proc, path, t_script = job
+    t0 = time.perf_counter()
+    proc.join(timeout=DRYRUN_LIMIT_S)
+    if proc.is_alive():
+        proc.kill()
+        proc.join(timeout=10)
+    check(proc.exitcode == 0 and path.exists(),
+          f"the dry-run process ended with {proc.exitcode}")
+    with open(path) as f:
+        out = json.load(f)
+    check("error" not in out, f"the dry-run failed: {out.get('error')}")
+    for name, chips in (("single", 256), ("multi", 512)):
+        rec = out[name]
+        emit({"phase": "dryrun_cell", **rec})
+        check(rec["status"] == "ok" and rec["chips"] == chips
+              and rec["flops_dev"] > 0
+              and rec["dominant"] in ("compute", "memory", "collective"),
+              f"dry-run {DRYRUN_CELL} on {rec['mesh']}: {rec}")
+    rank0 = MEASURED["tp_a"][0]
+    compared = {}
+    for kind, measured, ms in (
+            ("prefill", rank0["dry_prefill"], rank0["dry_prefill"]["ms"]),
+            ("decode", rank0["comm_decode1"], rank0["decode_step_ms"][0])):
+        rec = out[f"tp_{kind}"]
+        check(rec["status"] == "ok", f"dry-run tp (a) {kind}: {rec}")
+        same = rec["sent"] == measured["bytes"] \
+            and rec["calls"] == measured["calls"]
+        compared[kind] = {
+            "dry_sent": rec["sent"], "rank0_sent": measured["bytes"],
+            "dry_calls": rec["calls"], "rank0_calls": measured["calls"],
+            "equal": same, "dry_peak_memory_gb": rec["peak_memory_gb"],
+            "rank0_peak_memory_allocated_gb":
+                rank0["peak_memory_allocated"] / 2 ** 30,
+            "dry_t_compute_ms": rec["t_compute_ms"],
+            "dry_t_memory_ms": rec["t_memory_ms"],
+            "dry_t_collective_ms": rec["t_collective_ms"],
+            "dry_dominant": rec["dominant"], "dry_flops_dev":
+                rec["flops_dev"], "measured_ms": ms,
+            "dry_wall_s": rec["wall_s"]}
+    emit({"phase": "dryrun", "card": card(), "against": "phase tp (a), "
+          "rank 0 of 4 gloo ranks on the card", "tp_a": compared,
+          "job_began_s": out["began"] - t_script,
+          "job_ended_s": out["ended"] - t_script,
+          "waited_s": time.perf_counter() - t0})
+    for kind, c in compared.items():
+        check(c["equal"] and c["rank0_calls"]["tp"] > 0
+              and c["rank0_calls"]["sp"] > 0, f"dry-run tp (a) {kind}: "
+              f"bytes sent by kind {c['dry_sent']}, calls {c['dry_calls']}; "
+              f"rank 0 measured {c['rank0_sent']}, {c['rank0_calls']}")
+    return compared
+
+
+# ---------------------------------------------------------------------------
+# phase examples: the examples' torch twins on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("quickstart", "amg_galerkin", "betweenness_centrality",
+            "mcl_quickstart", "serve_quickstart", "moe_dispatch", "train_lm")
+EXAMPLES_TRAIN_STEPS = 30
+
+
+def phase_examples(dev):
+    """Each twin's ``main`` (``examples/torch/*.py``) on the card at its
+    default size (``train_lm --tiny --steps 30``), its output kept: the
+    wall and the kernels' launches by route, counted from 0 just before
+    and read just after. Checks: the host-path twins (quickstart, AMG, BC)
+    correct and launching nothing; MCL and the service on ``warp`` (bs 32),
+    the service's bitwise oracle (its assert); ``moe_dispatch`` on the
+    ``fp32`` grouped GEMM, its output within ``MOE_TOL`` of ``moe_apply``
+    through the plain versions on the same weights and tokens, the same
+    routed, slot and dropped counts; ``train_lm``'s loss falling, each step
+    one ``fp32`` attention launch a layer, its first step's cross entropy
+    within ``F32_LOSS_RTOL`` of the same step through the plain versions
+    (those runs launch no kernel). Returns the launches by kernel."""
+    import importlib.util
+    import tempfile
+
+    from repro_torch.kernels.bsr_spgemm import kernel as bk
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.moe_gemm import kernel as mg
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    rows, got, mods = {}, {}, {}
+    kernels = {"bsr_spgemm": (bk, bk.bsr_spgemm),
+               "flash_attention": (fa, fa.flash_attention),
+               "moe_gemm": (mg, mg.moe_gemm)}
+    with tempfile.TemporaryDirectory(dir=root / "build",
+                                     prefix="train_lm.") as ckpt:
+        for name in EXAMPLES:
+            spec = importlib.util.spec_from_file_location(
+                f"twin_{name}", root / "examples" / "torch" / f"{name}.py")
+            mod = mods[name] = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            argv = ["--device", dev.type]
+            if name == "train_lm":
+                argv += ["--tiny", "--steps", str(EXAMPLES_TRAIN_STEPS),
+                         "--ckpt-dir", ckpt]
+            for mod_k, _ in kernels.values():
+                mod_k.reset_launches()
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                got[name] = mod.main(argv)
+            torch.cuda.synchronize()
+            rows[name] = {
+                "wall_s": time.perf_counter() - t0,
+                "launches": {k: dict(w.route_launches)
+                             for k, (_, w) in kernels.items()},
+                "output": buf.getvalue().strip().splitlines()[-4:]}
+        # the plain versions on the same inputs
+        for mod_k, _ in kernels.values():
+            mod_k.reset_launches()
+        with plain_ops(), contextlib.redirect_stdout(io.StringIO()):
+            moe_plain = mods["moe_dispatch"].report(
+                *mods["moe_dispatch"].setup(["--device", dev.type]))
+            lm = mods["train_lm"]
+            cfg, params, args, _ = lm.setup(
+                ["--device", dev.type, "--tiny", "--steps", "1",
+                 "--ckpt-dir", os.path.join(ckpt, "plain")])
+            ce_plain = lm.train(cfg, params, args, dev, log_every=1)
+        plain_launches = sum(sum(w.route_launches.values())
+                             for _, w in kernels.values())
+    moe_got = got["moe_dispatch"]
+    moe_ok, moe_err = within(moe_got["y"], moe_plain["y"],
+                             *MOE_TOL[moe_got["y"].dtype])
+    (step0, ce0), (pstep, pce) = got["train_lm"][0], ce_plain[0]
+    ce_rel = abs(ce0 - pce) / abs(pce)
+    plain = {"moe_dispatch": {"max_abs_err": moe_err,
+                              "tolerance": MOE_TOL[moe_got["y"].dtype],
+                              **{k: (moe_got[k], moe_plain[k])
+                                 for k in ("routed", "slots", "dropped",
+                                           "aux")}},
+             "train_lm": {"step": step0, "ce": ce0, "plain_ce": pce,
+                          "rel": ce_rel, "rtol": F32_LOSS_RTOL},
+             "launches": plain_launches}
+    emit({"phase": "examples", "card": card(), "twins": rows,
+          "against_plain": plain, "seconds": time.perf_counter() - t_phase})
+    check(plain_launches == 0, f"examples: the plain runs launched "
+          f"{plain_launches} kernels")
+    check(moe_ok and all(moe_got[k] == moe_plain[k]
+                         for k in ("routed", "slots", "dropped")),
+          f"examples moe_dispatch against the plain versions: "
+          f"{plain['moe_dispatch']}")
+    check(step0 == pstep == 0 and ce_rel <= F32_LOSS_RTOL,
+          f"examples train_lm's first step against the plain versions: "
+          f"{plain['train_lm']}")
+    n = lambda name, k: sum(rows[name]["launches"][k].values())
+    for name in ("quickstart", "amg_galerkin", "betweenness_centrality"):
+        check(all(n(name, k) == 0 for k in kernels),
+              f"examples {name}: a host path launched a kernel")
+    check(got["quickstart"]["correct"] and got["amg_galerkin"]["correct"],
+          "examples: quickstart's or AMG's product is wrong")
+    for name in ("mcl_quickstart", "serve_quickstart"):
+        warp = rows[name]["launches"]["bsr_spgemm"]["warp"]
+        check(warp == n(name, "bsr_spgemm") > 0, f"examples {name}: "
+              f"bsr_spgemm launches {rows[name]['launches']['bsr_spgemm']}")
+    check(got["serve_quickstart"]["oracle"]
+          and got["mcl_quickstart"]["converged"], "examples: the service's "
+          "oracle or MCL's convergence")
+    moe = rows["moe_dispatch"]["launches"]["moe_gemm"]
+    check(moe["fp32"] == n("moe_dispatch", "moe_gemm") == 3
+          and got["moe_dispatch"]["finite"], f"examples moe_dispatch: "
+          f"moe_gemm launches {moe}, finite {got['moe_dispatch']['finite']}")
+    ce = [c for _, c in got["train_lm"]]
+    attn = rows["train_lm"]["launches"]["flash_attention"]
+    check(len(ce) >= 2 and ce[-1] < ce[0], f"examples train_lm: the cross "
+          f"entropy did not fall: {ce}")
+    check(attn["fp32"] == n("train_lm", "flash_attention")
+          == 2 * EXAMPLES_TRAIN_STEPS, f"examples train_lm: attention "
+          f"launches {attn}")
+    return {k: sum_routes([r["launches"][k] for r in rows.values()])
+            for k in kernels}
+
+
 def leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6424,6 +6924,8 @@ def main():
     try:
         infos = phase_build()
         lap("build")
+        # host work beside the card's phases, read after phase tp
+        dry_job = start_dryrun(t0)
         grid_err = phase_kernel(dev)
         case = laplacian_case()
         sess, plan, args, launches, ring, ring_ms = phase_main_path(dev,
@@ -6472,6 +6974,10 @@ def main():
             lap("fsdp")
             tp, tp_err = phase_tp(dev, pool)
         lap("tp")
+        phase_dryrun(dry_job)
+        lap("dryrun")
+        examples = phase_examples(dev)
+        lap("examples")
         train = phase_train(dev)
         lap("train")
         smi = subprocess.run(
@@ -6523,6 +7029,7 @@ def main():
                 "fsdp": fsdp["flash_attention"].get(r, 0),
                 "tp": tp["flash_attention"].get(r, 0),
                 "mamba": mamba_attn_routes[r],
+                "examples": examples["flash_attention"].get(r, 0),
                 "train": train["full_width"]["flash_attention"][r]
                 + train["f32"]["flash_attention"][r]} for r in attn_routes},
         "moe_gemm": {
@@ -6531,6 +7038,7 @@ def main():
                 "fsdp": fsdp["moe_gemm"].get(r, 0),
                 "tp": tp["moe_gemm"].get(r, 0),
                 "mamba": mamba_routes[r],
+                "examples": examples["moe_gemm"].get(r, 0),
                 "train": train["full_width"]["moe_gemm"][r]
                 + train["f32"]["moe_gemm"][r]} for r in routes}}
     train_note = ("; lm_ranks (every rank): the NCCL world of one's prefill "
@@ -6538,7 +7046,8 @@ def main():
                   "serving qwen2-moe-a2.7b at full size (a prefill and 32 "
                   "decode steps; the experts' GEMMs see P·cap rows, so "
                   "decode runs on the prefill route) and 3 training steps "
-                  "(2 layers); fsdp (every rank): 4 gloo ranks, "
+                  "(2 layers), then one step each under remat none and "
+                  "dots; fsdp (every rank): 4 gloo ranks, "
                   "musicgen-large at full size under dp_only on (4, 1) (a "
                   "prefill and 2 decode steps, then a training step, the "
                   "forward and remat's recompute) and qwen2-moe-a2.7b at "
@@ -6553,11 +7062,15 @@ def main():
                   "default on (2, 2) (no kernel), jamba-v0.1-52b at full "
                   "width, one period, under serve_tp on (1, 4) (a prefill "
                   "and 2 decode steps, every launch held against its plain "
-                  "version); mamba (one process): jamba-v0.1-52b at full "
+                  "version), and (a)'s one more prefill at the dry-run's "
+                  "shape; mamba (one process): jamba-v0.1-52b at full "
                   "width, one period: one "
-                  "generate; training: the 6 steps of qwen2-moe-a2.7b at full "
+                  "generate; examples: the twins on the card (moe_dispatch "
+                  "and train_lm: the float32 routes); training: the 6 steps "
+                  "of qwen2-moe-a2.7b at full "
                   "width, 4 layers, S 4096, B 2, remat block (the forward "
-                  "and the backward's recompute); the float32 routes: the "
+                  "and the backward's recompute), and 2 steps under remat "
+                  "dots (the same launches); the float32 routes: the "
                   "2-layer float32 training check")
 
     def moe_row(route, timings, err, source, extra=None):
@@ -6576,6 +7089,7 @@ def main():
 
     service_warp = sum(v for k, v in service_launches.items()
                        if k != "tc_group")
+    examples_warp = examples["bsr_spgemm"].get("warp", 0)
     ranks_note = ("; the ranks phase (the same multiplies across processes, "
                   "one part per rank: NCCL one rank per card, 8 gloo ranks "
                   "on one card)")
@@ -6586,7 +7100,8 @@ def main():
     emit({"kernels": [
         kernel_row("bsr_spgemm_warp", bsr_pallas,
                    default["launches"] + sum(app_launches.values())
-                   + service_warp + rank_launches["warp"], warp,
+                   + service_warp + rank_launches["warp"] + examples_warp,
+                   warp,
                    {"kernel_route": "warp", "launches_on":
                     "the session at its default bs: laplacian_2d(1024) "
                     "through the 1D ring at bs 32 (chunk None and 2) and 16 "
@@ -6595,11 +7110,13 @@ def main():
                     "the apps' kernel runs (AMG, the sketch stream, MCL, "
                     "BC and their resumes); the SpGEMM service's 1D "
                     "requests (the serving CLI, budgets, failure routing)"
-                    + ranks_note,
+                    + ranks_note + "; the examples' twins (MCL, the "
+                    "serving quickstart)",
                     "launches_by_path": {"default_bs": default["launches"],
                                          "apps": app_launches,
                                          "service": service_warp,
-                                         "ranks": rank_launches["warp"]},
+                                         "ranks": rank_launches["warp"],
+                                         "examples": examples_warp},
                     "bs": 32, "previous_ms": warp["previous_ms"],
                     "previous_fill_ms": warp["previous_fill_ms"],
                     "float_ms": warp["float_ms"],

@@ -51,15 +51,23 @@ crosses ranks on: :func:`all_to_all` (backward: the reverse all-to-all),
 gathered, each along its FSDP dim, in one transfer; backward: one float32
 reduce-scatter) and :func:`psum` (backward: the identity — the sum feeds an
 objective every rank holds whole, and each rank carries the gradient back
-to its own term). Tensor parallelism adds Megatron's input operator
-:func:`tp_copy` (the identity; backward a sum), :func:`tp_gather` (an
-all-gather for a consumer every rank runs whole; backward this rank's
-block) and :func:`tp_split` (this rank's block; backward an all-gather).
+to its own term). :func:`all_to_all` and :func:`dispatch_exchange` (the
+MoE dispatch's live-row counts) are dispatcher ops (:data:`ALL_TO_ALL`,
+:data:`EXCHANGE`), so that remat ``"dots"`` (``models.transformer``) can
+save the MoE dispatch's results and its recompute sends nothing, as the
+reference saves ``moe_a2a_fwd`` / ``moe_a2a_ret``; the comm travels to
+them as its ``key`` (a ``MeshComm`` is not a schema type). Tensor
+parallelism adds Megatron's input operator :func:`tp_copy` (the identity;
+backward a sum), :func:`tp_gather` (an all-gather for a consumer every
+rank runs whole; backward this rank's block) and :func:`tp_split` (this
+rank's block; backward an all-gather).
 """
 
 from __future__ import annotations
 
+import itertools
 import time
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -70,7 +78,8 @@ from .sparse import CSC, from_coo
 
 __all__ = ["Transport", "Pending", "wire_device", "agree", "all_same",
            "gather_rows", "gather_csc", "mesh_index", "dim_ranks",
-           "MeshComm", "mesh_comm", "all_to_all",
+           "MeshComm", "mesh_comm", "all_to_all", "dispatch_exchange",
+           "ALL_TO_ALL", "EXCHANGE",
            "all_gather_cat", "reduce_scatter", "fsdp_gather", "psum",
            "tp_copy", "tp_gather", "tp_split"]
 
@@ -234,17 +243,21 @@ class Transport:
             return dst
         return torch.empty(dst.shape, dtype=dst.dtype, pin_memory=True)
 
+    def _count(self, kind: str, sends, recvs) -> None:
+        """Add one transfer's payload bytes to ``sent`` / ``received``."""
+        for _, x, _ in sends:
+            self.sent[kind] += x.numel() * x.element_size()
+        for _, shape, dtype, _ in recvs:
+            self.received[kind] += int(np.prod(shape, dtype=np.int64)) * \
+                dtype.itemsize
+
     def _exchange(self, kind: str, sends, recvs) -> Pending:
         """Start every send and receive of one transfer. ``sends`` are
         ``(peer, tensor, tag)``, ``recvs`` ``(peer, shape, dtype, tag)``,
         listed in the same order on every rank (NCCL pairs a batch's
         operations in order); the received tensors come back from
         :meth:`Pending.wait` in ``recvs`` order."""
-        for _, x, _ in sends:
-            self.sent[kind] += x.numel() * x.element_size()
-        for _, shape, dtype, _ in recvs:
-            self.received[kind] += int(np.prod(shape, dtype=np.int64)) * \
-                torch.empty((), dtype=dtype).element_size()
+        self._count(kind, sends, recvs)
         return Pending(self, sends, recvs)
 
     def ring_start(self, payloads: Sequence[torch.Tensor],
@@ -389,10 +402,13 @@ class MeshComm:
     each kind's collectives (the staging copies included), and ``calls``
     their number. Every member of a collective must call it, with blocks
     of the shapes its peers send: what a rank sends to a peer has the shape
-    of what it receives from that peer."""
+    of what it receives from that peer. ``key`` names the comm to the
+    dispatcher ops while it lives."""
 
     def __init__(self, mesh):
         self.mesh = mesh
+        self.key = next(_KEYS)
+        _COMMS[self.key] = self
         self.sent: Dict[str, int] = dict.fromkeys(KINDS, 0)
         self.received: Dict[str, int] = dict.fromkeys(KINDS, 0)
         self.seconds: Dict[str, float] = dict.fromkeys(KINDS, 0.0)
@@ -414,9 +430,14 @@ class MeshComm:
     def size(self, dims: Sequence[str]) -> int:
         return len(self.ranks(dims))
 
+    @property
+    def rank(self) -> int:
+        """This process's global rank."""
+        return dist.get_rank()
+
     def index(self, dims: Sequence[str]) -> int:
         """This rank's position among :meth:`ranks` ``(dims)``."""
-        return self.ranks(dims).index(dist.get_rank())
+        return self.ranks(dims).index(self.rank)
 
     def _transport(self, device: torch.device) -> Transport:
         if device not in self._transports:
@@ -441,7 +462,7 @@ class MeshComm:
         the block member i sends this rank (by default ``blocks[i]``'s);
         a block with no element does not travel."""
         ranks = self.ranks(dims)
-        me = ranks.index(dist.get_rank())
+        me = ranks.index(self.rank)
         if len(ranks) == 1:
             return [blocks[0]]
         t = self._transport(blocks[0].device)
@@ -480,7 +501,7 @@ class MeshComm:
         """Every member's ``x`` (same shape on each), in member order, on
         the member whose global rank is ``root``; None on the others."""
         ranks = self.ranks(dims)
-        me = dist.get_rank()
+        me = self.rank
         if len(ranks) == 1:
             return [x]
         t = self._transport(x.device)
@@ -525,14 +546,23 @@ class MeshComm:
         return self.gather(red, dims, kind).reshape(-1)[:n].reshape(x.shape)
 
 
-_COMMS: Dict[int, Tuple[object, MeshComm]] = {}
+# every live comm by its key: how the dispatcher ops reach one
+_COMMS: "weakref.WeakValueDictionary[int, MeshComm]" = \
+    weakref.WeakValueDictionary()
+_KEYS = itertools.count()
 
 
 def mesh_comm(mesh) -> MeshComm:
-    """The one :class:`MeshComm` of ``mesh`` in this process."""
-    if id(mesh) not in _COMMS or _COMMS[id(mesh)][0] is not mesh:
-        _COMMS[id(mesh)] = (mesh, MeshComm(mesh))
-    return _COMMS[id(mesh)][1]
+    """The one :class:`MeshComm` of ``mesh`` in this process: the one the
+    mesh makes itself where it has a ``make_comm`` (the dry-run's stand-in,
+    ``launch.dryrun.DryMesh``, whose comm moves nothing), else a
+    :class:`MeshComm` over the process group. The mesh keeps it, so it
+    goes with the mesh."""
+    comm = getattr(mesh, "_mesh_comm", None)
+    if comm is None:
+        make = getattr(mesh, "make_comm", None)
+        comm = mesh._mesh_comm = make() if make else MeshComm(mesh)
+    return comm
 
 
 def _tiled_a2a(comm, x, dims, split_dim, cat_dim, kind):
@@ -557,19 +587,6 @@ def _reduce_scatter(comm, x, dims, kind):
 def _gather_cat(comm, x, dims, kind):
     g = comm.gather(x, dims, kind)
     return g.reshape((-1,) + tuple(x.shape[1:]))
-
-
-class _AllToAll(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, comm, dims, split_dim, cat_dim, kind):
-        ctx.args = (comm, dims, split_dim, cat_dim, kind)
-        return _tiled_a2a(comm, x, dims, split_dim, cat_dim, kind)
-
-    @staticmethod
-    def backward(ctx, g):
-        comm, dims, split_dim, cat_dim, kind = ctx.args
-        return (_tiled_a2a(comm, g, dims, cat_dim, split_dim, kind),
-                None, None, None, None, None)
 
 
 class _AllGather(torch.autograd.Function):
@@ -691,13 +708,63 @@ class _Split(torch.autograd.Function):
         return _gather_dim(comm, g, dims, dim, kind), None, None, None, None
 
 
+def _a2a_impl(x: torch.Tensor, comm: int, dims: str, split_dim: int,
+              cat_dim: int, kind: str) -> torch.Tensor:
+    return _tiled_a2a(_COMMS[comm], x, tuple(dims.split(",")), split_dim,
+                      cat_dim, kind)
+
+
+def _exchange_impl(x: torch.Tensor, comm: int, dims: str,
+                   kind: str) -> torch.Tensor:
+    c = _COMMS[comm]
+    dims_t = tuple(dims.split(","))
+    return torch.stack(c.exchange(list(x.chunk(c.size(dims_t))), dims_t,
+                                  kind))
+
+
+_a2a_op = torch.library.custom_op(
+    "repro_torch::all_to_all", _a2a_impl, mutates_args=())
+_exchange_op = torch.library.custom_op(
+    "repro_torch::exchange", _exchange_impl, mutates_args=())
+# under fake tensors the comm runs as it is (the dry-run's comm counts and
+# hands back empty blocks of the peers' shapes)
+_a2a_op.register_fake(_a2a_impl)
+_exchange_op.register_fake(_exchange_impl)
+
+
+def _a2a_context(ctx, inputs, output):
+    ctx.args = inputs[1:]
+
+
+def _a2a_backward(ctx, g):
+    comm, dims, split_dim, cat_dim, kind = ctx.args
+    return (_a2a_op(g, comm, dims, cat_dim, split_dim, kind), None, None,
+            None, None, None)
+
+
+_a2a_op.register_autograd(_a2a_backward, setup_context=_a2a_context)
+
+# the ops, as a selective checkpoint policy sees them; an all-to-all's
+# kind is its last argument
+ALL_TO_ALL = torch.ops.repro_torch.all_to_all.default
+EXCHANGE = torch.ops.repro_torch.exchange.default
+
+
 def all_to_all(x, comm: MeshComm, dims, split_dim: int, cat_dim: int,
                kind: str = "a2a"):
     """``jax.lax.all_to_all(tiled=True)`` over ``dims``: ``x`` cut into P
     blocks along ``split_dim``, block i sent to member i, the received
     blocks joined along ``cat_dim`` in member order. Backward: the reverse
-    all-to-all."""
-    return _AllToAll.apply(x, comm, tuple(dims), split_dim, cat_dim, kind)
+    all-to-all. A dispatcher op (:data:`ALL_TO_ALL`)."""
+    return _a2a_op(x, comm.key, ",".join(dims), split_dim, cat_dim, kind)
+
+
+def dispatch_exchange(x, comm: MeshComm, dims, kind: str = "rows"):
+    """``x`` cut into P blocks along dim 0, block i sent to member i; the
+    received blocks stacked in member order: (P, *block), as a dispatcher
+    op (:data:`EXCHANGE`; no gradient). The MoE dispatch's live-row
+    counts."""
+    return _exchange_op(x, comm.key, ",".join(dims), kind)
 
 
 def all_gather_cat(x, comm: MeshComm, dims, kind: str = "reduce",

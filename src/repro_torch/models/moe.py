@@ -36,7 +36,10 @@ paths, by the reference's condition on the *global* batch:
     counts travel with the buckets and the owner packs the live rows to
     the front of each expert before the grouped GEMMs (and unpacks after):
     the ``rows`` contract holds, and an expert no token reached costs no
-    weight read. ``aux`` is averaged and the metrics summed over all ranks.
+    weight read. Both exchanges are dispatcher ops
+    (``collectives.all_to_all`` of kind ``"a2a"`` / ``dispatch_exchange``),
+    whose results remat ``"dots"`` saves. ``aux`` is averaged and the metrics
+    summed over all ranks.
     Under ``ep_sharded`` (tensor parallelism, the sequence divisible by
     the line) each rank routes its block of the sequence the same way.
   * otherwise (``dp_only``, ``default``, and ``ep_sharded`` where the line
@@ -59,8 +62,8 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig, MoEConfig
-from ..core.collectives import (all_to_all, mesh_comm, psum, tp_copy,
-                                tp_gather, tp_split)
+from ..core.collectives import (all_to_all, dispatch_exchange, mesh_comm,
+                                psum, tp_copy, tp_gather, tp_split)
 from ..kernels.moe_gemm import grouped_gemm
 from ..sharding.rules import check_executable, current_rules
 from .layers import dense_init, gate_act, mlp_apply, mlp_init, trunc_normal
@@ -230,7 +233,6 @@ def _moe_shard_map(params, cfg: ModelConfig, x, rules, tp=None):
     shared experts run as a Megatron pair on the whole slab."""
     comm = mesh_comm(rules.mesh)
     ep = (rules.expert_axis,)
-    p = comm.size(ep)
     eg = params.get("experts_gate")
     shared = params.get("shared") if cfg.moe.n_shared else None
     router = params["router"]
@@ -244,7 +246,7 @@ def _moe_shard_map(params, cfg: ModelConfig, x, rules, tp=None):
     def run(bkts, rows):
         cap = bkts.shape[1]
         recv = all_to_all(bkts, comm, ep, 0, 1, "a2a")    # (E/P, P·C, d)
-        rows_in = torch.stack(comm.exchange(list(rows.chunk(p)), ep, "rows"))
+        rows_in = dispatch_exchange(rows, comm, ep)       # (P, E/P)
         order, inverse, live = _packing(rows_in, cap)
         out = _expert_ffn(cfg, _take_rows(recv, order), live, eg,
                           params["experts_up"], params["experts_down"])

@@ -20,8 +20,20 @@ layer's to ``cfg.dtype`` inside the layer's body, as the reference's
 ``_make_period_body`` does. ``cfg.remat == "block"`` runs each layer under
 ``torch.utils.checkpoint`` (non-reentrant): the backward recomputes the
 layer, so every kernel of it is launched twice a step; ``"none"`` keeps the
-activations. The reference's ``"dots"`` policy (matmul outputs saved) is
-not ported and raises.
+activations. ``"dots"`` is the reference's ``save_from_both_policies`` of
+``dots_with_no_batch_dims_saveable`` and the MoE all-to-all's results: each
+layer under the same checkpoint with a selective policy
+(``create_selective_checkpoint_contexts``) that saves the outputs of
+``aten.mm`` and ``aten.addmm`` (the products with no batch dims) and of the
+MoE dispatch's exchanges (``collectives.all_to_all`` of kind ``"a2a"``,
+the bucket all-to-all there and back, and ``collectives.EXCHANGE``, the
+live-row counts, so the recompute sends nothing of the dispatch), and
+recomputes the rest: ``bmm``, ``baddbmm``,
+element-wise ops, the FSDP and TP gathers and sums, and the hand kernels
+(``ctypes`` launches inside ``_Attention`` and ``_GroupedGemm``, no aten
+op), as the reference recomputes its ``pallas_call``s and batched
+einsums. The three modes keep different tensors and compute the same
+values: losses and gradients are the same.
 
 Across ranks (``sharding.use_rules`` with an executed profile on a
 ``(data, model)`` mesh), every entry point takes this rank's slab of a
@@ -82,12 +94,14 @@ import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ..configs.base import ModelConfig
-from ..core.collectives import (all_gather_cat, all_to_all, fsdp_gather,
-                                mesh_comm, psum, reduce_scatter, tp_copy,
-                                tp_gather)
+from ..core.collectives import (ALL_TO_ALL, EXCHANGE, all_gather_cat,
+                                all_to_all, fsdp_gather, mesh_comm, psum,
+                                reduce_scatter, tp_copy, tp_gather)
 from ..core.device_common import resolve_device
 from ..sharding.placement import param_specs, spec_axes
 from ..sharding.rules import (_spec_for, check_executable, current_rules,
@@ -99,7 +113,11 @@ from .layers import compute_dtype, rmsnorm, rmsnorm_init, softcap, \
 __all__ = ["init_params", "init_caches", "loss_fn", "train_logits",
            "prefill_step", "decode_step", "layer_kinds"]
 
-REMAT = ("none", "block")
+REMAT = ("none", "block", "dots")
+# what remat "dots" keeps: the products with no batch dims and the MoE
+# dispatch's row counts; besides, the MoE's all-to-alls (kind "a2a")
+DOTS_SAVED = frozenset((torch.ops.aten.mm.default,
+                        torch.ops.aten.addmm.default, EXCHANGE))
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
@@ -274,16 +292,27 @@ def _train_layer(lp, cfg: ModelConfig, kind: str, layer: int, h,
     return h, aux
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    save = op in DOTS_SAVED or (op is ALL_TO_ALL and args[-1] == "a2a")
+    return CheckpointPolicy.MUST_SAVE if save \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def _train_stack(params, cfg: ModelConfig, h) -> Tuple[torch.Tensor,
                                                        torch.Tensor]:
     if cfg.remat not in REMAT:
-        raise ValueError(f"remat {cfg.remat!r} is not ported; the port runs "
-                         f"{REMAT}")
+        raise ValueError(f"remat {cfg.remat!r} is not one of {REMAT}")
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, (kind, lp) in enumerate(zip(layer_kinds(cfg), params["layers"])):
-        if cfg.remat == "block":
+        if cfg.remat != "none":
             h, a = checkpoint(_train_layer, lp, cfg, kind, i, h,
-                              current_rules(), use_reentrant=False)
+                              current_rules(), use_reentrant=False,
+                              context_fn=_dots_context if cfg.remat == "dots"
+                              else noop_context_fn)
         else:
             h, a = _train_layer(lp, cfg, kind, i, h, current_rules())
         aux = aux + a

@@ -50,12 +50,20 @@ Cases (dicts, run in order; every rank runs every case), each with
   cot)`` over its part (:func:`_mamba_norm`);
 * ``{"kind": "restore", "cfg", "ckpt_dir", "step"}`` — a whole train state's
   checkpoint restored with ``sharding_tree=``: every leaf's slice;
+* ``{"kind": "step_counts", "cfg", "params", "step", "seq", "tokens",
+  "labels"}`` — one ``make_train_step`` / ``make_prefill_step`` /
+  ``make_decode_step`` (``step``: "train", "prefill" or "decode") at the
+  dry-run's shapes: int32 tokens (and labels), caches of ``seq`` positions
+  made under the rules, a decode step at position ``seq - 1``; the comm's
+  ``sent`` / ``received`` / ``calls`` by kind from a reset just before the
+  step, and a training step's metrics;
 * ``{"kind": "stall"}`` — rank 0 starts an all-to-all that rank 1 never
   joins: the error's type and the seconds until it was raised.
 """
 
 import datetime
 import os
+import pickle
 import queue as queues
 import tempfile
 import time
@@ -66,6 +74,7 @@ import torch
 import torch.distributed as dist
 
 GROUP_TIMEOUT_S = 30
+ARRIVAL_TIMEOUT_S = 120
 SLICE_KEYS = ("params/embed", "params/layers/0/moe/experts_up",
               "opt/mu/layers/0/moe/experts_down", "residual/embed")
 
@@ -144,6 +153,42 @@ def _serve(case, rules):
             logits, caches = make_decode_step(cfg)(
                 params, {"tokens": feed}, caches)
             out["decode"].append(logits.numpy())
+    return out
+
+
+def _step_counts(case, rules):
+    from repro_torch.core.collectives import mesh_comm
+    from repro_torch.models import init_caches
+    from repro_torch.sharding import use_rules
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_decode_step, make_prefill_step,
+                                   make_train_step)
+
+    cfg, kind = case["cfg"], case["step"]
+    params = _params(case, rules)
+    batch = {"tokens": _slab(case["tokens"], rules)}
+    comm = mesh_comm(rules.mesh)
+    out = {}
+    with use_rules(rules):
+        if kind == "train":
+            batch["labels"] = _slab(case["labels"], rules)
+            state = init_train_state(cfg, params)
+            step = make_train_step(cfg, AdamWConfig())
+            comm.reset_counts()
+            _, m = step(state, batch)
+            out["metrics"] = {k: float(v) for k, v in m.items()}
+        else:
+            caches = init_caches(cfg, batch["tokens"].shape[0], case["seq"],
+                                 device="cpu")
+            if kind == "decode":
+                caches = [c._replace(length=case["seq"] - 1)
+                          if hasattr(c, "length") else c for c in caches]
+            maker = make_prefill_step if kind == "prefill" \
+                else make_decode_step
+            comm.reset_counts()
+            maker(cfg)(params, batch, caches)
+    out.update(sent=dict(comm.sent), received=dict(comm.received),
+               calls=dict(comm.calls))
     return out
 
 
@@ -418,19 +463,38 @@ def run_case(case, timeout_s):
             "thread_grad": _thread_grad,
             "fsdp_gather": _fsdp_gather, "fsdp_wire": _fsdp_wire,
             "restore": _restore, "tp_grads": _tp_grads,
-            "mamba_norm": _mamba_norm}[case["kind"]](
+            "mamba_norm": _mamba_norm,
+            "step_counts": _step_counts}[case["kind"]](
                 case, rules)
 
 
-def main(rank, world, init_file, cases, queue, timeout_s=GROUP_TIMEOUT_S):
-    """One rank: join the gloo group through ``init_file`` (every wait
-    bounded by ``timeout_s``), run ``cases``, put ``(rank, "ok",
-    results)`` (or ``(rank, "error", traceback)``) on ``queue``."""
+def _arrive(store, world):
+    """Wait on ``store`` until all ``world`` ranks have started, bounded by
+    :data:`ARRIVAL_TIMEOUT_S`: on a loaded host spawned ranks come seconds
+    apart, and a group timeout (:func:`_stall`'s 3 s) must bound the
+    group's waits, not the ranks' start."""
+    store.set_timeout(datetime.timedelta(seconds=ARRIVAL_TIMEOUT_S))
+    if store.add("arrived", 1) == world:
+        store.set("all_arrived", "1")
+    store.wait(["all_arrived"])
+
+
+def main(rank, world, init_file, cases_file, queue,
+         timeout_s=GROUP_TIMEOUT_S):
+    """One rank: read the pickled cases from ``cases_file``; once every
+    rank has started, join the gloo group through ``init_file`` (every
+    wait of the group bounded by ``timeout_s``), run the cases, put
+    ``(rank, "ok", results)`` (or ``(rank, "error", traceback)``) on
+    ``queue``."""
     torch.set_num_threads(1)  # ranks share the host's cores
     try:
+        with open(cases_file, "rb") as f:
+            cases = pickle.load(f)
+        store = dist.FileStore(init_file, world)
+        _arrive(store, world)
+        store.set_timeout(datetime.timedelta(seconds=timeout_s))
         dist.init_process_group(
-            "gloo", init_method=f"file://{init_file}", rank=rank,
-            world_size=world,
+            "gloo", store=store, rank=rank, world_size=world,
             timeout=datetime.timedelta(seconds=timeout_s))
         queue.put((rank, "ok", [run_case(c, timeout_s) for c in cases]))
     except Exception:  # report to the parent, whatever failed
@@ -442,16 +506,22 @@ def main(rank, world, init_file, cases, queue, timeout_s=GROUP_TIMEOUT_S):
 
 def spawn(world, cases, timeout_s=GROUP_TIMEOUT_S, limit_s=150):
     """Run ``cases`` on ``world`` gloo ranks (``torch.multiprocessing``,
-    spawned, a ``file://`` init): ``{rank: (status, payload)}``. Every
-    process is joined, or killed past ``limit_s``."""
+    spawned, a ``FileStore``): ``{rank: (status, payload)}``. Every
+    process is joined, or killed past ``limit_s``. The cases travel in a
+    file: a spawned process's arguments go through a pipe that the parent
+    fills before it starts the next, so arguments larger than the pipe
+    would start the ranks one after another."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     with tempfile.TemporaryDirectory() as tmp:
         init = os.path.join(tmp, "init")
+        cases_file = os.path.join(tmp, "cases.pkl")
+        with open(cases_file, "wb") as f:
+            pickle.dump(cases, f)
         procs = [ctx.Process(target=main,
-                             args=(r, world, init, cases, q, timeout_s),
+                             args=(r, world, init, cases_file, q, timeout_s),
                              daemon=True)
                  for r in range(world)]
         for p in procs:

@@ -1,13 +1,15 @@
 """The port stands alone: no jax, nothing of ``repro``, imports on a CPU box.
 
-* An AST scan of every file under ``src/repro_torch/`` and of
-  ``chip_smoke.py``: no ``import jax`` / ``from jax...``, no ``repro`` or
-  ``repro.*`` import (``repro_torch`` is a different top-level name).
+* An AST scan of every file under ``src/repro_torch/``, of the examples'
+  torch twins (``examples/torch/*.py``) and of ``chip_smoke.py``: no
+  ``import jax`` / ``from jax...``, no ``repro`` or ``repro.*`` import
+  (``repro_torch`` is a different top-level name).
 * An import sweep of every ``repro_torch`` module, derived from the file
   tree, in this process (torch for the CPU, no nvcc, no GPU): importing
   compiles and loads nothing. Each module is also imported first, on a
   fresh package state, so no import cycle hides behind the order in which
-  a caller happens to load modules.
+  a caller happens to load modules. The twins import in a process that
+  holds no ``jax`` and no ``repro`` afterwards.
 * ``chip_smoke.py`` refuses to run without a CUDA device: a non-zero exit
   and no result line.
 * The serving and training CLIs run end to end on the CPU
@@ -26,11 +28,13 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
+TWINS = REPO / "examples" / "torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + sorted(TWINS.glob("*.py")) + \
+        [REPO / "chip_smoke.py"]
 
 
 def _modules():
@@ -90,6 +94,26 @@ def test_every_module_imports_first():
             "              if m.split('.')[0] == 'repro_torch']:\n"
             "        del sys.modules[m]\n"
             "    importlib.import_module(name)\n")
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_twins_import_without_jax_or_the_reference():
+    """Each twin imported (not run) in a fresh process: afterwards no
+    ``jax`` or ``repro`` module is loaded."""
+    twins = sorted(str(p) for p in TWINS.glob("*.py"))
+    assert len(twins) == 7
+    code = ("import importlib.util, sys\n"
+            f"for i, path in enumerate({twins!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(f'twin{i}',"
+            " path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec("
+            "spec))\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)

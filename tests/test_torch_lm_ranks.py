@@ -5,7 +5,7 @@ path.
 The parent (this module) makes the inputs with numpy, hands the
 reference's smoke weights (qwen2-moe-a2.7b and phi3.5-moe-42b-a6.6b) over
 in the port's layout, computes the oracles, then spawns 2 and 4 ranks with
-``torch.multiprocessing`` and a ``file://`` init. The ranks run
+``torch.multiprocessing`` and a ``FileStore``. The ranks run
 ``tests/_torch_lm_ranks_worker.py``, which imports no ``jax``; each world
 runs its whole grid in one spawn, both worlds at once (a module-scoped
 fixture), on a ``(data=1, model=P)`` mesh:

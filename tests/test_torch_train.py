@@ -31,7 +31,9 @@ on CPU tensors, inside its ``torch.autograd.Function``.
 * ``make_eval_step`` against the reference's; ``make_prefill_step`` /
   ``make_decode_step`` are the model's steps.
 * ``remat="block"`` is bitwise ``"none"`` (loss and every gradient);
-  ``"dots"`` raises. The mamba kinds are held in
+  ``"dots"`` (ported; held against the reference in
+  ``test_torch_remat_dots.py``) is bitwise ``"block"``, and a policy
+  neither package defines raises. The mamba kinds are held in
   ``test_torch_mamba_models.py``.
 * What the training path hands the kernels on a card passes their argument
   checks (bf16 at head dim 128), with each kernel called twice per layer
@@ -373,9 +375,16 @@ def test_block_remat_is_bitwise_none(arch):
 
 
 def test_unported_remat_dots_raises():
+    """"dots" is ported: it runs, bitwise "block"; only a policy that is
+    not one of the port's raises."""
     cfg, _, tp, b = _case("qwen3-8b")
-    with pytest.raises(ValueError, match="dots"):
-        loss_fn(tp, dataclasses.replace(cfg, remat="dots"), _torch_batch(b))
+    with pytest.raises(ValueError, match="remat 'full'"):
+        loss_fn(tp, dataclasses.replace(cfg, remat="full"), _torch_batch(b))
+    (g0, m0), (g1, m1) = (
+        _grads(dataclasses.replace(cfg, remat=r), tp, _torch_batch(b))
+        for r in ("block", "dots"))
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    assert all(torch.equal(a, c) for a, c in zip(g0, g1))
 
 
 # --------------------------------------------------------------------------
